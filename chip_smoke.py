@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py            # S=1024 tenants, window 1024, dim 30, k 15
+
+Phases, each printing its own lines; any failure raises and the script
+exits non-zero without a result line:
+
+1. device: name and power limit (``nvidia-smi``);
+2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. kernels against their plain PyTorch versions at the serving shapes
+   (wrapped ring heads), with kernel, plain and library times (CUDA
+   events) and each kernel's bound on this card;
+4. main path: ``ServingEngine.observe_many`` until every window is full
+   plus more than one full window of evicting ticks, then ``predict``;
+   every kernel must have launched there. A short grow-mode run follows;
+5. exactness, bitwise: eviction == refit and chunked == per-tick;
+6. validity: the non-drifted tenants' mean smoothed p-value is 1/2.
+
+The last lines are the card's ``nvidia-smi`` line, one JSON object with
+the kernel table, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+DIM, K, QUERIES, N_LABELS = 30, 15, 100, 2  # paper App. E widths
+CHUNK = 32  # ticks per observe_many call
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BIG = 1e30
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean ms per call over ``iters`` calls after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def bound(nbytes: float, flops: float):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def ring_inputs(g, S, cap, p, k):
+    dev = "cuda"
+    X = torch.randn((S, cap, p), generator=g, device=dev)
+    y = torch.randint(0, 2, (S, cap), generator=g, device=dev,
+                      dtype=torch.int32)
+    L = torch.sort(3.0 + 6.0 * torch.rand((S, cap, k), generator=g,
+                                          device=dev), -1).values
+    short = torch.rand((S, cap), generator=g, device=dev) < 0.1
+    L[..., k // 2:] = torch.where(short[..., None], BIG, L[..., k // 2:])
+    x_new = torch.randn((S, p), generator=g, device=dev)
+    y_new = torch.randint(0, 2, (S,), generator=g, device=dev,
+                          dtype=torch.int32)
+    head = torch.randint(1, cap, (S,), generator=g, device=dev,
+                         dtype=torch.int32)
+    n = torch.randint(cap // 2, cap + 1, (S,), generator=g, device=dev,
+                      dtype=torch.int32)
+    wrap = torch.full((S,), cap, dtype=torch.int32, device=dev)
+    return X, y, L, x_new, y_new, n, head, wrap
+
+
+def check_stream_update(g, S, cap, p, k, iters):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stream_update import stream_update
+
+    X, y, L, x_new, y_new, n, head, wrap = ring_inputs(g, S, cap, p, k)
+    check(bool((head + n > cap).any()), "ring heads wrapped")
+    kern = lambda: stream_update(X, y, L, None, x_new, y_new, n,  # noqa
+                                 mode="class", head=head, wrap=wrap)
+    plain = lambda: ref.stream_update_fast(X, y, L, None, x_new,  # noqa
+                                           y_new, n, mode="class",
+                                           head=head, wrap=wrap)
+    dk, Lk, _ = kern()
+    dp, Lp, _ = plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b, name in ((dk, dp, "d_row"), (Lk, Lp, "lists")):
+        check(torch.equal(a >= BIG, b >= BIG), f"stream_update {name} BIG")
+        fin = b < BIG
+        check(torch.allclose(a[fin], b[fin], atol=1e-5, rtol=1e-5),
+              f"stream_update {name} within 1e-5")
+        err = max(err, float((a[fin] - b[fin]).abs().max()))
+    # the label gate: exactly the same rows admitted the candidate
+    check(torch.equal((Lk != L).any(-1), (Lp != L).any(-1)),
+          "stream_update label gating")
+    bitwise = torch.equal(dk, dp) and torch.equal(Lk, Lp)
+
+    # the exact tie case (one-hot rows at distance 1.0, lists holding 1.0)
+    cap_t, p_t, k_t = 16, 8, 3
+    Xt = torch.eye(cap_t, p_t, device="cuda").expand(2, cap_t, p_t)
+    Lt = torch.tensor([0.5, 1.0, 1.0], device="cuda").repeat(2, cap_t, 1)
+    Lt[:, 5] = torch.tensor([1.0, 1.0, 2.0])
+    Lt[:, 6] = torch.tensor([0.25, 0.5, BIG])
+    yt = torch.zeros((2, cap_t), dtype=torch.int32, device="cuda")
+    yt[1, ::2] = 1  # tenant 1: only odd rows share the new label
+    tie = [torch.zeros((2, p_t), device="cuda"),
+           torch.zeros(2, dtype=torch.int32, device="cuda"),
+           torch.full((2,), 12, dtype=torch.int32, device="cuda"),
+           torch.tensor([0, 9], dtype=torch.int32, device="cuda"),
+           torch.full((2,), cap_t, dtype=torch.int32, device="cuda")]
+    kt = stream_update(Xt.contiguous(), yt, Lt, None, *tie[:3],
+                       mode="class", head=tie[3], wrap=tie[4])
+    pt = ref.stream_update(Xt, yt, Lt, None, *tie[:3], mode="class",
+                           head=tie[3], wrap=tie[4])
+    check(torch.equal(kt[0], pt[0]) and torch.equal(kt[1], pt[1]),
+          "stream_update tie case exact")
+
+    # tenant-strided ring-block views of a larger padded state
+    Xb, yb, Lb = (t.repeat_interleave(2, dim=1) for t in (X[:8], y[:8],
+                                                           L[:8]))
+    ks = stream_update(Xb[:, :cap], yb[:, :cap], Lb[:, :cap], None,
+                       x_new[:8], y_new[:8], n[:8], mode="class",
+                       head=head[:8], wrap=wrap[:8])
+    ps = ref.stream_update_fast(Xb[:, :cap], yb[:, :cap], Lb[:, :cap], None,
+                                x_new[:8], y_new[:8], n[:8], mode="class",
+                                head=head[:8], wrap=wrap[:8])
+    check(torch.equal(ks[0], ps[0]) and torch.equal(ks[1], ps[1]),
+          "stream_update strided views")
+
+    ms, plain_ms = cuda_ms(kern, iters), cuda_ms(plain, max(iters // 10, 3))
+    nbytes = S * cap * (4 * p + 4 + 8 * k + 4) + S * (4 * p + 16)
+    b_ms, b_by = bound(nbytes, S * cap * (3 * p + 2 * k))
+    print(f"[kernel] stream_update S={S} w={cap} p={p} k={k}: max_abs_err "
+          f"{err:.3g} (bitwise {bitwise}), tie case exact; {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="stream_update", route="cuda",
+                source="src/repro_torch/kernels/csrc/stream_update.cu",
+                replaces="src/repro/kernels/stream_update.py:112",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def check_pairwise(g, S, m, cap, p, iters):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
+
+    A = torch.randn((S, m, p), generator=g, device="cuda")
+    B = torch.randn((S, cap, p), generator=g, device="cuda")
+    out = pairwise_sq_dists(A, B)
+    want = ref.sq_dists(A, B)
+    scale = (A * A).sum(-1)[..., :, None] + (B * B).sum(-1)[..., None, :]
+    err = (out - want).abs()
+    check(bool((err <= 1e-5 * scale).all()),
+          "pairwise_sq_dists within 1e-5 of |a|^2 + |b|^2")
+    for i in (0, m // 3, m - 1):  # row-decomposable, bitwise
+        check(torch.equal(pairwise_sq_dists(A[:, i:i + 1], B),
+                          out[:, i:i + 1]), f"row {i} alone")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ms = cuda_ms(lambda: pairwise_sq_dists(A, B), iters)
+    plain_ms = cuda_ms(lambda: ref.sq_dists(A, B), max(iters // 10, 3))
+    lib_ms = cuda_ms(lambda: torch.cdist(A, B), iters)
+    nbytes = 4 * S * (m * p + cap * p + m * cap)
+    b_ms, b_by = bound(nbytes, S * m * cap * (3 * p + 3))
+    print(f"[kernel] pairwise_sq_dists S={S} m={m} n={cap} p={p}: "
+          f"max_abs_err {float(err.max()):.3g}, rows alone bitwise; "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.cdist {lib_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="pairwise_sq_dists", route="cuda",
+                source="src/repro_torch/kernels/csrc/pairwise_dist.cu",
+                replaces="src/repro/kernels/pairwise_dist.py:45",
+                max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def check_cp_counts(g, S, m, cap, p, k, L, iters):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cp_update import cp_knn_counts
+
+    dev = "cuda"
+    X = torch.randn((S, cap, p), generator=g, device=dev)
+    y = torch.randint(0, L, (S, cap), generator=g, device=dev,
+                      dtype=torch.int32)
+    kth = 6.0 + 3.0 * torch.rand((S, cap), generator=g, device=dev)
+    sums = kth * k * (0.7 + 0.3 * torch.rand((S, cap), generator=g,
+                                             device=dev))
+    dead = torch.rand((S, cap), generator=g, device=dev) < 0.1
+    y = torch.where(dead, -1, y)
+    sums = torch.where(dead, -BIG, sums)
+    kth = torch.where(dead, -BIG, kth)
+    Xt = torch.randn((S, m, p), generator=g, device=dev)
+    alpha = 7.5 * k * (0.7 + 0.3 * torch.rand((S, m, L), generator=g,
+                                               device=dev))
+    args = (X, y, sums, kth, Xt, alpha)
+    got = cp_knn_counts(*args, n_labels=L)
+    want = ref.cp_knn_counts(*args)
+    # tie-adjacent columns: the plain version's own margin to alpha
+    d = torch.sqrt(torch.clamp(ref.sq_dists(Xt, X), min=0.0))
+    tie = torch.zeros((S, m, L), dtype=torch.int32, device=dev)
+    for lbl in range(L):
+        upd = (y[:, None, :] == lbl) & (d < kth[:, None, :])
+        a_i = torch.where(upd, (sums - kth)[:, None, :] + d, sums[:, None, :])
+        a = alpha[..., lbl:lbl + 1]
+        tie[..., lbl] = ((a_i - a).abs() <= 1e-5 * a.abs()).sum(
+            -1, dtype=torch.int32)
+    diff = (got - want).abs()
+    check(bool((diff <= tie).all()),
+          "cp_knn_counts equal outside tie-adjacent columns")
+    lo, hi = int(want.min()), int(want.max())
+    check(0 < hi and lo < cap, "counts span a useful range")
+    ms = cuda_ms(lambda: cp_knn_counts(*args, n_labels=L), iters)
+    plain_ms = cuda_ms(lambda: ref.cp_knn_counts(*args), max(iters // 10, 3))
+    nbytes = 4 * S * (cap * p + 3 * cap + m * p + 2 * m * L)
+    b_ms, b_by = bound(nbytes, S * m * cap * (2 * p + 7 + 3 * L))
+    print(f"[kernel] cp_knn_counts S={S} m={m} n={cap} p={p} L={L}: "
+          f"{int((diff > 0).sum())} differing counts, {int(tie.sum())} "
+          f"tie-adjacent columns, counts in [{lo}, {hi}]; {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="cp_knn_counts", route="cuda",
+                source="src/repro_torch/kernels/csrc/cp_update.cu",
+                replaces="src/repro/kernels/cp_update.py:62",
+                max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: the serving engine
+# ---------------------------------------------------------------------------
+
+
+def equal_states(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.leaves(), b.leaves()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sessions", type=int, default=1024,
+                    help="tenants; the one size that may be cut")
+    ap.add_argument("--window", type=int, default=1024,
+                    help="sliding window, also the capacity (a smaller "
+                    "one only for a quick rehearsal)")
+    ap.add_argument("--iters", type=int, default=50,
+                    help="timed launches per kernel")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import class_drift_traffic
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import session as sm
+
+    S, W, P, M, L = args.sessions, args.window, DIM, QUERIES, N_LABELS
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    print(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.load()
+    regs = [ln.strip() for ln in _build.build_log.splitlines()
+            if "registers" in ln]
+    print(f"[build] {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_build.build_seconds or 0.0:.1f} s); " + " | ".join(regs))
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    table = [check_stream_update(g, S, W, P, K, args.iters),
+             check_pairwise(g, S, M, W, P, args.iters),
+             check_cp_counts(g, S, M, W, P, K, L, args.iters)]
+    torch.cuda.empty_cache()
+
+    # ---- main path: fill every window, then > one window of evictions ----
+    T_main = 2 * W + 2 * CHUNK  # head ends off the block start
+    xs, ys, taus, drifted = class_drift_traffic(SEED, S,
+                                                T_main + CHUNK, P, 2.0)
+    eng = ServingEngine(n_sessions=S, capacity=W, dim=P, k=K, n_labels=L,
+                        window=W, device="cuda")
+    state = eng.init_state()
+    rng = np.random.default_rng(SEED + 1)
+    Xq = rng.standard_normal((S, M, P), dtype=np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    chunk_ms, pv_chunks = [], []
+    t0 = time.perf_counter()
+    for c0 in range(0, T_main, CHUNK):
+        c1 = min(c0 + CHUNK, T_main)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, p = eng.observe_many(state, xs[c0:c1], ys[c0:c1],
+                                    taus[c0:c1])
+        e1.record()
+        pv_chunks.append(p)
+        chunk_ms.append((e0, e1, c1 - c0))
+    pred = eng.predict(state, Xq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tick_ms = np.array([a.elapsed_time(b) / t for a, b, t in chunk_ms])
+    print(f"[main] sliding S={S} window={W}: {T_main} ticks in "
+          f"{len(chunk_ms)} observe_many calls + predict m={M}: "
+          f"{S * T_main / wall:.1f} session-steps/s, chunk-mean tick p50 "
+          f"{np.percentile(tick_ms, 50):.3f} ms p99 "
+          f"{np.percentile(tick_ms, 99):.3f} ms (per-call CUDA events / "
+          f"ticks), peak {peak / 2**30:.2f} GiB, launches {counts}")
+    for name, c in counts.items():
+        check(c > 0, f"{name} launched on the main path")
+    for row in table:
+        row["launches"] = counts[row["name"]]
+    check(int(state.knn.n.min()) == W and int(state.head.max()) > 0,
+          "windows full and ring heads advanced")
+    check(pred.shape == (S, M, L) and bool(torch.isfinite(pred).all())
+          and bool(((pred > 0) & (pred <= 1)).all()), "predict p-values")
+    pvals = torch.cat(pv_chunks).cpu().numpy()  # (T_main, S)
+    check(np.isfinite(pvals).all(), "finite tick p-values")
+
+    # ---- grow mode: capacity doubles under load ----------------------------
+    geng = ServingEngine(n_sessions=S, capacity=64, dim=P, k=K, n_labels=L,
+                         device="cuda")
+    gstate = geng.init_state()
+    ops.reset_launch_counts()
+    for c0 in range(0, 8 * CHUNK, CHUNK):
+        gstate, gp = geng.observe_many(gstate, xs[c0:c0 + CHUNK],
+                                       ys[c0:c0 + CHUNK],
+                                       taus[c0:c0 + CHUNK])
+    check(geng.capacity >= 256, "grow mode doubled at least twice")
+    if 8 * CHUNK <= W:  # the sliding engine has not evicted yet
+        check(torch.equal(gp.cpu(), torch.from_numpy(
+            pvals[7 * CHUNK:8 * CHUNK])),
+            "grow engine p-values equal the sliding engine's")
+    print(f"[grow] capacity 64 -> {geng.capacity} over {8 * CHUNK} "
+          f"ticks, launches {ops.launch_counts()}")
+    del geng, gstate
+    torch.cuda.empty_cache()
+
+    # ---- exactness, bitwise --------------------------------------------------
+    a, b = state.clone(), state.clone()
+    sl = slice(T_main, T_main + CHUNK)
+    a, pa = eng.observe_many(a, xs[sl], ys[sl], taus[sl])
+    pb = []
+    for t in range(T_main, T_main + CHUNK):
+        b, p = eng.observe(b, xs[t], ys[t], taus[t])
+        pb.append(p)
+    check(torch.equal(pa, torch.stack(pb)) and equal_states(a, b),
+          "observe_many chunk == per-tick observe")
+    del a, b
+    torch.cuda.empty_cache()
+    fresh = ServingEngine(n_sessions=S, capacity=W, dim=P, k=K, n_labels=L,
+                          window=W, device="cuda")
+    ref_state = fresh.init_state()
+    for c0 in range(T_main - W, T_main, CHUNK):
+        c1 = min(c0 + CHUNK, T_main)
+        ref_state, _ = fresh.observe_many(ref_state, xs[c0:c1], ys[c0:c1],
+                                          taus[c0:c1])
+    check(equal_states(sm.to_linear(state), sm.to_linear(ref_state)),
+          "eviction == refit after to_linear")
+    print(f"[exact] chunk of {CHUNK} == per-tick; eviction == refit "
+          f"over {S} tenants (bitwise)")
+
+    # ---- validity --------------------------------------------------------------
+    mean_p = float(pvals[:, ~drifted].mean())
+    n_p = pvals[:, ~drifted].size
+    check(0.47 <= mean_p <= 0.53, f"mean smoothed p-value {mean_p}")
+    print(f"[valid] mean smoothed p-value of the non-drifted tenants "
+          f"{mean_p:.5f} over {n_p} p-values")
+
+    print(smi)
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,68 @@
+"""Routing for the port's kernels, counterpart of ``repro/kernels/ops.py``.
+
+A CUDA float32 tensor goes to the hand-written kernel; a CPU tensor goes
+to the plain version in ``ref.py``. A CUDA tensor the kernel does not take
+(float64, k above the kernel's maximum, ``mode="reg"`` for now) raises:
+nothing on CUDA quietly runs the plain version. The device decision
+itself sits in each kernel's wrapper; this module takes the batched form
+(leading tenant axis) the callers use, brings ``stream_update``'s ring
+scalars to the wrapper's per-tenant int32 form and keeps the launch
+counts.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.cp_update import cp_knn_counts as _cp_knn_counts
+from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
+from repro_torch.kernels.stream_update import stream_update as _stream_update
+
+KERNELS = {
+    "stream_update": _stream_update,
+    "pairwise_sq_dists": pairwise_sq_dists,
+    "cp_knn_counts": _cp_knn_counts,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Squared distances ``(S, m, n)``."""
+    return pairwise_sq_dists(A, B)
+
+
+def cp_knn_counts(X, y, sum_same, kth_same, X_test, alpha, n_labels):
+    """Fused score update + counts ``(S, m, L)``."""
+    return _cp_knn_counts(X, y, sum_same, kth_same, X_test, alpha,
+                          n_labels=n_labels)
+
+
+def _scalars(v, S: int, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.int32, device=device).expand(
+        S).contiguous()
+
+
+def stream_update(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
+                  wrap=None):
+    """Distance row + gated ordered k-best merge for one new point per
+    tenant. ``head=None`` is the linear layout; ``wrap`` defaults to the
+    capacity. ``nbr_y=None`` (classification keeps no label lists) is
+    passed through. Returns ``(d_row, nbr_d', nbr_y')``."""
+    S, cap = X.shape[:2]
+    dev = X.device
+    head = _scalars(0 if head is None else head, S, dev)
+    wrap = _scalars(cap if wrap is None else wrap, S, dev)
+    # class labels are int32; the regression state's labels are floats
+    y_new = (_scalars(y_new, S, dev) if mode == "class" else
+             torch.as_tensor(y_new, device=dev).expand(S).contiguous())
+    return _stream_update(X, y, nbr_d, nbr_y, x_new, y_new,
+                          _scalars(n, S, dev), mode=mode, head=head,
+                          wrap=wrap)

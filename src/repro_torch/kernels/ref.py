@@ -1,0 +1,178 @@
+"""Plain PyTorch versions of the port's kernels — the semantics of record.
+
+Counterpart of ``repro/kernels/ref.py``. Every function takes a leading
+tenant axis ``S`` (``X (S, cap, p)``, per-tenant scalars ``(S,)``) and
+also accepts the unbatched form (``X (cap, p)``, scalars ``()``).
+
+Sums over the feature axis run in a fixed sequential order, one column at
+a time, with separate multiply and add roundings. That is the order the
+CUDA kernels use, so a row's result depends neither on the batch shape
+nor on how the work is tiled: the kernels can be held to these functions
+bit for bit, and the port's exactness properties (engine == sequential
+sessions, chunked == per-tick) do not hinge on a library reduction order.
+"""
+from __future__ import annotations
+
+import torch
+
+_BIG = 1e30  # matches core.online.BIG
+
+
+def _sumsq(A: torch.Tensor) -> torch.Tensor:
+    """``sum_j A[..., j]^2`` over the last axis in fixed order."""
+    acc = torch.zeros(A.shape[:-1], dtype=A.dtype, device=A.device)
+    for j in range(A.shape[-1]):
+        acc = acc + A[..., j] * A[..., j]
+    return acc
+
+
+def sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Squared distances ``(..., m, n)`` between rows of ``A (..., m, p)``
+    and ``B (..., n, p)`` in the ``|a|^2 + |b|^2 - 2 a.b`` form, every sum
+    in fixed order over ``p``. Row-decomposable: row ``i`` does not depend
+    on ``m``."""
+    ab = torch.zeros(A.shape[:-1] + (B.shape[-2],), dtype=A.dtype,
+                     device=A.device)
+    for j in range(A.shape[-1]):
+        ab = ab + A[..., :, None, j] * B[..., None, :, j]
+    return _sumsq(A)[..., :, None] + _sumsq(B)[..., None, :] - 2.0 * ab
+
+
+def row_dists(X: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Row-difference distances ``sqrt(max(sum_j (X[.., i, j] - x[.., j])^2,
+    0))``: ``X (..., cap, p)``, ``x (..., p)`` -> ``(..., cap)``."""
+    acc = torch.zeros(X.shape[:-1], dtype=X.dtype, device=X.device)
+    for j in range(X.shape[-1]):
+        t = X[..., j] - x[..., None, j]
+        acc = acc + t * t
+    return torch.sqrt(torch.clamp(acc, min=0.0))
+
+
+def cp_knn_counts(X, y, sum_same, kth_same, X_test, alpha):
+    """Fused simplified-k-NN CP update + p-value partial counts.
+
+    ``counts[t, l] = #{i : alpha_i(t, l) >= alpha[t, l]}`` where
+    ``alpha_i`` is ``sum_same[i]``, updated to ``sum_same[i] - kth_same[i]
+    + d(x_i, x_t)`` when ``y[i] == l`` and ``d < kth_same[i]``. Columns
+    with label -1 and sum -BIG are never counted. ``alpha (..., m, L)``;
+    returns int32 ``(..., m, L)``.
+    """
+    d = torch.sqrt(torch.clamp(sq_dists(X_test, X), min=0.0))  # (.., m, n)
+    labels = torch.arange(alpha.shape[-1], dtype=y.dtype, device=y.device)
+    same = y[..., None, :] == labels[:, None]  # (.., L, n)
+    upd = same[..., None, :, :] & (d[..., :, None, :]
+                                   < kth_same[..., None, None, :])
+    alphas = torch.where(
+        upd, (sum_same - kth_same)[..., None, None, :] + d[..., :, None, :],
+        sum_same[..., None, None, :])
+    return (alphas >= alpha[..., None]).sum(-1, dtype=torch.int32)
+
+
+def _ring_live(cap: int, head, n, wrap=None) -> torch.Tensor:
+    """``(..., cap)`` live mask of a ring window: slot ``(head + i) % wrap``
+    is live for ``i in [0, n)``; slots ``>= wrap`` never are. ``head=None``
+    is the linear layout ``arange(cap) < n``."""
+    n = torch.as_tensor(n)
+    idx = torch.arange(cap, dtype=torch.int32, device=n.device)
+    if head is None:
+        return idx < n[..., None]
+    head = torch.as_tensor(head, device=n.device)[..., None]
+    m = torch.as_tensor(cap if wrap is None else wrap, dtype=torch.int32,
+                        device=n.device)[..., None]
+    age = torch.where(idx >= head, idx - head, idx - head + m)
+    return (age < n[..., None]) & (idx < m)
+
+
+def _lift(*ts):
+    return tuple(None if t is None else torch.as_tensor(t)[None]
+                 for t in ts)
+
+
+def stream_update(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode: str,
+                  head=None, wrap=None):
+    """Sort-based streaming observe front end: distance row + k-best merge.
+
+    ``mode="class"``: row-difference distances, a row's list admits the
+    candidate iff same label; ``nbr_y`` passes through. ``mode="reg"``:
+    ``sq_dists`` distances, a row admits the candidate iff it beats the
+    k-th distance; labels ride along, inserted after equal distances; BIG
+    slots carry the row's own label. Returns ``(d_row, nbr_d', nbr_y')``.
+    """
+    if X.dim() == 2:
+        out = stream_update(*_lift(X, y, nbr_d, nbr_y, x_new, y_new, n),
+                            mode=mode, head=_lift(head)[0],
+                            wrap=_lift(wrap)[0])
+        return tuple(None if o is None else o[0] for o in out)
+    cap, k = nbr_d.shape[-2:]
+    live = _ring_live(cap, head, n, wrap)
+    y_new = torch.as_tensor(y_new, device=X.device)
+    if mode == "class":
+        d = torch.where(live, row_dists(X, x_new), _BIG)
+        same = (y == y_new[:, None]) & live
+        cand = torch.where(same, d, _BIG)
+        merged = torch.sort(torch.cat([nbr_d, cand[..., None]], -1),
+                            dim=-1, stable=True).values[..., :k]
+        return d, merged, nbr_y
+    if mode != "reg":
+        raise ValueError(f"unknown stream_update mode {mode!r}")
+    d = torch.sqrt(torch.clamp(sq_dists(x_new[:, None], X)[:, 0], min=0.0))
+    d_row = torch.where(live, d, _BIG)
+    enters = live & (d < nbr_d[..., -1])
+    cand_d = torch.where(enters, d, _BIG)
+    merged_d = torch.cat([nbr_d, cand_d[..., None]], -1)
+    merged_y = torch.cat(
+        [nbr_y, y_new.to(nbr_y.dtype)[:, None, None].expand(-1, cap, 1)], -1)
+    order = torch.sort(merged_d, dim=-1, stable=True).indices
+    nd = torch.gather(merged_d, -1, order)[..., :k]
+    ny = torch.gather(merged_y, -1, order)[..., :k]
+    ny = torch.where(nd >= _BIG, y[..., None].to(ny.dtype), ny)
+    return d_row, nd, ny
+
+
+def _ordered_insert(L: torch.Tensor, c: torch.Tensor):
+    """Branch-free ordered insert of ``c (..., cap)`` into each ascending
+    row of ``L (..., cap, k)``, strictly after equal values, largest entry
+    dropped. Bit-identical to the stable sort with the candidate last.
+    Returns ``(newL, pos, cols)``."""
+    k = L.shape[-1]
+    pos = (L <= c[..., None]).sum(-1, keepdim=True, dtype=torch.int32)
+    cols = torch.arange(k, dtype=torch.int32, device=L.device)
+    Lsh = torch.cat([L[..., :1], L[..., :k - 1]], -1)
+    newL = torch.where(cols < pos, L,
+                       torch.where(cols == pos, c[..., None], Lsh))
+    return newL, pos, cols
+
+
+def stream_update_fast(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode: str,
+                       head=None, wrap=None):
+    """Sortless form of ``stream_update``, bit-identical to it (every
+    output is a selected input value). The CPU path of the port."""
+    if X.dim() == 2:
+        out = stream_update_fast(
+            *_lift(X, y, nbr_d, nbr_y, x_new, y_new, n), mode=mode,
+            head=_lift(head)[0], wrap=_lift(wrap)[0])
+        return tuple(None if o is None else o[0] for o in out)
+    cap = nbr_d.shape[-2]
+    live = _ring_live(cap, head, n, wrap)
+    y_new = torch.as_tensor(y_new, device=X.device)
+    if mode == "class":
+        d = torch.where(live, row_dists(X, x_new), _BIG)
+        same = (y == y_new[:, None]) & live
+        merged, _, _ = _ordered_insert(nbr_d, torch.where(same, d, _BIG))
+        return d, merged, nbr_y
+    if mode != "reg":
+        raise ValueError(f"unknown stream_update mode {mode!r}")
+    d = torch.sqrt(torch.clamp(sq_dists(x_new[:, None], X)[:, 0], min=0.0))
+    d_row = torch.where(live, d, _BIG)
+    enters = live & (d < nbr_d[..., -1])
+    newL, pos, cols = _ordered_insert(nbr_d, torch.where(enters, d, _BIG))
+    k = nbr_d.shape[-1]
+    Ysh = torch.cat([nbr_y[..., :1], nbr_y[..., :k - 1]], -1)
+    yn = y_new.to(nbr_y.dtype)[:, None, None]
+    newY = torch.where(cols < pos, nbr_y, torch.where(cols == pos, yn, Ysh))
+    newY = torch.where(newL >= _BIG, y[..., None].to(newY.dtype), newY)
+    return d_row, newL, newY
+
+
+__all__ = ["sq_dists", "row_dists", "cp_knn_counts", "stream_update",
+           "stream_update_fast"]

@@ -1,0 +1,231 @@
+"""Tenant-batched capacity-padded CP sessions with exact decremental
+eviction. Counterpart of ``repro/serving/session.py``; see its module
+docstring for the ring layout and the invariants, which hold here
+unchanged.
+
+One ``Session`` holds every tenant of an engine (leading axis ``S``). The
+JAX engine donates its state so that XLA updates the ``(S, cap, cap)``
+distance matrices in place; the port writes in place outright: a tick
+touches one row and one column of each tenant's ``D`` through advanced
+indexing over the tenant axis (O(S*w) bytes) and never copies a
+``(cap, cap)`` buffer.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._device import BIG, resolve
+from repro_torch.core import online
+from repro_torch.core.online import (OnlineKnnState, fsum, next_aid,
+                                     ring_live, ring_mod, ring_slots)
+from repro_torch.kernels import ops as kops
+
+
+@dataclass
+class Session:
+    """Every tenant's sliding-window CP state: k-NN state + live
+    distances, batched over the leading tenant axis."""
+
+    knn: OnlineKnnState
+    D: torch.Tensor  # (S, cap, cap) live pairwise distances, BIG elsewhere
+    head: torch.Tensor  # (S,) int32 slot of the oldest live point
+    aid: torch.Tensor  # (S, cap) int32 arrival ids (monotone at insert)
+    wrap: torch.Tensor  # (S,) int32 ring modulus (slots >= wrap inert)
+
+    @property
+    def capacity(self) -> int:
+        return self.D.shape[-1]
+
+    def leaves(self) -> list[torch.Tensor]:
+        """The eight leaves in the JAX ``tree_flatten`` order: ``X, y,
+        best, n, D, head, aid, wrap``."""
+        k = self.knn
+        return [k.X, k.y, k.best, k.n, self.D, self.head, self.aid,
+                self.wrap]
+
+    @classmethod
+    def from_leaves(cls, leaves) -> "Session":
+        X, y, best, n, D, head, aid, wrap = leaves
+        return cls(OnlineKnnState(X, y, best, n), D, head, aid, wrap)
+
+    def clone(self) -> "Session":
+        return Session.from_leaves([t.clone() for t in self.leaves()])
+
+
+def init(capacity: int, p: int, k: int, *, n_sessions: int = 1,
+         dtype=torch.float32, wrap: int | None = None,
+         device=None) -> Session:
+    """Fresh empty sessions. ``wrap`` (default: the capacity) is the ring
+    modulus; a sliding engine confines its ring to the ``[:wrap]`` block."""
+    if capacity < k:
+        raise ValueError(
+            f"capacity {capacity} < k {k}: the k-best machinery needs at "
+            "least k rows")
+    dev = resolve(device)
+    S = n_sessions
+    return Session(
+        knn=online.init(capacity, p, k, n_sessions=S, dtype=dtype,
+                        device=dev),
+        D=torch.full((S, capacity, capacity), BIG, dtype=dtype, device=dev),
+        head=torch.zeros((S,), dtype=torch.int32, device=dev),
+        aid=torch.zeros((S, capacity), dtype=torch.int32, device=dev),
+        wrap=torch.full((S,), capacity if wrap is None else wrap,
+                        dtype=torch.int32, device=dev),
+    )
+
+
+def _sliding_step(sess: Session, x_new, y_new, tau, window, active, *, k,
+                  evictable: bool = True, wmax: int | None = None):
+    """One fused sliding-window tick for every tenant, in place:
+    evict-if-full, price, learn, all gated by ``active (S,)``.
+
+    Inactive lanes rewrite their own values (state bitwise unchanged) and
+    return a NaN p-value. ``evictable=False`` drops the eviction (grow
+    mode). ``wmax`` is the caller's promise that occupancy never exceeds
+    it: the ring then lives in the ``[:wmax]`` block of every leaf, whose
+    views the kernels read in place. Returns ``(sess, p (S,))``.
+    """
+    knn = sess.knn
+    S, cap = knn.X.shape[:2]
+    w = cap if wmax is None or wmax >= cap else wmax
+    Xw, yw, bw = knn.X[:, :w], knn.y[:, :w], knn.best[:, :w]
+    Dw = sess.D[:, :w, :w]
+    head, n, wrap = sess.head, knn.n, sess.wrap
+    act = active
+    ar = torch.arange(S, device=knn.X.device)
+
+    if evictable:
+        ev = act & (n >= window)
+        s = ev.to(torch.int32)
+        hl = head.long()
+        dcol = Dw[ar, :, hl]  # (S, w): distances to the evicted point
+        head1 = ring_mod(head + s, wrap)
+        n1 = n - s
+        live1 = ring_live(w, head1, n1, wrap)
+        y_old = yw.gather(1, hl[:, None])
+        affected = (ev[:, None] & (yw == y_old) & live1
+                    & (dcol <= bw[..., -1]))
+        cand = (yw[:, :, None] == yw[:, None, :]) & live1[:, None, :]
+        b1 = online.drop_backfill(bw, dcol, cand, Dw, affected, k=k)
+    else:
+        head1, n1, b1 = head, n, bw
+
+    # price + learn through the same code path as core.online.run_stream
+    p, d, merged, idx = online._observe_impl(
+        OnlineKnnState(Xw, yw, b1, n1), x_new, y_new, tau, k=k,
+        head=head1, wrap=wrap)
+
+    il = idx.long()
+    a1 = act[:, None]
+    row = torch.where(a1, d, Dw[ar, il, :])  # D is symmetric
+    sess.D[ar, il, :w] = row
+    sess.D[ar, :w, il] = row
+    knn.X[ar, il] = torch.where(a1, x_new.to(knn.X.dtype), knn.X[ar, il])
+    knn.y[ar, il] = torch.where(act, y_new.to(knn.y.dtype), knn.y[ar, il])
+    knn.best[:, :w] = torch.where(act[:, None, None], merged, b1)
+    new_aid = next_aid(sess.aid[:, :w], head1, n1, wrap)
+    sess.aid[ar, il] = torch.where(act, new_aid, sess.aid[ar, il])
+    knn.n = torch.where(act, n1 + 1, n1)
+    sess.head = head1
+    p = torch.where(act, p, torch.full_like(p, float("nan")))
+    return sess, p
+
+
+def _observe(sess: Session, x_new, y_new, tau, *, k):
+    """Price then learn one point per tenant, recording its distance row
+    and column in ``D`` (in place). Precondition: ``n < wrap``."""
+    active = torch.ones_like(sess.head, dtype=torch.bool)
+    return _sliding_step(sess, x_new, y_new, tau, None, active, k=k,
+                         evictable=False)
+
+
+def to_linear(sess: Session) -> Session:
+    """A new state in the linear layout (``head == 0``): every leaf
+    gathered into arrival order, stale slots reset to the inert fills,
+    arrival ids renumbered ``0..n-1``, ``wrap == cap`` — leaf for leaf
+    what a fresh linear session fed the surviving window holds."""
+    knn = sess.knn
+    S, cap, p = knn.X.shape
+    k = knn.best.shape[-1]
+    slots = ring_slots(cap, sess.head, sess.wrap).long()  # (S, cap)
+    ranks = torch.arange(cap, dtype=torch.int32, device=knn.X.device)
+    live = ranks < knn.n[:, None]
+    X = torch.where(live[..., None],
+                    knn.X.gather(1, slots[..., None].expand(S, cap, p)), 0.0)
+    y = torch.where(live, knn.y.gather(1, slots), -1)
+    best = torch.where(
+        live[..., None], knn.best.gather(1, slots[..., None].expand(S, cap, k)),
+        BIG)
+    D = sess.D.gather(1, slots[:, :, None].expand(S, cap, cap))
+    D = D.gather(2, slots[:, None, :].expand(S, cap, cap))
+    D = torch.where(live[:, :, None] & live[:, None, :], D, BIG)
+    aid = torch.where(live, ranks, 0)
+    return Session(OnlineKnnState(X, y, best, knn.n.clone()), D,
+                   torch.zeros_like(sess.head), aid,
+                   torch.full_like(sess.wrap, cap))
+
+
+def grow(sess: Session, factor: int = 2) -> Session:
+    """Multiply every tenant's capacity by ``factor`` (a new state),
+    normalizing the ring to linear order first."""
+    cap = sess.capacity
+    extra = cap * (factor - 1)
+    s = to_linear(sess)
+    knn = s.knn
+    return Session(
+        knn=OnlineKnnState(
+            X=F.pad(knn.X, (0, 0, 0, extra)),
+            y=F.pad(knn.y, (0, extra), value=-1),
+            best=F.pad(knn.best, (0, 0, 0, extra), value=BIG),
+            n=knn.n,
+        ),
+        D=F.pad(s.D, (0, extra, 0, extra), value=BIG),
+        head=s.head,
+        aid=F.pad(s.aid, (0, extra)),
+        wrap=torch.full_like(s.wrap, cap * factor),
+    )
+
+
+def predict_pvalues(sess: Session, X_test, *, k, n_labels):
+    """Read-only full-CP query: p-values ``(S, m, n_labels)`` for every
+    label of every query row ``X_test (S, m, p)``.
+
+    Candidate scores come from one masked top-k over the distance rows
+    (``kops.sq_dists``, the pairwise kernel on CUDA); the score update and
+    counts from ``kops.cp_knn_counts``, with non-live slots carrying the
+    label -1 and sum -BIG. Rows whose k-best list is not full are left out
+    of the kernel (its ``sum - kth + d`` would subtract the BIG padding)
+    and counted here in the cancellation-safe ``base + (kth or d)`` form.
+    """
+    knn = sess.knn
+    cap = knn.X.shape[1]
+    live = ring_live(cap, sess.head, knn.n, sess.wrap)  # (S, cap)
+
+    d = torch.sqrt(torch.clamp(kops.sq_dists(X_test, knn.X), min=0.0))
+    labels = torch.arange(n_labels, dtype=knn.y.dtype, device=knn.y.device)
+    same = (knn.y[:, None, :] == labels[:, None]) & live[:, None, :]
+    dm = torch.where(same[:, None], d[:, :, None, :], BIG)  # (S, m, L, cap)
+    alpha = fsum(-torch.topk(-dm, k, dim=-1).values)  # (S, m, L)
+
+    kth = knn.best[..., -1]
+    full = live & (kth < BIG)
+    sum_same = torch.where(full, fsum(knn.best), -BIG)
+    kth_same = torch.where(full, kth, -BIG)
+    counts = kops.cp_knn_counts(
+        knn.X, torch.where(live, knn.y, -1), sum_same, kth_same, X_test,
+        alpha.contiguous(), n_labels)
+
+    deficient = live & (kth >= BIG)
+    base = fsum(knn.best[..., :-1])
+    kth4 = kth[:, None, None, :]
+    upd = same[:, None] & (d[:, :, None, :] < kth4)
+    scores = base[:, None, None, :] + torch.where(upd, d[:, :, None, :], kth4)
+    ge = (scores >= alpha[..., None]) & deficient[:, None, None, :]
+    counts = counts + ge.sum(-1, dtype=torch.int32)
+    return (counts + 1.0).to(knn.X.dtype) / (knn.n[:, None, None] + 1.0)
+
+
+__all__ = ["Session", "init", "grow", "predict_pvalues", "to_linear"]
