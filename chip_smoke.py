@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py            # S=1024 tenants, window 1024, dim 30, k 15
+    python3 chip_smoke.py            # S=1024 tenants, window 1024, dim 30
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without a result line:
 
 1. device: name and power limit (``nvidia-smi``);
-2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels against their plain PyTorch versions at the serving shapes
-   (wrapped ring heads), with kernel, plain and library times (CUDA
-   events) and each kernel's bound on this card;
-4. main path: ``ServingEngine.observe_many`` until every window is full
-   plus more than one full window of evicting ticks, then ``predict``;
-   every kernel must have launched there. A short grow-mode run follows;
-5. exactness, bitwise: eviction == refit and chunked == per-tick;
-6. validity: the non-drifted tenants' mean smoothed p-value is 1/2.
+   (wrapped ring heads, tie cases, strided views), with kernel, plain and
+   library times (CUDA events) and each kernel's bound on this card;
+4. classification main path (k 15): ``ServingEngine.observe_many`` until
+   every window is full plus more than one full window of evicting
+   ticks, then ``predict``; every kernel of the path must have launched
+   there. A short grow-mode run follows; then exactness (eviction ==
+   refit, chunked == per-tick, bitwise) and validity (the non-drifted
+   tenants' mean smoothed p-value is 1/2);
+5. regression main path (k 7, the paper's Figure 4 settings): the same
+   ticks through ``RegressionServingEngine.observe_many``, then two
+   ``intervals`` calls at eps 0.1 (the first, then one in steady state);
+   every kernel of the path must have launched there. Then exactness
+   (chunked == per-tick; eviction == refit through ``state_view`` and
+   the neighbour lists, bitwise) and validity (mean smoothed p-value 1/2,
+   interval coverage >= 0.88 on fresh labelled points).
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -36,6 +44,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 DIM, K, QUERIES, N_LABELS = 30, 15, 100, 2  # paper App. E widths
+K_REG, EPS = 7, 0.1  # paper Figure 4 (benchmarks/fig4_regression.py)
 CHUNK = 32  # ticks per observe_many call
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -163,10 +172,11 @@ def check_stream_update(g, S, cap, p, k, iters):
     ms, plain_ms = cuda_ms(kern, iters), cuda_ms(plain, max(iters // 10, 3))
     nbytes = S * cap * (4 * p + 4 + 8 * k + 4) + S * (4 * p + 16)
     b_ms, b_by = bound(nbytes, S * cap * (3 * p + 2 * k))
-    print(f"[kernel] stream_update S={S} w={cap} p={p} k={k}: max_abs_err "
-          f"{err:.3g} (bitwise {bitwise}), tie case exact; {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(name="stream_update", route="cuda",
+    print(f"[kernel] stream_update_class S={S} w={cap} p={p} k={k}: "
+          f"max_abs_err {err:.3g} (bitwise {bitwise}), tie case exact; "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    return dict(name="stream_update_class", route="cuda",
                 source="src/repro_torch/kernels/csrc/stream_update.cu",
                 replaces="src/repro/kernels/stream_update.py:112",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -255,8 +265,138 @@ def check_cp_counts(g, S, m, cap, p, k, L, iters):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def check_stream_update_reg(g, S, cap, p, k, iters):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stream_update import stream_update
+
+    X, _, L, x_new, _, n, head, wrap = ring_inputs(g, S, cap, p, k)
+    dev = "cuda"
+    y = torch.randn((S, cap), generator=g, device=dev)
+    Y = torch.randn((S, cap, k), generator=g, device=dev)
+    y_new = torch.randn((S,), generator=g, device=dev)
+    check(bool((head + n > cap).any()), "ring heads wrapped")
+    kern = lambda: stream_update(X, y, L, Y, x_new, y_new, n,  # noqa: E731
+                                 mode="reg", head=head, wrap=wrap)
+    plain = lambda: ref.stream_update_fast(  # noqa: E731
+        X, y, L, Y, x_new, y_new, n, mode="reg", head=head, wrap=wrap)
+    dk, Lk, Yk = kern()
+    dp, Lp, Yp = plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b, name in ((dk, dp, "d_row"), (Lk, Lp, "lists")):
+        check(torch.equal(a >= BIG, b >= BIG), f"stream_update_reg {name} "
+              "BIG pattern")
+        fin = b < BIG
+        check(torch.allclose(a[fin], b[fin], atol=1e-5, rtol=1e-5),
+              f"stream_update_reg {name} within 1e-5")
+        err = max(err, float((a[fin] - b[fin]).abs().max()))
+    check(torch.equal(Yk, Yp), "stream_update_reg labels exact")
+    admitted = int((Lk != L).any(-1).sum())
+    check(admitted > 0, "the d < kth gate admitted some rows")
+    bitwise = torch.equal(dk, dp) and torch.equal(Lk, Lp)
+
+    # the tie case: one-hot rows at distance exactly 1.0 from the zero
+    # query, lists holding 1.0 (the strict gate keeps the incumbent)
+    cap_t, p_t, k_t = 16, 8, 3
+    Xt = torch.eye(cap_t, p_t, device=dev).expand(2, cap_t, p_t)
+    Lt = torch.tensor([0.5, 1.0, 1.0], device=dev).repeat(2, cap_t, 1)
+    Lt[:, 5] = torch.tensor([1.0, 1.0, 2.0])
+    Lt[:, 6] = torch.tensor([0.25, 0.5, BIG])
+    Yt = torch.arange(2 * cap_t * k_t, dtype=torch.float32,
+                      device=dev).view(2, cap_t, k_t)
+    yt = torch.linspace(-1.0, 1.0, cap_t, device=dev).repeat(2, 1)
+    tie = [torch.zeros((2, p_t), device=dev),
+           torch.tensor([9.0, -9.0], device=dev),
+           torch.full((2,), 12, dtype=torch.int32, device=dev),
+           torch.tensor([0, 9], dtype=torch.int32, device=dev),
+           torch.full((2,), cap_t, dtype=torch.int32, device=dev)]
+    kt = stream_update(Xt.contiguous(), yt, Lt, Yt, *tie[:3], mode="reg",
+                       head=tie[3], wrap=tie[4])
+    pt = ref.stream_update(Xt, yt, Lt, Yt, *tie[:3], mode="reg",
+                           head=tie[3], wrap=tie[4])
+    check(all(torch.equal(a, b) for a, b in zip(kt, pt)),
+          "stream_update_reg tie case exact")
+
+    # tenant-strided ring-block views of a larger padded state
+    Xb, yb, Lb, Yb = (t.repeat_interleave(2, dim=1)
+                      for t in (X[:8], y[:8], L[:8], Y[:8]))
+    ks = stream_update(Xb[:, :cap], yb[:, :cap], Lb[:, :cap], Yb[:, :cap],
+                       x_new[:8], y_new[:8], n[:8], mode="reg",
+                       head=head[:8], wrap=wrap[:8])
+    ps = ref.stream_update_fast(Xb[:, :cap], yb[:, :cap], Lb[:, :cap],
+                                Yb[:, :cap], x_new[:8], y_new[:8], n[:8],
+                                mode="reg", head=head[:8], wrap=wrap[:8])
+    check(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+          "stream_update_reg strided views")
+
+    ms, plain_ms = cuda_ms(kern, iters), cuda_ms(plain, max(iters // 10, 3))
+    nbytes = S * cap * (4 * p + 4 + 16 * k + 4) + S * (4 * p + 16)
+    b_ms, b_by = bound(nbytes, S * cap * (6 * p + 2 * k + 4))
+    print(f"[kernel] stream_update_reg S={S} w={cap} p={p} k={k}: "
+          f"max_abs_err {err:.3g} (bitwise {bitwise}), labels exact, "
+          f"{admitted} rows admitted, tie case exact; {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="stream_update_reg", route="cuda",
+                source="src/repro_torch/kernels/csrc/stream_update.cu",
+                replaces="src/repro/kernels/stream_update.py:112",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def check_interval_sweep(g, S, m, n, p, k, iters):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.interval_sweep import interval_sweep
+
+    dev = "cuda"
+    X = torch.randn((S, n, p), generator=g, device=dev)
+    a_prime = torch.randn((S, n), generator=g, device=dev)
+    kth = 6.5 + 2.0 * torch.rand((S, n), generator=g, device=dev)
+    kth_label = torch.randn((S, n), generator=g, device=dev)
+    n_live = torch.randint(n // 2, n + 1, (S, 1), generator=g, device=dev)
+    live = torch.arange(n, device=dev) < n_live
+    Xt = torch.randn((S, m, p), generator=g, device=dev)
+    a_test = torch.randn((S, m), generator=g, device=dev)
+    args = (X, a_prime, kth, kth_label, live, Xt, a_test)
+    kern = lambda: interval_sweep(*args, k=k)  # noqa: E731
+    plain = lambda: ref.reg_interval_endpoints(*args, k)  # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b, name in zip(got, want, ("lo", "hi")):
+        fin = torch.isfinite(b)
+        check(torch.equal(torch.isfinite(a), fin)
+              and torch.equal(a[~fin], b[~fin]),
+              f"interval_sweep {name} +-inf pattern exact")
+        check(torch.allclose(a[fin], b[fin], atol=1e-4, rtol=1e-4),
+              f"interval_sweep {name} within 1e-4")
+        err = max(err, float((a[fin] - b[fin]).abs().max()))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    d = torch.sqrt(torch.clamp(ref.sq_dists(Xt, X), min=0.0))
+    enters = int((live[:, None, :] & (d < kth[:, None, :])).sum())
+    check(0 < enters < int(live.sum()) * m,
+          "both branches of the update ran")
+    # a query batch shared by every tenant (tenant stride 0)
+    shared = Xt[:1].expand(S, m, p)
+    ks = interval_sweep(*args[:5], shared, a_test, k=k)
+    kc = interval_sweep(*args[:5], shared.contiguous(), a_test, k=k)
+    check(all(torch.equal(a, b) for a, b in zip(ks, kc)),
+          "interval_sweep shared queries == their copies")
+    ms, plain_ms = cuda_ms(kern, iters), cuda_ms(plain, max(iters // 10, 3))
+    nbytes = S * (4 * n * p + 13 * n + 4 * m * p + 4 * m) + 8 * S * m * n
+    b_ms, b_by = bound(nbytes, S * m * n * (3 * p + 25))
+    print(f"[kernel] interval_sweep S={S} m={m} n={n} p={p} k={k}: "
+          f"max_abs_err {err:.3g} (bitwise {bitwise}), +-inf pattern exact, "
+          f"{enters} entering cells; {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="interval_sweep", route="cuda",
+                source="src/repro_torch/kernels/csrc/interval_sweep.cu",
+                replaces="src/repro/kernels/interval_sweep.py:78",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
-# phases 4-6: the serving engine
+# phases 4-5: the serving engines
 # ---------------------------------------------------------------------------
 
 
@@ -264,45 +404,50 @@ def equal_states(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a.leaves(), b.leaves()))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sessions", type=int, default=1024,
-                    help="tenants; the one size that may be cut")
-    ap.add_argument("--window", type=int, default=1024,
-                    help="sliding window, also the capacity (a smaller "
-                    "one only for a quick rehearsal)")
-    ap.add_argument("--iters", type=int, default=50,
-                    help="timed launches per kernel")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible", file=sys.stderr)
-        return 1
+def drive(eng, state, xs, ys, taus, T):
+    """``T`` ticks in ``CHUNK``-tick ``observe_many`` calls, each timed
+    with CUDA events. Returns ``(state, p (T, S) on the card, per-call
+    (start, end, ticks) events)``."""
+    pv, calls = [], []
+    for c0 in range(0, T, CHUNK):
+        c1 = min(c0 + CHUNK, T)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, p = eng.observe_many(state, xs[c0:c1], ys[c0:c1],
+                                    taus[c0:c1])
+        e1.record()
+        pv.append(p)
+        calls.append((e0, e1, c1 - c0))
+    return state, torch.cat(pv), calls
 
-    from repro_torch.kernels import _build, ops
+
+def chunk_tick_ms(calls) -> np.ndarray:
+    return np.array([a.elapsed_time(b) / t for a, b, t in calls])
+
+
+def check_chunk_equals_ticks(eng, state, xs, ys, taus, t0):
+    """One ``CHUNK``-tick ``observe_many`` == as many ``observe`` calls,
+    p-values and every leaf bitwise."""
+    a, b = state.clone(), state.clone()
+    sl = slice(t0, t0 + CHUNK)
+    a, pa = eng.observe_many(a, xs[sl], ys[sl], taus[sl])
+    pb = []
+    for t in range(t0, t0 + CHUNK):
+        b, p = eng.observe(b, xs[t], ys[t], taus[t])
+        pb.append(p)
+    check(torch.equal(pa, torch.stack(pb)) and equal_states(a, b),
+          "observe_many chunk == per-tick observe")
+
+
+def classification_path(S, W):
+    """Phase 4. Returns the main path's launch counts."""
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import class_drift_traffic
     from repro_torch.serving import ServingEngine
     from repro_torch.serving import session as sm
 
-    S, W, P, M, L = args.sessions, args.window, DIM, QUERIES, N_LABELS
-    kind = torch.cuda.get_device_name(0)
-    smi = smi_line()
-    print(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda}")
-
-    t0 = time.perf_counter()
-    _build.load()
-    regs = [ln.strip() for ln in _build.build_log.splitlines()
-            if "registers" in ln]
-    print(f"[build] {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds or 0.0:.1f} s); " + " | ".join(regs))
-
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    table = [check_stream_update(g, S, W, P, K, args.iters),
-             check_pairwise(g, S, M, W, P, args.iters),
-             check_cp_counts(g, S, M, W, P, K, L, args.iters)]
-    torch.cuda.empty_cache()
-
-    # ---- main path: fill every window, then > one window of evictions ----
+    P, M, L = DIM, QUERIES, N_LABELS
     T_main = 2 * W + 2 * CHUNK  # head ends off the block start
     xs, ys, taus, drifted = class_drift_traffic(SEED, S,
                                                 T_main + CHUNK, P, 2.0)
@@ -314,39 +459,28 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    chunk_ms, pv_chunks = [], []
     t0 = time.perf_counter()
-    for c0 in range(0, T_main, CHUNK):
-        c1 = min(c0 + CHUNK, T_main)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        state, p = eng.observe_many(state, xs[c0:c1], ys[c0:c1],
-                                    taus[c0:c1])
-        e1.record()
-        pv_chunks.append(p)
-        chunk_ms.append((e0, e1, c1 - c0))
+    state, pv, calls = drive(eng, state, xs, ys, taus, T_main)
     pred = eng.predict(state, Xq)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    tick_ms = np.array([a.elapsed_time(b) / t for a, b, t in chunk_ms])
+    tick_ms = chunk_tick_ms(calls)
     print(f"[main] sliding S={S} window={W}: {T_main} ticks in "
-          f"{len(chunk_ms)} observe_many calls + predict m={M}: "
+          f"{len(calls)} observe_many calls + predict m={M}: "
           f"{S * T_main / wall:.1f} session-steps/s, chunk-mean tick p50 "
           f"{np.percentile(tick_ms, 50):.3f} ms p99 "
           f"{np.percentile(tick_ms, 99):.3f} ms (per-call CUDA events / "
           f"ticks), peak {peak / 2**30:.2f} GiB, launches {counts}")
-    for name, c in counts.items():
-        check(c > 0, f"{name} launched on the main path")
-    for row in table:
-        row["launches"] = counts[row["name"]]
+    for name in ("stream_update_class", "pairwise_sq_dists",
+                 "cp_knn_counts"):
+        check(counts[name] > 0, f"{name} launched on the main path")
     check(int(state.knn.n.min()) == W and int(state.head.max()) > 0,
           "windows full and ring heads advanced")
     check(pred.shape == (S, M, L) and bool(torch.isfinite(pred).all())
           and bool(((pred > 0) & (pred <= 1)).all()), "predict p-values")
-    pvals = torch.cat(pv_chunks).cpu().numpy()  # (T_main, S)
+    pvals = pv.cpu().numpy()  # (T_main, S)
     check(np.isfinite(pvals).all(), "finite tick p-values")
 
     # ---- grow mode: capacity doubles under load ----------------------------
@@ -368,17 +502,8 @@ def main(argv=None) -> int:
     del geng, gstate
     torch.cuda.empty_cache()
 
-    # ---- exactness, bitwise --------------------------------------------------
-    a, b = state.clone(), state.clone()
-    sl = slice(T_main, T_main + CHUNK)
-    a, pa = eng.observe_many(a, xs[sl], ys[sl], taus[sl])
-    pb = []
-    for t in range(T_main, T_main + CHUNK):
-        b, p = eng.observe(b, xs[t], ys[t], taus[t])
-        pb.append(p)
-    check(torch.equal(pa, torch.stack(pb)) and equal_states(a, b),
-          "observe_many chunk == per-tick observe")
-    del a, b
+    # ---- exactness, bitwise ------------------------------------------------
+    check_chunk_equals_ticks(eng, state, xs, ys, taus, T_main)
     torch.cuda.empty_cache()
     fresh = ServingEngine(n_sessions=S, capacity=W, dim=P, k=K, n_labels=L,
                           window=W, device="cuda")
@@ -392,13 +517,157 @@ def main(argv=None) -> int:
     print(f"[exact] chunk of {CHUNK} == per-tick; eviction == refit "
           f"over {S} tenants (bitwise)")
 
-    # ---- validity --------------------------------------------------------------
+    # ---- validity ---------------------------------------------------------
     mean_p = float(pvals[:, ~drifted].mean())
     n_p = pvals[:, ~drifted].size
     check(0.47 <= mean_p <= 0.53, f"mean smoothed p-value {mean_p}")
     print(f"[valid] mean smoothed p-value of the non-drifted tenants "
           f"{mean_p:.5f} over {n_p} p-values")
+    return counts
 
+
+def regression_path(S, W):
+    """Phase 5. Returns the main path's launch counts."""
+    from repro_torch.core import regression as reg
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (interval_coverage, reg_drift_traffic,
+                                          reg_queries)
+    from repro_torch.regression import RegressionServingEngine
+    from repro_torch.regression import stream as rs
+
+    P, M, k = DIM, QUERIES, K_REG
+    T_main = 2 * W + 2 * CHUNK
+    xs, ys, taus, drifted, w = reg_drift_traffic(SEED, S, T_main + CHUNK, P,
+                                                 2.0)
+    eng = RegressionServingEngine(n_sessions=S, capacity=W, dim=P, k=k,
+                                  window=W, device="cuda")
+    state = eng.init_state()
+    # fresh labelled points from every tenant's function at the end of
+    # the stream (drifted tenants have shifted by then)
+    Xq, yq = reg_queries(SEED + 1, w, M, np.where(drifted, 2.0, 0.0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, pv, calls = drive(eng, state, xs, ys, taus, T_main)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    iv_ms = []
+    for _ in range(2):  # the first call, then one in steady state
+        h0 = time.perf_counter()
+        iv = eng.intervals(state, Xq, epsilon=EPS)
+        torch.cuda.synchronize()
+        iv_ms.append((time.perf_counter() - h0) * 1e3)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tick_ms = chunk_tick_ms(calls)
+    print(f"[reg-main] sliding S={S} window={W} k={k}: {T_main} ticks in "
+          f"{len(calls)} observe_many calls + 2 intervals m={M}: "
+          f"{S * T_main / (t1 - t0):.1f} session-steps/s (ticks only), "
+          f"chunk-mean tick p50 {np.percentile(tick_ms, 50):.3f} ms p99 "
+          f"{np.percentile(tick_ms, 99):.3f} ms (per-call CUDA events / "
+          f"ticks), intervals first {iv_ms[0]:.3f} ms steady "
+          f"{iv_ms[1]:.3f} ms (host clock, synchronised), wall "
+          f"{wall:.1f} s, peak {peak / 2**30:.2f} GiB, launches {counts}")
+    for name in ("stream_update_reg", "pairwise_sq_dists",
+                 "interval_sweep"):
+        check(counts[name] > 0, f"{name} launched on the main path")
+    check(int(state.n.min()) == W and int(state.head.max()) > 0,
+          "windows full and ring heads advanced")
+    check(iv.shape == (S, M, 2), "intervals shape")
+    pvals = pv.cpu().numpy()  # (T_main, S)
+    check(np.isfinite(pvals).all(), "finite tick p-values")
+
+    # ---- exactness, bitwise ------------------------------------------------
+    check_chunk_equals_ticks(eng, state, xs, ys, taus, T_main)
+    torch.cuda.empty_cache()
+    view = rs.state_view(state, k=k)
+    lists = rs.arrival_view(state)
+    for s0 in range(0, S, 128):  # refit the surviving windows, by block
+        sl = slice(s0, min(s0 + 128, S))
+        Xw = torch.from_numpy(np.ascontiguousarray(
+            xs[T_main - W:T_main, sl].swapaxes(0, 1))).cuda()
+        yw = torch.from_numpy(np.ascontiguousarray(
+            ys[T_main - W:T_main, sl].T)).cuda()
+        fit = reg.fit(Xw, yw, k=k)
+        for name in ("X", "y", "a_prime", "kth_dist", "kth_label"):
+            check(torch.equal(getattr(view, name)[sl], getattr(fit, name)),
+                  f"state_view {name} == fit on the window")
+        knn_d, knn_y = reg.fit_lists(Xw, yw, k=k)
+        check(torch.equal(lists.nbr_d[sl], knn_d)
+              and torch.equal(lists.nbr_y[sl], knn_y),
+              "neighbour lists == fit's lists")
+    del view, lists
+    print(f"[reg-exact] chunk of {CHUNK} == per-tick; eviction == refit "
+          f"(state_view and lists) over {S} tenants (bitwise)")
+
+    # ---- validity ---------------------------------------------------------
+    mean_p = float(pvals[:, ~drifted].mean())
+    check(0.47 <= mean_p <= 0.53, f"mean smoothed p-value {mean_p}")
+    cov, width = interval_coverage(iv, yq)
+    cov_nd = float(cov[~drifted].mean())
+    check(cov_nd >= 0.88, f"interval coverage {cov_nd}")
+    print(f"[reg-valid] non-drifted tenants: mean smoothed p-value "
+          f"{mean_p:.5f} over {pvals[:, ~drifted].size} p-values; eps "
+          f"{EPS} interval coverage {cov_nd:.4f} over "
+          f"{int((~drifted).sum()) * M} fresh points (all tenants "
+          f"{float(cov.mean()):.4f}), median width "
+          f"{float(np.nanmedian(width)):.4f}, empty share "
+          f"{float(np.isnan(width).mean()):.4f}")
+    return counts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sessions", type=int, default=1024,
+                    help="tenants; the one size that may be cut")
+    ap.add_argument("--window", type=int, default=1024,
+                    help="sliding window, also the capacity (a smaller "
+                    "one only for a quick rehearsal)")
+    ap.add_argument("--iters", type=int, default=50,
+                    help="timed launches per kernel")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+
+    from repro_torch.kernels import _build
+
+    S, W, P, M, L = args.sessions, args.window, DIM, QUERIES, N_LABELS
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    print(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.load()
+    regs = [ln.strip() for ln in _build.build_log.splitlines()
+            if "registers" in ln]
+    print(f"[build] {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_build.build_seconds or 0.0:.1f} s); " + " | ".join(regs))
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    table = [check_stream_update(g, S, W, P, K, args.iters),
+             check_stream_update_reg(g, S, W, P, K_REG, args.iters),
+             check_pairwise(g, S, M, W, P, args.iters),
+             check_cp_counts(g, S, M, W, P, K, L, args.iters),
+             check_interval_sweep(g, S, M, W, P, K_REG, args.iters)]
+    torch.cuda.empty_cache()
+
+    by_path = {"classification": classification_path(S, W)}
+    torch.cuda.empty_cache()
+    by_path["regression"] = regression_path(S, W)
+    for row in table:
+        row["launches_by_path"] = {path: c[row["name"]]
+                                   for path, c in by_path.items()
+                                   if c[row["name"]]}
+        row["launches"] = sum(row["launches_by_path"].values())
+        check(row["launches"] > 0, f"{row['name']} launched on a main path")
+
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}"
+          " s, the build included")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

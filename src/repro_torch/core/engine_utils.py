@@ -1,7 +1,9 @@
-"""Host-side bookkeeping of the serving engine, counterpart of
+"""Host-side bookkeeping of the serving engines, counterpart of
 ``repro/core/engine_utils.py``: grow-mode capacity provisioning and the
-sliding-window occupancy invariant. (The JAX ``scan_chunk`` becomes the
-engine's plain Python loop over ticks.)"""
+sliding-window occupancy invariant, for any state with ``n``, ``wrap``
+and ``capacity`` (classification ``Session`` and regression
+``RegStreamState``). (The JAX ``scan_chunk`` becomes the engines' plain
+Python loop over ticks.)"""
 from __future__ import annotations
 
 
@@ -16,7 +18,7 @@ def ensure_room(eng, state, ticks: int):
         return state
     cap = state.capacity
     if eng._n_bound is None or eng._n_bound + ticks > cap:
-        eng._n_bound = int(state.knn.n.max())
+        eng._n_bound = int(state.n.max())
         while eng._n_bound + ticks > cap:
             state = eng.grow(state)
             cap = state.capacity
@@ -40,7 +42,7 @@ def check_window_occupancy(eng, state) -> None:
                 "it first (session.to_linear / grow)")
         eng._w_checked = True
         return
-    nmax = int(state.knn.n.max())
+    nmax = int(state.n.max())
     if nmax > eng._wmax:
         raise ValueError(
             f"state occupancy {nmax} exceeds the sliding window "

@@ -97,12 +97,57 @@ def drop_backfill_core(L, es, cand, Ds, *, k):
     return newL, pos0, cols, b, tprime, mprime
 
 
-def drop_backfill(L, es, cand, Ds, aff, *, k):
-    """Classification form of ``repro.core.online.drop_backfill``: repair
-    the rows flagged in ``aff (S, w)``; other rows pass through bitwise
-    untouched. (The labeled regression form comes with that slice.)"""
-    newL = drop_backfill_core(L, es, cand, Ds, k=k)[0]
-    return torch.where(aff[..., None], newL, L)
+def drop_backfill(L, es, cand, Ds, aff, *, k, Ly=None, La=None, ys=None,
+                  aid=None, age=None, slots=None, aid0=None):
+    """Batched ``repro.core.online.drop_backfill``: repair the rows
+    flagged in ``aff (S, w)``; other rows pass through bitwise untouched.
+    Classification (``Ly is None``) repairs the distance lists and
+    returns ``newL``.
+
+    The labeled form (regression) also repairs the neighbour-label lists
+    ``Ly`` and arrival-id lists ``La (S, w, k)`` and returns ``(newL,
+    newLy, newLa)``. The backfill label follows fit's ties-toward-the-
+    earliest-arrival order: among the candidate columns at the backfill
+    distance ``b``, it comes from the earliest arrival above the largest
+    id the list already holds at ``b``. Ids are compared as int32
+    wraparound differences from ``aid0 (S,)``, the evicted (globally
+    earliest) live id, so the raw counters may overflow. The pick is a
+    masked min over arrival rank ``age (S, w)`` and one gather through
+    the rank -> slot permutation ``slots (S, w)``; ``ys (S, w)`` and
+    ``aid (S, w)`` are the per-slot labels and ids.
+    """
+    newL, pos0, cols, b, tprime, _ = drop_backfill_core(L, es, cand, Ds,
+                                                        k=k)
+    a = aff[..., None]
+    if Ly is None:
+        return torch.where(a, newL, L)
+    w = L.shape[-2]
+    rel_La = La - aid0[:, None, None]  # int32 wrap-subtract
+    thr = torch.where(
+        b == tprime,
+        torch.where(L == tprime[..., None], rel_La, -1).amax(-1), -1)
+    rel_aid = (aid - aid0[:, None])[:, None, :]
+    valid = Ds == b[..., None]  # (S, w, w), narrowed in place
+    valid &= cand
+    valid &= rel_aid > thr[..., None]
+    amin = torch.where(valid, age[:, None, :], w).amin(-1)
+    del valid
+    sel = slots.gather(1, amin.clamp(max=w - 1).long()).long()
+    yb, ab = ys.gather(1, sel), aid.gather(1, sel)  # b >= BIG: fixed below
+    p0 = pos0[..., None]
+    Lyup = torch.cat([Ly[..., 1:], Ly[..., :1]], -1)
+    newLy = torch.where(cols < p0, Ly,
+                        torch.where(cols < k - 1, Lyup, yb[..., None]))
+    Laup = torch.cat([La[..., 1:], La[..., :1]], -1)
+    newLa = torch.where(cols < p0, La,
+                        torch.where(cols < k - 1, Laup, ab[..., None]))
+    # missing-neighbour slots carry the row's own label (fit convention)
+    # and the neutral arrival id 0
+    big = newL >= BIG
+    newLy = torch.where(big, ys[..., None], newLy)
+    newLa = torch.where(big, 0, newLa)
+    return (torch.where(a, newL, L), torch.where(a, newLy, Ly),
+            torch.where(a, newLa, La))
 
 
 # ---------------------------------------------------------------------------

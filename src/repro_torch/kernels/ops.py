@@ -2,25 +2,29 @@
 
 A CUDA float32 tensor goes to the hand-written kernel; a CPU tensor goes
 to the plain version in ``ref.py``. A CUDA tensor the kernel does not take
-(float64, k above the kernel's maximum, ``mode="reg"`` for now) raises:
-nothing on CUDA quietly runs the plain version. The device decision
-itself sits in each kernel's wrapper; this module takes the batched form
-(leading tenant axis) the callers use, brings ``stream_update``'s ring
-scalars to the wrapper's per-tenant int32 form and keeps the launch
-counts.
+(float64, k above the kernel's maximum) raises: nothing on CUDA quietly
+runs the plain version. The device decision itself sits in each kernel's
+wrapper; this module takes the batched form (leading tenant axis) the
+callers use, brings ``stream_update``'s ring scalars to the wrapper's
+per-tenant form and keeps the launch counts, ``stream_update``'s per mode.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.cp_update import cp_knn_counts as _cp_knn_counts
+from repro_torch.kernels.interval_sweep import interval_sweep as _sweep
 from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
 from repro_torch.kernels.stream_update import stream_update as _stream_update
+from repro_torch.kernels.stream_update import (stream_update_class,
+                                               stream_update_reg)
 
 KERNELS = {
-    "stream_update": _stream_update,
+    "stream_update_class": stream_update_class,
+    "stream_update_reg": stream_update_reg,
     "pairwise_sq_dists": pairwise_sq_dists,
     "cp_knn_counts": _cp_knn_counts,
+    "interval_sweep": _sweep,
 }
 
 
@@ -45,6 +49,13 @@ def cp_knn_counts(X, y, sum_same, kth_same, X_test, alpha, n_labels):
                           n_labels=n_labels)
 
 
+def interval_sweep(X, a_prime, kth_dist, kth_label, live, X_test, a_test,
+                   k):
+    """Regression-CP critical points ``lo, hi (S, m, n)``."""
+    return _sweep(X, a_prime, kth_dist, kth_label, live, X_test, a_test,
+                  k=k)
+
+
 def _scalars(v, S: int, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.int32, device=device).expand(
         S).contiguous()
@@ -62,7 +73,8 @@ def stream_update(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
     wrap = _scalars(cap if wrap is None else wrap, S, dev)
     # class labels are int32; the regression state's labels are floats
     y_new = (_scalars(y_new, S, dev) if mode == "class" else
-             torch.as_tensor(y_new, device=dev).expand(S).contiguous())
+             torch.as_tensor(y_new, dtype=y.dtype, device=dev).expand(
+                 S).contiguous())
     return _stream_update(X, y, nbr_d, nbr_y, x_new, y_new,
                           _scalars(n, S, dev), mode=mode, head=head,
                           wrap=wrap)

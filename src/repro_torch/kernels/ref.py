@@ -68,6 +68,68 @@ def cp_knn_counts(X, y, sum_same, kth_same, X_test, alpha):
     return (alphas >= alpha[..., None]).sum(-1, dtype=torch.int32)
 
 
+def div_k(t: torch.Tensor, k: int) -> torch.Tensor:
+    """``t / k`` as one IEEE division on every device. PyTorch's CUDA
+    division by a Python scalar multiplies by the scalar's reciprocal
+    instead, one rounding away from the CPU and from the kernels. The
+    divisor is filled on the device (``new_full``): a ``new_tensor`` would
+    copy from pageable host memory and synchronise the stream."""
+    return t / t.new_full((), float(k))
+
+
+def interval_ge(a_i, b_i, a, eps: float = 1e-12):
+    """``(lo, hi)`` of ``{t : |a_i + b_i t| >= |a + t|}``, broadcast over
+    the inputs: the roots of ``(b_i^2 - 1) t^2 + 2 (a_i b_i - a) t + (a_i^2
+    - a^2)``, the quadratic branch for ``|b_i| < 1`` and the linear one for
+    ``|b_i| == 1`` (k = 1). Empty sets are ``(+inf, -inf)``. One operation
+    per rounding, in the order of ``repro.core.regression._interval_ge``;
+    the CUDA ``interval_sweep`` kernel repeats it with ``_rn`` intrinsics.
+    """
+    inf = float("inf")
+    A2 = b_i * b_i - 1.0
+    B1 = a_i * b_i - a
+    C0 = a_i * a_i - a * a
+    disc = B1 * B1 - A2 * C0
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    denom = torch.where(A2.abs() < eps, 1.0, A2)
+    r1 = (-B1 + sq) / denom
+    r2 = (-B1 - sq) / denom
+    real = disc >= 0.0
+    quad_lo = torch.where(real, torch.minimum(r1, r2), inf)
+    quad_hi = torch.where(real, torch.maximum(r1, r2), -inf)
+    t0 = -C0 / torch.where(B1.abs() < eps, 1.0, 2.0 * B1)
+    flat_lo = torch.where(C0 >= 0.0, -inf, inf)
+    lin_lo = torch.where(B1 > eps, t0, torch.where(B1 < -eps, -inf, flat_lo))
+    lin_hi = torch.where(B1 > eps, inf, torch.where(B1 < -eps, t0, -flat_lo))
+    is_quad = A2.abs() >= eps
+    return (torch.where(is_quad, quad_lo, lin_lo),
+            torch.where(is_quad, quad_hi, lin_hi))
+
+
+def reg_interval_endpoints(X, a_prime, kth_dist, kth_label, live, X_test,
+                           a_test, k: int, eps: float = 1e-12):
+    """Regression-CP critical points, the plain ``interval_sweep``.
+
+    Per (test row t, training row i): the distance ``d(x_i, x_t)``
+    (``sq_dists``, fixed order), the O(1) update of the affine score
+    coefficients ``a_i = a'_i + [d < kth_i] kth_label_i / k``, ``b_i in
+    {0, -1/k}``, and ``interval_ge(a_i, b_i, a_test[t])``. ``X (..., n,
+    p)``, the per-row statistics and ``live (..., n)``, ``X_test (..., m,
+    p)``, ``a_test (..., m)`` -> ``lo, hi (..., m, n)``; non-live columns
+    are ``(+inf, -inf)``. Counterpart of ``repro/kernels/ref.py::
+    reg_interval_endpoints``."""
+    inf = float("inf")
+    d = torch.sqrt(torch.clamp(sq_dists(X_test, X), min=0.0))
+    upd = a_prime + div_k(kth_label, k)
+    lv = live[..., None, :]
+    enters = lv & (d < kth_dist[..., None, :])
+    a_i = torch.where(enters, upd[..., None, :], a_prime[..., None, :])
+    b_i = torch.where(enters, a_prime.new_full((), -1.0 / k),
+                      a_prime.new_full((), 0.0))
+    lo, hi = interval_ge(a_i, b_i, a_test[..., :, None], eps)
+    return torch.where(lv, lo, inf), torch.where(lv, hi, -inf)
+
+
 def _ring_live(cap: int, head, n, wrap=None) -> torch.Tensor:
     """``(..., cap)`` live mask of a ring window: slot ``(head + i) % wrap``
     is live for ``i in [0, n)``; slots ``>= wrap`` never are. ``head=None``
@@ -174,5 +236,5 @@ def stream_update_fast(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode: str,
     return d_row, newL, newY
 
 
-__all__ = ["sq_dists", "row_dists", "cp_knn_counts", "stream_update",
-           "stream_update_fast"]
+__all__ = ["sq_dists", "row_dists", "cp_knn_counts", "div_k", "interval_ge",
+           "reg_interval_endpoints", "stream_update", "stream_update_fast"]

@@ -1,15 +1,21 @@
-"""Multi-tenant online CP serving on the port's engine.
+"""Multi-tenant online CP serving on the port's engines.
 
     python -m repro_torch.launch.serve --sessions 1024 --steps 2048 \\
         --window 1024 --capacity 1024 --dim 30 --k 15
+    python -m repro_torch.launch.serve --regression --sessions 1024 \\
+        --steps 2112 --window 1024 --capacity 1024 --dim 30 --k 7
 
-Serves ``--sessions`` concurrent sliding-window CP sessions through
-``repro_torch.serving.ServingEngine`` (``--device cuda`` by default),
-one ``observe`` per tick, on synthetic drift traffic made with numpy from
-``--seed`` (odd tenants shift by ``--drift`` at half time). Reports
-session-steps/s, tick p50/p99 (CUDA events on the card), the launches of
-each kernel, the tenants flagged by their simple-mixture martingale, and
-runs one ``predict`` over ``--queries`` points per tenant.
+Serves ``--sessions`` concurrent sliding-window CP sessions, one
+``observe`` per tick (``--device cuda`` by default), on synthetic drift
+traffic made with numpy from ``--seed``: odd tenants shift by ``--drift``
+at half time. Classification goes through
+``repro_torch.serving.ServingEngine``; ``--regression`` through
+``repro_torch.regression.RegressionServingEngine`` on per-tenant linear
+labels. Reports session-steps/s, tick p50/p99 (CUDA events on the card),
+the launches of each kernel and the tenants flagged by their
+simple-mixture martingale; then one read over ``--queries`` points per
+tenant: ``predict`` p-values, or ``--regression`` prediction intervals at
+``--eps`` with their coverage and median width on fresh labelled points.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.core.online import simple_mixture_log_martingale
 from repro_torch.kernels import ops
+from repro_torch.regression import RegressionServingEngine
 from repro_torch.serving import ServingEngine
 
 
@@ -41,18 +48,64 @@ def class_drift_traffic(seed: int, S: int, T: int, dim: int, drift: float):
     return xs, ys, taus, drifted
 
 
+def reg_drift_traffic(seed: int, S: int, T: int, dim: int, drift: float):
+    """``xs (T, S, dim)``, ``ys (T, S)``, ``taus (T, S)`` f32, the
+    ``(S,)`` drifted mask and the tenants' weights ``w (S, dim)``: the
+    JAX launcher's regression workload, per-tenant linear labels ``y =
+    <w_s, x> + 0.1 noise``; odd tenants add ``drift`` to ``y`` from tick
+    ``T // 2``."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((S, dim), dtype=np.float32)
+    xs = rng.standard_normal((T, S, dim), dtype=np.float32)
+    ys = np.einsum("sd,tsd->ts", w, xs)
+    ys += 0.1 * rng.standard_normal((T, S), dtype=np.float32)
+    drifted = np.arange(S) % 2 == 1
+    late = np.arange(T) >= T // 2
+    ys[late[:, None] & drifted[None, :]] += np.float32(drift)
+    taus = rng.random((T, S), dtype=np.float32)
+    return xs, ys, taus, drifted, w
+
+
+def reg_queries(seed: int, w, m: int, shift):
+    """Fresh labelled points from each tenant's current function: ``Xq
+    (S, m, dim)``, ``yq (S, m)`` with ``yq = <w_s, x> + shift_s + 0.1
+    noise`` (``shift (S,)``: the drift in force)."""
+    rng = np.random.default_rng(seed)
+    S, dim = w.shape
+    Xq = rng.standard_normal((S, m, dim), dtype=np.float32)
+    yq = np.einsum("sd,smd->sm", w, Xq) + np.asarray(shift)[:, None]
+    yq += 0.1 * rng.standard_normal((S, m), dtype=np.float32)
+    return Xq, yq.astype(np.float32)
+
+
+def interval_coverage(iv, yq):
+    """``(S,)`` share of ``yq (S, m)`` inside ``iv (S, m, 2)`` (an empty
+    interval covers nothing) and the ``(S, m)`` widths."""
+    iv = torch.as_tensor(iv).cpu().numpy()
+    hit = (iv[..., 0] <= yq) & (yq <= iv[..., 1])
+    return hit.mean(-1), iv[..., 1] - iv[..., 0]
+
+
 def serve_sessions(args) -> int:
     S, T, dim = args.sessions, args.steps, args.dim
     if T < 2:
         raise SystemExit("--steps must be >= 2 (tick 0 is the warm-up)")
-    eng = ServingEngine(n_sessions=S, capacity=args.capacity, dim=dim,
-                        k=args.k, n_labels=2, window=args.window,
-                        device=args.device)
+    kind = "regression" if args.regression else "classification"
+    if args.regression:
+        eng = RegressionServingEngine(
+            n_sessions=S, capacity=args.capacity, dim=dim, k=args.k,
+            window=args.window, device=args.device)
+        xs, ys, taus, drifted, w = reg_drift_traffic(args.seed, S, T, dim,
+                                                     args.drift)
+    else:
+        eng = ServingEngine(n_sessions=S, capacity=args.capacity, dim=dim,
+                            k=args.k, n_labels=2, window=args.window,
+                            device=args.device)
+        xs, ys, taus, drifted = class_drift_traffic(args.seed, S, T, dim,
+                                                    args.drift)
     on_card = eng.device.type == "cuda"
-    print(f"[serve] engine: {S} sessions x cap {args.capacity} "
+    print(f"[serve] {kind} engine: {S} sessions x cap {args.capacity} "
           f"(window={args.window}, k={args.k}, dim={dim}) on {eng.device}")
-    xs, ys, taus, drifted = class_drift_traffic(args.seed, S, T, dim,
-                                                args.drift)
     state = eng.init_state()
     pvals = np.full((T, S), np.nan, np.float32)
     state, p = eng.observe(state, xs[0], ys[0], taus[0])  # warm-up tick
@@ -85,11 +138,23 @@ def serve_sessions(args) -> int:
           f"{int(drifted.sum())} drifted tenants, "
           f"{int(flagged[~drifted].sum())}/{int((~drifted).sum())} others")
 
-    rng = np.random.default_rng(args.seed + 1)
-    Xq = rng.standard_normal((S, args.queries, dim), dtype=np.float32)
-    pv = eng.predict(state, Xq)
-    print(f"[serve] predict: p-values {tuple(pv.shape)}, finite "
-          f"{bool(torch.isfinite(pv).all())}")
+    if args.regression:
+        # the last tick is past T // 2: drifted tenants are shifted
+        Xq, yq = reg_queries(args.seed + 1, w, args.queries,
+                             np.where(drifted, args.drift, 0.0))
+        iv = eng.intervals(state, Xq, epsilon=args.eps)
+        cov, width = interval_coverage(iv, yq)
+        print(f"[serve] intervals at eps={args.eps}: {tuple(iv.shape)}, "
+              f"coverage {cov.mean():.4f} (non-drifted "
+              f"{cov[~drifted].mean():.4f}; target >= {1 - args.eps:g}), "
+              f"median width {np.nanmedian(width):.4f}, empty share "
+              f"{np.isnan(width).mean():.4f}")
+    else:
+        rng = np.random.default_rng(args.seed + 1)
+        Xq = rng.standard_normal((S, args.queries, dim), dtype=np.float32)
+        pv = eng.predict(state, Xq)
+        print(f"[serve] predict: p-values {tuple(pv.shape)}, finite "
+              f"{bool(torch.isfinite(pv).all())}")
     print(f"[serve] kernel launches: {ops.launch_counts()}")
     return 0
 
@@ -98,13 +163,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, required=True,
                     help="concurrent CP sessions (tenants)")
+    ap.add_argument("--regression", action="store_true",
+                    help="serve k-NN regression CP (linear-label traffic, "
+                    "prediction intervals) instead of classification")
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--dim", type=int, default=8)
     ap.add_argument("--k", type=int, default=7)
     ap.add_argument("--capacity", type=int, default=128)
     ap.add_argument("--window", type=int, default=64)
     ap.add_argument("--queries", type=int, default=100,
-                    help="predict query points per tenant")
+                    help="read query points per tenant")
+    ap.add_argument("--eps", type=float, default=0.1,
+                    help="miscoverage of the regression intervals")
     ap.add_argument("--drift", type=float, default=2.0)
     ap.add_argument("--log-threshold", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0)

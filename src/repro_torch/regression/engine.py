@@ -1,0 +1,181 @@
+"""Micro-batching multi-tenant streaming regression-CP engine, counterpart
+of ``repro/regression/engine.py``.
+
+Every tenant's ``RegStreamState`` lives in one batched state (leading
+axis = tenant slot); each tick advances all of them with one launch of
+the reg-mode ``stream_update`` kernel, and ``intervals`` serves every
+tenant's prediction intervals with one launch of the pairwise and the
+``interval_sweep`` kernels.
+
+Usage::
+
+    eng = RegressionServingEngine(n_sessions=64, capacity=256, dim=16,
+                                  k=7, window=128)  # device defaults to cuda
+    state = eng.init_state()
+    state, p = eng.observe(state, x_t, y_t, tau_t)         # (64,)
+    state, ps = eng.observe_many(state, xs, ys, taus)      # (T, 64)
+    iv = eng.intervals(state, x_query, epsilon=0.1)        # (64, m, 2)
+
+``observe``/``observe_many`` update the state's tensors in place and
+return it; ``donate=False`` clones the state first. Tenants with no
+traffic on a tick are masked by ``active`` (state bitwise unchanged, NaN
+p-value). Without a ``window`` the engine grows: once a chunk could
+overflow, every tenant's capacity doubles.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch._device import resolve
+from repro_torch.core import engine_utils
+from repro_torch.regression import session as sess_m
+from repro_torch.regression.stream import RegStreamState
+
+
+class RegressionServingEngine:
+    """Fixed-slot multi-tenant regression-CP serving engine.
+
+    n_sessions: tenant slots; capacity: padded per-tenant rows; dim:
+    features; k: neighbourhood size; window: sliding window (<=
+    capacity), None for grow mode; dtype: state float type (float32 on
+    CUDA); donate: update the caller's state in place (False: clone
+    first); device: ``cuda`` by default (raises without a GPU; ``"cpu"``
+    runs the plain PyTorch path).
+    """
+
+    def __init__(self, *, n_sessions: int, capacity: int, dim: int, k: int,
+                 window: int | None = None, dtype=torch.float32,
+                 donate: bool = True, device=None):
+        if window is not None and window > capacity:
+            raise ValueError(f"window {window} exceeds capacity {capacity}")
+        if window is not None and window < 1:
+            raise ValueError("window must be >= 1")
+        if capacity < k:
+            raise ValueError(f"capacity {capacity} < k {k}")
+        self.device = resolve(device)
+        self.n_sessions = n_sessions
+        self.capacity = capacity
+        self.dim = dim
+        self.k = k
+        self.window = window
+        self.dtype = dtype
+        self.donate = donate
+        # a sliding window bounds occupancy: the tick runs on the
+        # [:window] block of every leaf with ring modulus == window
+        self._wmax = None if window is None else max(min(window, capacity),
+                                                     k)
+        self._w_checked = False
+        self._n_bound: int | None = None
+
+    # -- state --------------------------------------------------------------
+
+    def init_state(self) -> RegStreamState:
+        """Empty batched states; sliding engines confine each ring to the
+        ``[:window]`` block (``wrap == window``)."""
+        return sess_m.init(self.capacity, self.dim, self.k,
+                           n_sessions=self.n_sessions, dtype=self.dtype,
+                           wrap=self._wmax, device=self.device)
+
+    # -- serving ------------------------------------------------------------
+
+    def _cast(self, xs, ys, taus, active):
+        dev, dt = self.device, self.dtype
+        xs = torch.as_tensor(xs, dtype=dt, device=dev)
+        ys = torch.as_tensor(ys, dtype=dt, device=dev)
+        taus = torch.as_tensor(taus, dtype=dt, device=dev)
+        if active is None:
+            active = torch.ones(ys.shape, dtype=torch.bool, device=dev)
+        active = torch.as_tensor(active, dtype=torch.bool, device=dev)
+        return xs, ys, taus, active
+
+    def observe(self, state: RegStreamState, x, y, tau, active=None):
+        """One tick: learn ``(x[s], y[s])`` in every active slot. Returns
+        ``(state, p (S,))`` — the T=1 case of ``observe_many``."""
+        x, y, tau, active = self._cast(x, y, tau, active)
+        state, p = self.observe_many(state, x[None], y[None], tau[None],
+                                     active[None])
+        return state, p[0]
+
+    def observe_many(self, state: RegStreamState, xs, ys, taus,
+                     active=None):
+        """T ticks: ``xs (T, S, dim)``, ``ys, taus (T, S)``, ``active
+        (T, S)`` bool (default all). Returns ``(state, p (T, S))``; row t
+        equals what the t-th of T ``observe`` calls returns. In grow mode
+        the whole chunk's occupancy is provisioned first."""
+        xs, ys, taus, active = self._cast(xs, ys, taus, active)
+        if not self.donate:
+            state = state.clone()
+        state = engine_utils.ensure_room(self, state, xs.shape[0])
+        engine_utils.check_window_occupancy(self, state)
+        window = state.capacity + 1 if self.window is None else self.window
+        ps = []
+        for t in range(xs.shape[0]):
+            state, p = sess_m._sliding_step(
+                state, xs[t], ys[t], taus[t], window, active[t], k=self.k,
+                evictable=self.window is not None, wmax=self._wmax)
+            ps.append(p)
+        return state, torch.stack(ps)
+
+    def grow(self, state: RegStreamState, factor: int = 2) -> RegStreamState:
+        """Multiply every tenant's capacity (a new state). A sliding
+        engine pins the ring modulus back to its window block."""
+        out = sess_m.grow(state, factor)
+        self.capacity = out.capacity
+        if self._wmax is not None:
+            out.wrap = torch.full_like(out.wrap, self._wmax)
+        return out
+
+    def _queries(self, X_test) -> torch.Tensor:
+        X_test = torch.as_tensor(X_test, dtype=self.dtype,
+                                 device=self.device)
+        if X_test.dim() == 2:
+            X_test = X_test.contiguous().expand(
+                (self.n_sessions,) + tuple(X_test.shape))
+        return X_test
+
+    def intervals(self, state: RegStreamState, X_test,
+                  epsilon: float) -> torch.Tensor:
+        """Prediction intervals ``(S, m, 2)``; ``X_test`` is ``(S, m,
+        dim)`` per tenant or ``(m, dim)`` shared by all."""
+        return sess_m.intervals(state, self._queries(X_test), k=self.k,
+                                epsilon=epsilon)
+
+    def pvalues(self, state: RegStreamState, X_test,
+                t_query) -> torch.Tensor:
+        """P-values at the query labels ``t_query (nq,)``: ``(S, m,
+        nq)``."""
+        t_query = torch.as_tensor(t_query, dtype=self.dtype,
+                                  device=self.device)
+        return sess_m.pvalues(state, self._queries(X_test), t_query,
+                              k=self.k)
+
+    # -- snapshot metadata --------------------------------------------------
+
+    def meta(self) -> dict[str, Any]:
+        """JSON-serializable engine config (the JAX engine's keys)."""
+        return {
+            "mode": "regression",
+            "n_sessions": self.n_sessions,
+            "capacity": self.capacity,
+            "dim": self.dim,
+            "k": self.k,
+            "window": self.window,
+            "dtype": str(self.dtype).removeprefix("torch."),
+        }
+
+    @classmethod
+    def from_meta(cls, meta: dict[str, Any],
+                  device=None) -> "RegressionServingEngine":
+        meta = dict(meta)
+        mode = meta.pop("mode", "regression")
+        if mode != "regression":
+            raise ValueError(f"not a regression-engine meta: mode={mode!r}")
+        meta.pop("n_labels", None)  # classification-era keys
+        meta.pop("shards", None)  # the JAX engine's tenant sharding
+        meta["dtype"] = getattr(torch, meta.get("dtype", "float32"))
+        return cls(**meta, device=device)
+
+
+__all__ = ["RegressionServingEngine"]

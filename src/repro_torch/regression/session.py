@@ -1,0 +1,188 @@
+"""Tenant-batched streaming regression-CP sessions. Counterpart of
+``repro/regression/session.py``.
+
+* ``_sliding_step`` — one tick for every tenant, in place: evict-if-full
+  (a head advance and the labeled list repair), price the incoming point
+  (smoothed online p-value of its observed label, feeding the drift
+  martingales), learn it. ``D`` is read by the repair and written at one
+  row and one column per tenant; no ``(cap, cap)`` buffer is copied.
+* ``intervals`` / ``pvalues`` — the read paths on the arrival-ordered
+  window: the pairwise kernel for the test rows' own top-k, the
+  ``interval_sweep`` kernel for the critical points, then the hull
+  sweep. One structure on every device: the kernels on the card, their
+  plain versions on the CPU.
+
+Read paths need ``n >= k``; earlier outputs are well-shaped but
+degenerate, as in the batch path.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._device import BIG
+from repro_torch.core import online
+from repro_torch.core.online import (fsum, next_aid, ring_age, ring_live,
+                                     ring_mod, ring_slots)
+from repro_torch.core.regression import _threshold, hull_sweep, topk_lowest
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import div_k
+from repro_torch.regression import stream
+from repro_torch.regression.stream import RegStreamState
+
+init = stream.init
+
+
+def _price(d_row, y_sel, y_new, tau, *, k, live, nbr_d, nbr_y, y, n):
+    """Smoothed online p-value ``(S,)`` of label ``y_new`` against the
+    pre-learn window: ``alpha_i = |a_i + b_i y|``, ``alpha = |a + y|``
+    with ``a`` from the new point's own selected labels ``y_sel (S, k)``,
+    ties broken by ``tau``."""
+    kth = nbr_d[..., -1]
+    a_prime = y - div_k(fsum(nbr_y), k)
+    enters = live & (d_row < kth)  # d_row is BIG off the live window
+    a_vec = torch.where(enters, a_prime + div_k(nbr_y[..., -1], k), a_prime)
+    b_vec = torch.where(enters, y.new_full((), -1.0 / k),
+                        y.new_full((), 0.0))
+    a = -div_k(fsum(y_sel), k)
+    t = y_new.to(y.dtype)[:, None]
+    alphas = (a_vec + b_vec * t).abs()
+    alpha = (a[:, None] + t).abs()
+    gt = (live & (alphas > alpha)).sum(-1)
+    eq = (live & (alphas == alpha)).sum(-1)
+    return ((gt + tau * (eq + 1.0)) / (n + 1.0)).to(y.dtype)
+
+
+def _sliding_step(st: RegStreamState, x_new, y_new, tau, window, active, *,
+                  k, evictable: bool = True, wmax: int | None = None):
+    """One fused sliding-window tick for every tenant, in place:
+    evict-if-full, price, learn, all gated by ``active (S,)``.
+
+    Inactive lanes keep their state bitwise and return a NaN p-value.
+    ``evictable=False`` drops the eviction (grow mode). ``wmax`` bounds
+    occupancy: the ring then lives in the ``[:wmax]`` block of every leaf,
+    whose views the kernels read in place. Returns ``(st, p (S,))``.
+    """
+    S, cap = st.y.shape
+    w = cap if wmax is None or wmax >= cap else wmax
+    Xw, yw, aidw = st.X[:, :w], st.y[:, :w], st.aid[:, :w]
+    Dw = st.D[:, :w, :w]
+    Lw, Lyw, Law = st.nbr_d[:, :w], st.nbr_y[:, :w], st.nbr_a[:, :w]
+    head, n, wrap = st.head, st.n, st.wrap
+    act = active
+    ar = torch.arange(S, device=st.y.device)
+
+    if evictable:
+        ev = act & (n >= window)
+        hl = head.long()
+        dcol = Dw[ar, :, hl]  # (S, w): distances to the evicted point
+        head1 = ring_mod(head + ev.to(torch.int32), wrap)
+        n1 = n - ev.to(torch.int32)
+        live1 = ring_live(w, head1, n1, wrap)
+        affected = ev[:, None] & live1 & (dcol <= Lw[..., -1])
+        L1, Ly1, La1 = online.drop_backfill(
+            Lw, dcol, live1[:, None, :], Dw, affected, k=k, Ly=Lyw, La=Law,
+            ys=yw, aid=aidw, age=ring_age(w, head1, wrap),
+            slots=ring_slots(w, head1, wrap), aid0=aidw[ar, hl])
+    else:
+        head1, n1 = head, n
+        L1, Ly1, La1 = Lw, Lyw, Law
+        live1 = ring_live(w, head1, n1, wrap)
+
+    # learn: distance row + merge into every live row's lists (the
+    # kernel), the new point's own list, the id lists
+    il = ring_mod(head1 + n1, wrap).long()
+    y_new = y_new.to(yw.dtype)
+    d_row, Lm, Lym = kops.stream_update(Xw, yw, L1, Ly1, x_new, y_new, n1,
+                                        mode="reg", head=head1, wrap=wrap)
+    sub = RegStreamState(Xw, yw, Dw, L1, Ly1, n1, head1, aidw, wrap, La1)
+    own_d, own_y, y_sel, own_a = stream._own_list(sub, d_row, y_new, k=k)
+    new_aid = next_aid(aidw, head1, n1, wrap)
+    enters = live1 & (d_row < L1[..., -1])
+    Lam = stream._merge_aid(L1, La1, torch.where(enters, d_row, BIG),
+                            new_aid, Lm)
+    p = _price(d_row, y_sel, y_new, tau, k=k, live=live1, nbr_d=L1,
+               nbr_y=Ly1, y=yw, n=n1)
+
+    # gated in-place writes: one row and one column of D per tenant
+    a1, a3 = act[:, None], act[:, None, None]
+    row = torch.where(a1, d_row, Dw[ar, il, :])  # D is symmetric
+    st.D[ar, il, :w] = row
+    st.D[ar, :w, il] = row
+    st.X[ar, il] = torch.where(a1, x_new.to(st.X.dtype), st.X[ar, il])
+    st.y[ar, il] = torch.where(act, y_new, st.y[ar, il])
+    st.aid[ar, il] = torch.where(act, new_aid, st.aid[ar, il])
+    Lm[ar, il], Lym[ar, il], Lam[ar, il] = own_d, own_y, own_a
+    st.nbr_d[:, :w] = torch.where(a3, Lm, L1)
+    st.nbr_y[:, :w] = torch.where(a3, Lym, Ly1)
+    st.nbr_a[:, :w] = torch.where(a3, Lam, La1)
+    st.n = torch.where(act, n1 + 1, n1)
+    st.head = head1
+    return st, torch.where(act, p, torch.full_like(p, float("nan")))
+
+
+def _observe(st: RegStreamState, x_new, y_new, tau, *, k):
+    """Price then learn one point per tenant (no eviction), in place.
+    Precondition: ``n < wrap``."""
+    active = torch.ones_like(st.head, dtype=torch.bool)
+    return _sliding_step(st, x_new, y_new, tau, None, active, k=k,
+                         evictable=False)
+
+
+def grow(st: RegStreamState, factor: int = 2) -> RegStreamState:
+    """Multiply every tenant's capacity by ``factor`` (a new state),
+    normalizing the ring to linear order first."""
+    cap = st.capacity
+    extra = cap * (factor - 1)
+    s = stream.to_linear(st)
+    return RegStreamState(
+        X=F.pad(s.X, (0, 0, 0, extra)),
+        y=F.pad(s.y, (0, extra)),
+        D=F.pad(s.D, (0, extra, 0, extra), value=BIG),
+        nbr_d=F.pad(s.nbr_d, (0, 0, 0, extra), value=BIG),
+        nbr_y=F.pad(s.nbr_y, (0, 0, 0, extra)),
+        n=s.n, head=s.head,
+        aid=F.pad(s.aid, (0, extra)),
+        wrap=torch.full_like(s.wrap, cap * factor),
+        nbr_a=F.pad(s.nbr_a, (0, 0, 0, extra)),
+    )
+
+
+def _test_score(yg, live, X_test, Xg, *, k):
+    """Each test row's own score offset ``a = -(1/k) sum of its k
+    nearest live labels``, ties to the earliest arrival: ``(S, m)``."""
+    d = torch.sqrt(torch.clamp(kops.sq_dists(X_test, Xg), min=0.0))
+    dm = torch.where(live[:, None, :], d, BIG)
+    _, idx = topk_lowest(dm, k)  # (S, m, k)
+    y_sel = yg.gather(1, idx.flatten(1)).view(idx.shape)
+    return d, -div_k(fsum(y_sel), k)
+
+
+def intervals(st: RegStreamState, X_test, *, k, epsilon):
+    """Prediction intervals ``(S, m, 2)`` at miscoverage ``epsilon`` for
+    the query rows ``X_test (S, m, p)``; NaN where the set is empty."""
+    Xg, yg, a_prime, _, kth, kth_label, live = stream.arrival_stats(st, k=k)
+    _, a_test = _test_score(yg, live, X_test, Xg, k=k)
+    lo, hi = kops.interval_sweep(Xg, a_prime, kth, kth_label, live, X_test,
+                                 a_test.contiguous(), k)
+    thresh = _threshold(epsilon, st.n, Xg)
+    return torch.stack(hull_sweep(lo, hi, lo > hi, thresh[:, None]), -1)
+
+
+def pvalues(st: RegStreamState, X_test, t_query, *, k):
+    """Exact p-values ``(S, m, nq)`` at the query labels ``t_query
+    (nq,)``."""
+    Xg, yg, a_prime, upd, kth, _, live = stream.arrival_stats(st, k=k)
+    d, a = _test_score(yg, live, X_test, Xg, k=k)
+    enters = live[:, None, :] & (d < kth[:, None, :])
+    a_vec = torch.where(enters, upd[:, None, :], a_prime[:, None, :])
+    b_vec = torch.where(enters, d.new_full((), -1.0 / k),
+                        d.new_full((), 0.0))
+    t = t_query.to(d.dtype)[:, None]
+    ai = (a_vec[:, :, None, :] + b_vec[:, :, None, :] * t).abs()
+    at = (a[..., None] + t_query.to(d.dtype)).abs()
+    cnt = (live[:, None, None, :] & (ai >= at[..., None])).sum(-1)
+    return (cnt + 1.0).to(d.dtype) / (st.n[:, None, None] + 1.0)
+
+
+__all__ = ["RegStreamState", "init", "grow", "intervals", "pvalues"]

@@ -39,6 +39,11 @@ class Session:
     def capacity(self) -> int:
         return self.D.shape[-1]
 
+    @property
+    def n(self) -> torch.Tensor:
+        """``(S,)`` live counts (the engines' occupancy checks read it)."""
+        return self.knn.n
+
     def leaves(self) -> list[torch.Tensor]:
         """The eight leaves in the JAX ``tree_flatten`` order: ``X, y,
         best, n, D, head, aid, wrap``."""

@@ -122,9 +122,11 @@ def test_stream_update_batched_equals_per_tenant():
             head=torch.tensor([heads[s]]), wrap=torch.tensor([wrap[s]]))
         for g, o in zip(got[:2], one[:2]):
             assert torch.equal(g[s], o[0])
-    assert ops.launch_counts() == {"stream_update": 0,
+    assert ops.launch_counts() == {"stream_update_class": 0,
+                                   "stream_update_reg": 0,
                                    "pairwise_sq_dists": 0,
-                                   "cp_knn_counts": 0}
+                                   "cp_knn_counts": 0,
+                                   "interval_sweep": 0}
 
 
 @pytest.mark.parametrize("m,n,p", [(8, 8, 4), (65, 33, 7), (128, 256, 30)])
