@@ -6,6 +6,7 @@ the port never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 BIG = 1e30  # inert-row sentinel, the same value as repro.core.online.BIG
@@ -19,3 +20,13 @@ def resolve(device=None) -> torch.device:
             "no CUDA device is visible; pass device='cpu' to run the "
             "plain PyTorch path explicitly")
     return dev
+
+
+def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` (array-like or tensor) as a contiguous ``dtype`` tensor on
+    ``device``: float inputs become float32 and labels int32 at the
+    entry points, as ``jnp.asarray`` does without x64."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype).contiguous()
+    return torch.as_tensor(np.asarray(x), dtype=dtype,
+                           device=device).contiguous()

@@ -38,6 +38,9 @@ SIGNATURES = {
     "rt_pairwise_sq_dists": [_P, _I64, _P, _I64, _P, _I, _I, _I, _I, _P],
     "rt_cp_knn_counts": [_P, _I64, _P, _P, _P, _P, _I64, _P, _P, _I, _I, _I,
                          _I, _I, _P],
+    "rt_kde_rowsums": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                       _I, _I, _P],
+    "rt_kde_expf": [_P, _P, _I64, _P],
 }
 
 _lib = None

@@ -7,6 +7,7 @@ runs the plain version. The device decision itself sits in each kernel's
 wrapper; this module takes the batched form (leading tenant axis) the
 callers use, brings ``stream_update``'s ring scalars to the wrapper's
 per-tenant form and keeps the launch counts, ``stream_update``'s per mode.
+``kde_rowsums`` takes the unbatched ``(m, p)`` form of the batch measures.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels.cp_update import cp_knn_counts as _cp_knn_counts
 from repro_torch.kernels.interval_sweep import interval_sweep as _sweep
+from repro_torch.kernels.kde_score import kde_rowsums as _kde_rowsums
 from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
 from repro_torch.kernels.stream_update import stream_update as _stream_update
 from repro_torch.kernels.stream_update import (stream_update_class,
@@ -25,6 +27,7 @@ KERNELS = {
     "pairwise_sq_dists": pairwise_sq_dists,
     "cp_knn_counts": _cp_knn_counts,
     "interval_sweep": _sweep,
+    "kde_rowsums": _kde_rowsums,
 }
 
 
@@ -54,6 +57,14 @@ def interval_sweep(X, a_prime, kth_dist, kth_label, live, X_test, a_test,
     """Regression-CP critical points ``lo, hi (S, m, n)``."""
     return _sweep(X, a_prime, kth_dist, kth_label, live, X_test, a_test,
                   k=k)
+
+
+def kde_rowsums(A, B, y_A, y_B, h: float, exclude_diag: bool = False,
+                n_labels: int | None = None):
+    """Masked Gaussian row sums ``(m,)`` of ``A (m, p)`` against ``B (n,
+    p)`` (unbatched, as the KDE measure calls it); with ``y_A=None``,
+    every label's sums ``(m, n_labels)``."""
+    return _kde_rowsums(A, B, y_A, y_B, h, exclude_diag, n_labels)
 
 
 def _scalars(v, S: int, device) -> torch.Tensor:

@@ -21,6 +21,12 @@ def _check(cond: bool, what: str) -> None:
         raise ValueError(f"pairwise_sq_dists kernel: {what}")
 
 
+def rows_contiguous(t: torch.Tensor) -> bool:
+    """Features contiguous and rows ``p`` apart, the layout the kernel
+    indexes; a single row's stride is never used (PyTorch may report 0)."""
+    return t.stride(2) == 1 and (t.shape[1] <= 1 or t.stride(1) == t.shape[2])
+
+
 def pairwise_sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``A (S, m, p)``, ``B (S, n, p)`` f32 with rows contiguous (any
     tenant stride, 0 included for a query batch shared by every tenant)
@@ -35,7 +41,7 @@ def pairwise_sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     _check(B.device == A.device, "both operands on one CUDA device")
     _check(B.shape[0] == S and B.shape[2] == p, "matching S and p")
     for t in (A, B):
-        _check(t.stride(2) == 1 and t.stride(1) == p, "rows contiguous")
+        _check(rows_contiguous(t), "rows contiguous")
     _check(1 <= S <= 65535 and m <= 65535 * 32, "launch grid limits")
     lib = _build.load()
     out = torch.empty((S, m, n), dtype=torch.float32, device=A.device)

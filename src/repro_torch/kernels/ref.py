@@ -48,6 +48,43 @@ def row_dists(X: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(acc, min=0.0))
 
 
+def kde_kvals(d2: torch.Tensor, h: float) -> torch.Tensor:
+    """``exp(-max(d2, 0) / f32(2 h^2))``, the KDE measure's kernel values
+    (``repro/core/measures/kde.py::_kvals``: clamp, then divide). The
+    divisor is a device scalar, so the division is IEEE on every device
+    (see ``div_k``)."""
+    return torch.exp(-torch.clamp(d2, min=0.0) / d2.new_full((),
+                                                              2.0 * h * h))
+
+
+def kde_rowsums(A, B, y_A, y_B, h: float, exclude_diag: bool = False,
+                n_labels: int | None = None):
+    """Masked Gaussian row sums ``out[i] = sum_j [y_B[j] == y_A[i]] [j !=
+    i if exclude_diag] exp(-max(d2_ij, 0) / f32(2 h^2))`` for ``A (m, p)``,
+    ``B (n, p)``, int labels ``y_A (m,)``, ``y_B (n,)`` -> ``(m,)``. With
+    ``y_A=None``, every label's sum: ``(m, n_labels)``, column ``l`` the
+    sums with target label ``l``.
+
+    ``d2`` is ``sq_dists`` (fixed order); the sum over ``j`` runs left to
+    right, one rounding per add, as in the CUDA kernel. Unlike
+    ``repro/kernels/ref.py::kde_rowsums`` (which divides without a clamp)
+    it follows the measure's ``_kvals``: clamp, then divide."""
+    K = kde_kvals(sq_dists(A, B), h)
+    m, n = K.shape
+    if exclude_diag:
+        K = torch.where(torch.eye(m, n, dtype=torch.bool, device=K.device),
+                        0.0, K)
+    if y_A is None:
+        y_A = torch.arange(n_labels, dtype=y_B.dtype,
+                           device=y_B.device).expand(m, n_labels)
+    mask = y_A[..., None] == y_B  # (m, n) or (m, L, n)
+    acc = K.new_zeros(mask.shape[:-1])
+    for j in range(n):
+        Kj = K[:, j] if y_A.dim() == 1 else K[:, j, None]
+        acc = acc + torch.where(mask[..., j], Kj, 0.0)
+    return acc
+
+
 def cp_knn_counts(X, y, sum_same, kth_same, X_test, alpha):
     """Fused simplified-k-NN CP update + p-value partial counts.
 
@@ -236,5 +273,6 @@ def stream_update_fast(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode: str,
     return d_row, newL, newY
 
 
-__all__ = ["sq_dists", "row_dists", "cp_knn_counts", "div_k", "interval_ge",
+__all__ = ["sq_dists", "row_dists", "cp_knn_counts", "div_k", "kde_kvals",
+           "kde_rowsums", "interval_ge",
            "reg_interval_endpoints", "stream_update", "stream_update_fast"]

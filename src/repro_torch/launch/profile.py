@@ -2,6 +2,8 @@
 
     python -m repro_torch.launch.profile --trace tick_trace.json
     python -m repro_torch.launch.profile --regression
+    python -m repro_torch.launch.profile --measure kde
+    python -m repro_torch.launch.profile --kde-layouts
 
 At a serving cell's shapes (1024 tenants, window 1024, dim 30; k 15 for
 classification, k 7 for ``--regression``), fills every tenant's window
@@ -12,7 +14,15 @@ points per tenant with ``torch.profiler``: ``predict``, or for
 first). For each it prints the host wall time (synchronised), the summed
 device time of every kernel and its share of the wall time (the device
 busy share: one stream, so kernels do not overlap), and the kernels with
-the most device time. Needs a GPU.
+the most device time. ``--measure kde`` instead traces the batch KDE
+classifier at the paper's App. E top size (n = 100,000 training points,
+dim 30, 2 labels, h = 1): one ``ConformalClassifier.fit`` and one
+steady-state ``predict_pvalues`` over 100 test points (one untraced call
+first). ``--kde-layouts`` times the ``kde_rowsums`` kernel's two layouts
+against each other (CUDA events) over a grid of row counts at n = 100,000,
+dim 30, 2 labels, and the read's per-label form against the one-label
+form over its m * L rows: the measurement behind ``WIDE_ROWS``. Needs a
+GPU.
 """
 from __future__ import annotations
 
@@ -25,6 +35,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core.predictor import ConformalClassifier
+from repro_torch.data.synthetic import make_classification
+from repro_torch.kernels.kde_score import WIDE_ROWS, kde_rowsums
 from repro_torch.launch.serve import class_drift_traffic, reg_drift_traffic
 from repro_torch.regression import RegressionServingEngine
 from repro_torch.serving import ServingEngine
@@ -32,9 +45,11 @@ from repro_torch.serving import ServingEngine
 S, W, P, QUERIES = 1024, 1024, 30, 100
 K_CLASS, K_REG, EPS = 15, 7, 0.1
 TICKS, CHUNK, TOP, SEED = 8, 32, 15, 0
+N_BATCH = 100_000  # the top of the paper's n-grid (numpy.logspace(1, 5, 13))
 HAND_KERNELS = ("stream_update_class_kernel", "stream_update_reg_kernel",
                 "pairwise_sq_dists_kernel", "cp_knn_counts_kernel",
-                "interval_sweep_kernel")
+                "interval_sweep_kernel", "kde_rowsums_kernel",
+                "kde_rowsums_wide_kernel", "kde_sumsq_kernel")
 
 
 def device_breakdown(fn, label: str, trace: str | None) -> None:
@@ -66,13 +81,95 @@ def device_breakdown(fn, label: str, trace: str | None) -> None:
         prof.export_chrome_trace(trace)
 
 
+def profile_batch(measure: str, trace: str | None) -> int:
+    """The batch classifier's fit and steady-state predict, traced."""
+    X, y = make_classification(N_BATCH + QUERIES, P, seed=SEED)
+    X = torch.as_tensor(X, dtype=torch.float32, device="cuda").contiguous()
+    y = torch.as_tensor(y, dtype=torch.int32, device="cuda")
+    Xtr, ytr, Xq = X[:N_BATCH], y[:N_BATCH], X[N_BATCH:]
+    clf = ConformalClassifier(measure, n_labels=2, k=K_CLASS, h=1.0,
+                              device="cuda")
+    print(f"[profile] {torch.cuda.get_device_name(0)}: batch {measure} "
+          f"n={N_BATCH} dim={P} m={QUERIES}")
+    clf.fit(Xtr[:1024], ytr[:1024])  # builds the kernels outside the trace
+    device_breakdown(lambda: clf.fit(Xtr, ytr), f"fit n={N_BATCH}", trace)
+    clf.predict_pvalues(Xq)
+    device_breakdown(lambda: clf.predict_pvalues(Xq),
+                     f"predict_pvalues m={QUERIES} (steady state)", None)
+    return 0
+
+
+def _events_ms(fn, iters: int) -> float:
+    """Mean ms per call over ``iters`` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def kde_layouts() -> int:
+    """Rows against wide layout of ``kde_rowsums`` by row count (one-label
+    form, diagonal excluded where m == n); the read's per-label form at m
+    = QUERIES against the one-label form over its m * L rows. Every pair
+    of layouts must give the same bits."""
+    X, y = make_classification(N_BATCH + QUERIES, P, seed=SEED)
+    X = torch.as_tensor(X, dtype=torch.float32, device="cuda").contiguous()
+    y = torch.as_tensor(y, dtype=torch.int32, device="cuda")
+    Xtr, ytr = X[:N_BATCH].contiguous(), y[:N_BATCH].contiguous()
+    print(f"[kde-layouts] {torch.cuda.get_device_name(0)}: n={N_BATCH} "
+          f"dim={P}, WIDE_ROWS={WIDE_ROWS}; ms per launch (CUDA events)")
+    for m in (100, 200, 1000, 2000, 4000, 8000, 9000, 10000, 12000, 16000,
+              32000, 64000, N_BATCH):
+        A, yA = Xtr[:m], ytr[:m]
+        diag = m == N_BATCH
+        run = {lay: (lambda lay=lay: kde_rowsums(A, Xtr, yA, ytr, 1.0, diag,
+                                                 layout=lay))
+               for lay in ("rows", "wide")}
+        if not torch.equal(run["rows"](), run["wide"]()):
+            raise RuntimeError(f"layouts differ at m = {m}")
+        t = {lay: _events_ms(fn, 3 if m > 20000 else 10)
+             for lay, fn in run.items()}
+        print(f"  m={m:6d}: rows {t['rows']:9.3f}  wide {t['wide']:9.3f}  "
+              f"wide/rows {t['wide'] / t['rows']:7.3f}")
+    Xq, L = X[N_BATCH:], 2
+    labels = torch.arange(L, dtype=torch.int32, device="cuda")
+    Xrep = Xq.repeat_interleave(L, 0).contiguous()
+    lrep = labels.repeat(QUERIES)
+    every = kde_rowsums(Xq, Xtr, None, ytr, 1.0, n_labels=L)
+    one = kde_rowsums(Xrep, Xtr, lrep, ytr, 1.0)
+    if not torch.equal(every.reshape(-1), one):
+        raise RuntimeError("per-label form differs from the one-label form")
+    t_every = _events_ms(
+        lambda: kde_rowsums(Xq, Xtr, None, ytr, 1.0, n_labels=L), 20)
+    t_one = _events_ms(lambda: kde_rowsums(Xrep, Xtr, lrep, ytr, 1.0), 20)
+    print(f"  read m={QUERIES} L={L}: per-label form {t_every:.3f} ms, "
+          f"one-label form over {QUERIES * L} rows {t_one:.3f} ms "
+          "(same bits)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--regression", action="store_true",
                     help="the regression engine's tick and intervals read")
+    ap.add_argument("--measure", default=None,
+                    choices=("knn", "simplified_knn", "kde", "lssvm"),
+                    help="trace the batch classifier of this measure")
+    ap.add_argument("--kde-layouts", action="store_true",
+                    help="time kde_rowsums' two layouts by row count")
     ap.add_argument("--trace", default="",
-                    help="write the tick trace (Chrome JSON) here")
+                    help="write the tick (or fit) trace (Chrome JSON) here")
     args = ap.parse_args(argv)
+    if args.kde_layouts:
+        return kde_layouts()
+    if args.measure:
+        return profile_batch(args.measure, args.trace or None)
     T = W + 2 * TICKS
     if args.regression:
         k = K_REG

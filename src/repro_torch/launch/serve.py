@@ -4,6 +4,8 @@
         --window 1024 --capacity 1024 --dim 30 --k 15
     python -m repro_torch.launch.serve --regression --sessions 1024 \\
         --steps 2112 --window 1024 --capacity 1024 --dim 30 --k 7
+    python -m repro_torch.launch.serve --measure kde --sessions 4 \\
+        --steps 60 --window 32 --dim 4
 
 Serves ``--sessions`` concurrent sliding-window CP sessions, one
 ``observe`` per tick (``--device cuda`` by default), on synthetic drift
@@ -16,6 +18,13 @@ the launches of each kernel and the tenants flagged by their
 simple-mixture martingale; then one read over ``--queries`` points per
 tenant: ``predict`` p-values, or ``--regression`` prediction intervals at
 ``--eps`` with their coverage and median width on fresh labelled points.
+
+``--measure NAME`` (knn, simplified_knn, kde, lssvm) serves each tenant
+through its own registry ``ConformalPredictor`` instead, on the same
+classification traffic: ``fit`` on a warm-up prefix, then per tick
+``pvalues`` of the new point, ``observe`` it, and ``evict(0)`` once the
+window is full. Reports session-steps/s, per-operation ms and the tenants
+flagged by the running maximum of their martingale.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ import torch
 from repro_torch.core.online import simple_mixture_log_martingale
 from repro_torch.kernels import ops
 from repro_torch.regression import RegressionServingEngine
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import ServingEngine, registry
 
 
 def class_drift_traffic(seed: int, S: int, T: int, dim: int, drift: float):
@@ -159,6 +168,64 @@ def serve_sessions(args) -> int:
     return 0
 
 
+def serve_registry(args) -> int:
+    """Multi-tenant sliding-window serving through the measure registry
+    (the counterpart of the JAX launcher's registry mode): a Python loop
+    over tenants, one exact-shape ``ConformalPredictor`` each. Drift is
+    flagged on the running maximum of the log martingale, since a measure
+    that retrains on its window re-conforms within a few ticks."""
+    S, T, dim, w = args.sessions, args.steps, args.dim, args.window
+    warm = min(w, max(8, T // 4))
+    if T <= warm + 2:
+        raise SystemExit(f"--steps must exceed the warm-up ({warm + 2})")
+    spec = registry.get(args.measure)
+    hp = {k: v for k, v in {"k": args.k, "n_labels": 2}.items()
+          if k in spec.defaults}
+    xs, ys, _, drifted = class_drift_traffic(args.seed, S, T, dim,
+                                             args.drift)
+    xs, ys = xs.swapaxes(0, 1), ys.T  # (S, T, dim), (S, T)
+    ms = {"fit": [], "pvalues": [], "observe": [], "evict": []}
+    on_card = torch.device(args.device).type == "cuda"
+
+    def timed(op, fn):
+        h0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        ms[op].append((time.perf_counter() - h0) * 1e3)
+        return out
+
+    ops.reset_launch_counts()
+    pvals = np.full((S, T - warm), np.nan, np.float32)
+    t0 = time.perf_counter()
+    for s in range(S):
+        cp = registry.ConformalPredictor(args.measure, device=args.device,
+                                         **hp)
+        timed("fit", lambda: cp.fit(xs[s, :warm], ys[s, :warm]))
+        for t in range(warm, T):
+            p = timed("pvalues", lambda: cp.pvalues(xs[s, t][None]))
+            pvals[s, t - warm] = float(p[0, ys[s, t]])
+            timed("observe", lambda: cp.observe(xs[s, t], int(ys[s, t])))
+            if cp.n > w:
+                timed("evict", lambda: cp.evict(0))
+    dt = time.perf_counter() - t0
+    print(f"[serve] registry {args.measure}: {S} sessions, window {w}, "
+          f"dim {dim}, warm-up {warm} on {args.device}: "
+          f"{S * (T - warm) / dt:.1f} session-steps/s; per-operation ms "
+          + ", ".join(f"{op} p50 {np.percentile(v, 50):.3f}"
+                      for op, v in ms.items() if v)
+          + (" (host clock, synchronised)" if on_card else
+             " (host clock, CPU)"))
+    logm = simple_mixture_log_martingale(torch.from_numpy(pvals))
+    flagged = (logm.max(-1).values > args.log_threshold).numpy()
+    print(f"[serve] drift flags (running max): "
+          f"{int(flagged[drifted].sum())}/{int(drifted.sum())} drifted "
+          f"tenants, {int(flagged[~drifted].sum())}/"
+          f"{int((~drifted).sum())} others")
+    print(f"[serve] kernel launches: {ops.launch_counts()}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, required=True,
@@ -166,6 +233,10 @@ def main(argv=None) -> int:
     ap.add_argument("--regression", action="store_true",
                     help="serve k-NN regression CP (linear-label traffic, "
                     "prediction intervals) instead of classification")
+    ap.add_argument("--measure", default=None,
+                    choices=registry.available(),
+                    help="serve each tenant through a registry "
+                    "ConformalPredictor of this measure")
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--dim", type=int, default=8)
     ap.add_argument("--k", type=int, default=7)
@@ -180,7 +251,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
-    return serve_sessions(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    return serve_registry(args) if args.measure else serve_sessions(args)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@
   decremental eviction and capacity growth;
 * ``engine``  — ``ServingEngine``: every tenant advanced per tick by one
   launch of each kernel; read-only ``predict``;
-* ``convert`` — the JAX engine's state carried across as numpy leaves.
+* ``registry`` — ``ConformalPredictor`` over the paper's batch measures
+  (fit / observe / evict / pvalues);
+* ``convert`` — the JAX engines' and measures' states carried across as
+  numpy leaves.
 """
 from repro_torch.serving.engine import ServingEngine
 

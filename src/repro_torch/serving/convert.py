@@ -7,13 +7,26 @@ regression engine's is the 10-leaf ``X, y, D, nbr_d, nbr_y, n, head,
 aid, wrap, nbr_a`` (``repro/regression/stream.py``). Each leaf has the
 leading tenant axis. These functions move them into the port and back,
 so both engines can start from one state and be compared leaf by leaf.
+
+The batch measures' states carry across the same way (``batch_state_from_
+numpy`` / ``batch_state_to_numpy``), in the JAX classes' ``tree_flatten``
+order: ``KnnState (X, y, best_same, best_diff)``, ``KdeState (X, y,
+prelim, class_counts)``, ``LssvmState (Phi, Y, w, C, rho)``,
+``IcpKnnState (X_train, y_train, calib_scores)``, ``IcpKdeState
+(X_train, y_train, class_counts, calib_scores)``, ``IcpLssvmState (w,
+calib_scores)``; ``rff_params_from_numpy`` carries the JAX ``rff`` feature
+map's ``W, b`` (drawn with ``jax.random``) into ``lssvm.feature_map``.
 """
 from __future__ import annotations
+
+from dataclasses import fields
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve
+from repro_torch.core import icp
+from repro_torch.core.measures import kde, knn, lssvm
 from repro_torch.regression.stream import RegStreamState
 from repro_torch.serving.session import Session
 
@@ -56,5 +69,37 @@ def reg_state_to_numpy(state: RegStreamState) -> list[np.ndarray]:
     return [t.detach().cpu().numpy() for t in state.leaves()]
 
 
+_I32 = torch.int32
+# each batch state class and its leaves' dtypes; None keeps the float type
+_BATCH_STATES = {
+    knn.KnnState: (None, _I32, None, None),
+    kde.KdeState: (None, _I32, None, _I32),
+    lssvm.LssvmState: (None, None, None, None, None),
+    icp.IcpKnnState: (None, _I32, None),
+    icp.IcpKdeState: (None, _I32, _I32, None),
+    icp.IcpLssvmState: (None, None),
+}
+
+
+def batch_state_from_numpy(cls, leaves, device=None):
+    """A batch measure's state of class ``cls`` (``knn.KnnState``, ...,
+    ``icp.IcpLssvmState``) from the JAX state's leaves."""
+    names = ", ".join(f.name for f in fields(cls))
+    return cls(*_from_numpy(leaves, _BATCH_STATES[cls], names, device))
+
+
+def batch_state_to_numpy(state) -> list[np.ndarray]:
+    """The leaves of a batch measure's state as numpy arrays, JAX order."""
+    return [t.detach().cpu().numpy() for t in state.leaves()]
+
+
+def rff_params_from_numpy(W, b, device=None):
+    """The ``rff`` map's ``W (p, q)``, ``b (q,)`` as f32 tensors, for
+    ``lssvm.feature_map("rff", ..., params=...)``."""
+    return tuple(_from_numpy([W, b], (torch.float32, torch.float32), "W, b",
+                             device))
+
+
 __all__ = ["session_from_numpy", "session_to_numpy", "reg_state_from_numpy",
-           "reg_state_to_numpy"]
+           "reg_state_to_numpy", "batch_state_from_numpy",
+           "batch_state_to_numpy", "rff_params_from_numpy"]

@@ -1,0 +1,208 @@
+"""Declarative nonconformity-measure registry, the port's counterpart of
+``repro/serving/registry.py``.
+
+The paper's incrementally-and-decrementally optimized measures behind one
+``fit / observe / evict / pvalues`` surface::
+
+    from repro_torch.serving import registry
+
+    cp = registry.ConformalPredictor("kde", h=0.8, n_labels=3)
+    cp.fit(X, y)
+    cp.observe(x_new, y_new)      # paper's incremental update, O(n)
+    cp.evict(0)                   # paper's decremental update, O(n)
+    p = cp.pvalues(X_test)        # (m, n_labels) full-CP p-values
+
+Registered: knn, simplified_knn, kde, lssvm. ``knn_regression`` and
+``bootstrap`` are not ported yet (ROADMAP). ``fit`` returns ``(state,
+ctx)``; ``ctx`` carries non-tensor companions (the LS-SVM feature map)
+and every other hook receives it back. Predictors run on ``device``
+(``cuda`` unless the caller asks for another; it raises without a GPU).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch._device import as_tensor as _tensor
+from repro_torch._device import resolve
+from repro_torch.core import pvalues as pv
+from repro_torch.core.measures import kde as kde_m
+from repro_torch.core.measures import knn as knn_m
+from repro_torch.core.measures import lssvm as lssvm_m
+
+
+@dataclass(frozen=True)
+class MeasureSpec:
+    """One pluggable nonconformity measure (all hooks take the hp dict)."""
+
+    name: str
+    fit: Callable[..., tuple[Any, Any]]  # (X, y, hp) -> (state, ctx)
+    observe: Callable[..., Any]  # (state, ctx, x, y, hp) -> state
+    evict: Callable[..., Any] | None  # (state, ctx, i, hp) -> state
+    pvalues: Callable[..., torch.Tensor]  # (state, ctx, X_test, hp)
+    defaults: dict
+
+
+_REGISTRY: dict[str, MeasureSpec] = {}
+
+
+def register(spec: MeasureSpec) -> MeasureSpec:
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def get(name: str) -> MeasureSpec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown measure {name!r}; registered: {available()}") from None
+
+
+def available() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+# ---------------------------------------------------------------------------
+# built-in measures
+# ---------------------------------------------------------------------------
+
+
+def _knn_spec(name: str, simplified: bool) -> MeasureSpec:
+    def fit(X, y, hp):
+        return knn_m.fit(X, y, k=hp["k"]), None
+
+    def observe(state, ctx, x, y, hp):
+        return knn_m.incremental_add(state, x, int(y), k=hp["k"])
+
+    def evict(state, ctx, i, hp):
+        return knn_m.decremental_remove(state, i, k=hp["k"])
+
+    def pvalues(state, ctx, X_test, hp):
+        return knn_m.pvalues_optimized(
+            state, X_test, k=hp["k"], simplified=simplified,
+            n_labels=hp["n_labels"])
+
+    return MeasureSpec(name, fit, observe, evict, pvalues,
+                       defaults={"k": 7, "n_labels": 2})
+
+
+def _kde_spec() -> MeasureSpec:
+    def fit(X, y, hp):
+        return kde_m.fit(X, y, h=hp["h"], n_labels=hp["n_labels"]), None
+
+    def observe(state, ctx, x, y, hp):
+        return kde_m.incremental_add(state, x, int(y), h=hp["h"])
+
+    def evict(state, ctx, i, hp):
+        return kde_m.decremental_remove(state, i, h=hp["h"])
+
+    def pvalues(state, ctx, X_test, hp):
+        return kde_m.pvalues_optimized(
+            state, X_test, h=hp["h"], p_dim=state.X.shape[1],
+            n_labels=hp["n_labels"])
+
+    return MeasureSpec("kde", fit, observe, evict, pvalues,
+                       defaults={"h": 1.0, "n_labels": 2})
+
+
+def _lssvm_spec() -> MeasureSpec:
+    # binary measure: int labels {0, 1} are mapped to {-1, +1}
+
+    def fit(X, y, hp):
+        if hp["n_labels"] != 2:
+            raise ValueError(
+                "lssvm measure is binary (labels {0, 1}); use one-vs-rest "
+                "for more labels (paper Section 5)")
+        if not bool(((y == 0) | (y == 1)).all()):
+            raise ValueError("lssvm measure expects labels in {0, 1}")
+        phi, _ = lssvm_m.feature_map(hp["feature_map"], X.shape[1],
+                                     hp["rff_dim"], hp["seed"],
+                                     device=X.device)
+        return lssvm_m.fit(phi(X), 2.0 * y.to(torch.float32) - 1.0,
+                           hp["rho"]), phi
+
+    def observe(state, phi, x, y, hp):
+        y = int(y)
+        if y not in (0, 1):
+            raise ValueError("lssvm measure expects labels in {0, 1}")
+        return lssvm_m.incremental_add(state, phi(x[None])[0], 2.0 * y - 1.0)
+
+    def evict(state, phi, i, hp):
+        return lssvm_m.decremental_remove(state, i)
+
+    def pvalues(state, phi, X_test, hp):
+        return lssvm_m.pvalues_optimized(state, phi(X_test))
+
+    return MeasureSpec("lssvm", fit, observe, evict, pvalues,
+                       defaults={"rho": 1.0, "feature_map": "linear",
+                                 "rff_dim": 128, "seed": 0, "n_labels": 2})
+
+
+register(_knn_spec("knn", simplified=False))
+register(_knn_spec("simplified_knn", simplified=True))
+register(_kde_spec())
+register(_lssvm_spec())
+
+
+# ---------------------------------------------------------------------------
+# unified predictor
+# ---------------------------------------------------------------------------
+
+
+class ConformalPredictor:
+    """Stateful full-CP predictor over any registered measure."""
+
+    def __init__(self, measure: str = "simplified_knn", device=None,
+                 **hyperparams):
+        self.spec = get(measure)
+        unknown = set(hyperparams) - set(self.spec.defaults)
+        if unknown:
+            raise TypeError(
+                f"{measure}: unknown hyperparameters {sorted(unknown)}; "
+                f"accepts {sorted(self.spec.defaults)}")
+        self.hp = {**self.spec.defaults, **hyperparams}
+        self.device = resolve(device)
+        self._state = None
+        self._ctx = None
+
+    def fit(self, X, y) -> "ConformalPredictor":
+        self._state, self._ctx = self.spec.fit(
+            _tensor(X, torch.float32, self.device),
+            _tensor(y, torch.int32, self.device), self.hp)
+        return self
+
+    def observe(self, x, y) -> "ConformalPredictor":
+        """Learn one example (paper's incremental update)."""
+        self._state = self.spec.observe(
+            self._state, self._ctx, _tensor(x, torch.float32, self.device),
+            y, self.hp)
+        return self
+
+    def evict(self, i: int = 0) -> "ConformalPredictor":
+        """Forget training point ``i`` (paper's decremental update)."""
+        if self.spec.evict is None:
+            raise NotImplementedError(
+                f"measure {self.spec.name!r} has no decremental update")
+        self._state = self.spec.evict(self._state, self._ctx, i, self.hp)
+        return self
+
+    def pvalues(self, X_test) -> torch.Tensor:
+        return self.spec.pvalues(self._state, self._ctx,
+                                 _tensor(X_test, torch.float32, self.device),
+                                 self.hp)
+
+    def predict_set(self, X_test, eps: float) -> torch.Tensor:
+        return pv.prediction_sets(self.pvalues(X_test), eps)
+
+    @property
+    def n(self) -> int:
+        """Current training-set size (leading dim of the state's first
+        leaf)."""
+        return int(self._state.leaves()[0].shape[0])
+
+
+__all__ = ["MeasureSpec", "ConformalPredictor", "register", "get",
+           "available"]

@@ -126,7 +126,8 @@ def test_stream_update_batched_equals_per_tenant():
                                    "stream_update_reg": 0,
                                    "pairwise_sq_dists": 0,
                                    "cp_knn_counts": 0,
-                                   "interval_sweep": 0}
+                                   "interval_sweep": 0,
+                                   "kde_rowsums": 0}
 
 
 @pytest.mark.parametrize("m,n,p", [(8, 8, 4), (65, 33, 7), (128, 256, 30)])
