@@ -35,7 +35,22 @@ exits non-zero without a result line:
    reading, held to 512 ulp), every other classifier (knn,
    simplified_knn, lssvm; ICP knn, kde, lssvm) with coverage >= 0.88 at
    eps 0.1 on 2,000 fresh points; then optimized == standard at n = 2048,
-   m = 16.
+   m = 16;
+7. LM conformal serving (qwen2-1.5b at full width, bf16, random weights
+   from the seed): ``flash_attention`` against its plain version at the
+   embedding pass's shape (B 256, S 512, H 12, Hkv 2, D 128, causal), at
+   gemma3's local layer (D 256, window 512), in f32 with softcap 50
+   non-causal, in f32 with Sq 16 < Skv 80, and at small odd head dims;
+   then the launcher's functions: 256 calibration sequences of 512 tokens
+   embedded and the OOD head fitted (k 7), 256 held-out sequences of the
+   same stream scored (validity: share with p <= 0.1 at most 0.18, mean p
+   in [0.40, 0.60]), 16 requests (8 of another seed's stream, 8 uniform
+   tokens) prefilled by teacher-forced decode steps, 32 tokens generated
+   and scored; every embedding pass launches the kernel once per layer.
+   Then, in f32 at full width and 2 layers, the kernel route's embeddings
+   == the plain route's (1e-5 of their RMS) and their OOD p-values equal
+   outside flagged near-ties; decode == forward (1e-3); the bf16
+   full-depth gap between the routes is printed.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -44,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from contextlib import nullcontext
 import subprocess
 import sys
 import time
@@ -66,6 +82,19 @@ CHUNK = 32  # ticks per observe_many call
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+# phase 7: qwen2-1.5b (the JAX launcher's default arch) at full width
+LM_ARCH, LM_REDUCED = "qwen2-1.5b", False
+LM_CALIB, LM_SEQ, LM_REQUESTS, LM_GEN, LM_K = 256, 512, 16, 32, 7
+LM_CHECK_LAYERS, LM_DECODE_CHECK = 2, (2, 64)  # f32 checks: depth, (B, S)
+FLASH_CASES = [  # name, dtype, B, Sq, Skv, H, Hkv, D, causal, window, softcap
+    ("a", torch.bfloat16, 256, 512, 512, 12, 2, 128, True, None, None),
+    ("b", torch.bfloat16, 4, 2048, 2048, 4, 1, 256, True, 512, None),
+    ("c", torch.float32, 2, 1024, 1024, 8, 4, 64, False, None, 50.0),
+    ("d", torch.float32, 2, 16, 80, 4, 2, 128, True, None, None),
+    ("e", torch.float32, 3, 100, 100, 4, 2, 16, True, 5, None),  # --reduced
+    ("f", torch.bfloat16, 2, 130, 130, 6, 3, 72, True, None, 30.0),
+]
 BIG = 1e30
 
 
@@ -89,8 +118,8 @@ def cuda_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -905,6 +934,233 @@ def batch_exactness(X, y, Xq):
           "as near-ties")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: LM conformal serving
+# ---------------------------------------------------------------------------
+
+
+def bf16_close(got, want):
+    """bf16 outputs against the plain version: two f32 results within the
+    f32 tolerance (1e-5), each rounded to bf16 once, differ by at most one
+    bf16 ulp of the plain output plus 1e-5. Returns (every element within
+    that, the share of elements more than one ulp apart). The 1e-5 matters
+    only at outputs below the f32 rounding noise of their own sums (on an
+    H100 an output of 1.5e-11 in the plain version came out 2.1e-8)."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    d = (got.float() - w).abs()
+    return bool((d <= ulp + 1e-5).all()), float((d > ulp).float().mean())
+
+
+def live_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one (batch, head)."""
+    pos = np.arange(Sq)[:, None] + (Skv - Sq)
+    kp = np.arange(Skv)[None, :]
+    keep = np.ones((Sq, Skv), bool)
+    if causal:
+        keep &= kp <= pos
+    if window:
+        keep &= kp > pos - window
+    return int(keep.sum())
+
+
+def check_flash_attention(g, iters, dev="cuda"):
+    """``flash_attention`` == its plain version: f32 within 1e-5 (atol and
+    rtol), bf16 within one bf16 ulp plus 1e-5 (``bf16_close``). Times shape (a), the embedding
+    pass's, against the plain version and SDPA (the yardstick only)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err, notes, timed = 0.0, [], None
+    for name, dt, B, Sq, Skv, H, Hkv, D, causal, window, cap in FLASH_CASES:
+        q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dt)
+        k = torch.randn((B, Skv, Hkv, D), generator=g, device=dev).to(dt)
+        v = torch.randn((B, Skv, Hkv, D), generator=g, device=dev).to(dt)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = flash_attention(q, k, v, **kw)
+        want = ref.flash_attention(q, k, v, **kw)
+        check(got.shape == want.shape and got.dtype == dt
+              and bool(torch.isfinite(got).all()), f"flash ({name}) finite")
+        diff = float((got.float() - want.float()).abs().max())
+        if dt == torch.float32:
+            check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
+                  f"flash ({name}) f32 within 1e-5: {diff}")
+            notes.append(f"({name}) f32 max_abs_err {diff:.3g}")
+        else:
+            ok, beyond = bf16_close(got, want)
+            check(ok, f"flash ({name}) bf16 within one ulp + 1e-5")
+            notes.append(f"({name}) bf16 max_abs_err {diff:.3g}, "
+                         f"{float((got != want).float().mean()):.2e} of "
+                         f"elements differ, {beyond:.2e} by more than 1 ulp")
+        err = max(err, diff)
+        if name == "a":
+            timed = (q, k, v, kw, B, Sq, Skv, H, Hkv, D)
+        del q, k, v, got, want
+    q, k, v, kw, B, Sq, Skv, H, Hkv, D = timed
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
+    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), 3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                  enable_gqa=True), iters)
+    nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D)
+    pairs = live_pairs(Sq, Skv, True, None)
+    b_ms, b_by = bound(nbytes, 4 * B * H * D * pairs, BF16_FLOPS_PER_S)
+    print(f"[kernel] flash_attention: " + "; ".join(notes)
+          + f"; (a) B={B} S={Sq} H={H} Hkv={Hkv} D={D} causal bf16: "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; {pairs} live pairs per head)")
+    del q, k, v, qt, kt, vt
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:83",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+class plain_attention:
+    """Inside the block, the LM's attention takes the plain version:
+    ``ops.flash_attention`` (which ``models/attention.py`` looks up at
+    call time) is swapped for ``ref.flash_attention``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+
+        self._ops, self._kept = ops, ops.flash_attention
+        ops.flash_attention = ref.flash_attention
+
+    def __exit__(self, *exc):
+        self._ops.flash_attention = self._kept
+
+
+def rel_gap(a, b) -> float:
+    """``max |a - b|`` over the RMS of ``b``."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.pow(2).mean().sqrt())
+
+
+def lm_path(dev="cuda"):
+    """Phase 7's main path through the launcher's functions. Returns the
+    path's launch counts."""
+    from repro_torch.core.lm_conformal import ConformalOodDetector
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg, params = serve.lm_model(LM_ARCH, LM_REDUCED, SEED, dev)
+    n_par = sum(t.numel() for t in params.parameters())
+    calib = serve.stream_tokens(cfg, LM_CALIB, LM_SEQ, SEED, 0, dev)
+    held = serve.stream_tokens(cfg, LM_CALIB, LM_SEQ, SEED, 1, dev)
+    req = serve.request_tokens(cfg, LM_REQUESTS, LM_SEQ, SEED, dev)
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv) x "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{n_par / 1e9:.3f} B parameters")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    emb, emb_ms = timed_ms(lambda: serve.embed(params, cfg, calib))
+    ood, fit_ms = timed_ms(
+        lambda: ConformalOodDetector(k=LM_K, device=dev).fit(emb))
+    held_emb, held_ms = timed_ms(lambda: serve.embed(params, cfg, held))
+    p_held, pv_ms = timed_ms(lambda: ood.pvalues(held_emb))
+    gen, dec_ms = timed_ms(lambda: serve.generate(params, cfg, req, LM_GEN))
+    req_emb, req_ms = timed_ms(lambda: serve.embed(params, cfg, req))
+    p_req, preq_ms = timed_ms(lambda: ood.pvalues(req_emb))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tok = LM_REQUESTS * LM_GEN
+    print(f"[lm-main] embedding pass {LM_CALIB} x {LM_SEQ}: calibration "
+          f"{emb_ms:.1f} ms, held-out {held_ms:.1f} ms; OOD fit "
+          f"{fit_ms:.3f} ms, p-values of {LM_CALIB} {pv_ms:.3f} ms; "
+          f"{LM_REQUESTS} requests x ({LM_SEQ} prefill + {LM_GEN} generated)"
+          f" by decode steps in {dec_ms:.1f} ms ({tok / dec_ms * 1e3:.1f} "
+          f"tok/s, {(LM_SEQ + LM_GEN) / dec_ms * 1e3:.1f} steps/s), request "
+          f"embedding {req_ms:.1f} ms, p-values {preq_ms:.3f} ms (host "
+          f"clock, synchronised); peak {peak / 2**30:.2f} GiB; launches "
+          f"{counts}")
+    check(counts["flash_attention"] == 3 * cfg.n_layers,
+          "flash_attention: one launch per layer per embedding pass")
+    check(sum(counts.values()) == counts["flash_attention"],
+          "no other kernel on the LM path")
+    check(emb.shape == (LM_CALIB, cfg.d_model)
+          and emb.dtype == lm.dtype_of(cfg.dtype)
+          and bool(torch.isfinite(emb).all()), "finite calibration embeddings")
+    check(gen.shape == (LM_REQUESTS, LM_GEN) and bool(
+        ((gen >= 0) & (gen < cfg.vocab_size)).all()), "generated tokens")
+    for p in (p_held, p_req):
+        check(bool(((p > 0) & (p <= 1)).all()), "p-values in (0, 1]")
+
+    # ---- validity (binding) and power (a reading) --------------------------
+    ph = p_held.cpu().numpy()
+    share, mean_p = float((ph <= EPS).mean()), float(ph.mean())
+    pr = p_req.cpu().numpy()
+    half = LM_REQUESTS // 2
+    print(f"[lm-valid] held-out in-distribution ({LM_CALIB}): share p <= "
+          f"{EPS} {share:.4f} (<= 0.18), mean p {mean_p:.4f} (in [0.40, "
+          f"0.60]); requests of another seed's stream: mean p "
+          f"{pr[:half].mean():.4f}; uniform-token requests: mean p "
+          f"{pr[half:].mean():.4f}, share p <= {EPS} "
+          f"{float((pr[half:] <= EPS).mean()):.4f} (power, a reading)")
+    check(share <= 0.18, f"held-out share with p <= {EPS}: {share}")
+    check(0.40 <= mean_p <= 0.60, f"held-out mean p {mean_p}")
+
+    # ---- bf16 full depth: the plain route's gap (a reading) ----------------
+    with plain_attention():
+        emb_plain = serve.embed(params, cfg, calib)
+    bf16_gap = rel_gap(emb, emb_plain)
+    del params, emb_plain
+    torch.cuda.empty_cache()
+
+    # ---- f32, full width, LM_CHECK_LAYERS layers (binding) -----------------
+    cfg32 = cfg.replace(n_layers=LM_CHECK_LAYERS, dtype="float32",
+                        param_dtype="float32")
+    p32 = serve.lm_model(LM_ARCH, LM_REDUCED, SEED, dev,
+                         n_layers=LM_CHECK_LAYERS, dtype="float32",
+                         param_dtype="float32")[1]
+    routes = {}
+    for route in ("kernel", "plain"):
+        with plain_attention() if route == "plain" else nullcontext():
+            routes[route] = [serve.embed(p32, cfg32, t) for t in (calib,
+                                                                  held)]
+    gap = max(rel_gap(a, b) for a, b in zip(routes["kernel"],
+                                            routes["plain"]))
+    check(gap <= 1e-5, f"f32 kernel route == plain route within 1e-5 of "
+          f"the RMS: {gap}")
+    dets = {r: ConformalOodDetector(k=LM_K, device=dev).fit(e[0])
+            for r, e in routes.items()}
+    pk = dets["kernel"].pvalues(routes["kernel"][1])
+    pp = dets["plain"].pvalues(routes["plain"][1])
+    alphas, alpha = dets["kernel"].scores(routes["kernel"][1])
+    near = ((alphas - alpha[:, None]).abs() <= 1e-4 * torch.maximum(
+        alphas.abs(), alpha.abs()[:, None]) + 1e-6).any(1)
+    check(torch.equal(pk[~near], pp[~near]), "OOD p-values equal outside "
+          "flagged near-ties")
+    B, S = LM_DECODE_CHECK
+    toks = calib[:B, :S]
+    full = lm.forward(p32, cfg32, {"tokens": toks})
+    cache = lm.init_cache(cfg32, B, S, dev)
+    steps = [lm.decode_step(p32, cfg32, toks[:, i:i + 1], cache, i)[0][:, 0]
+             for i in range(S)]
+    dec = torch.stack(steps, 1)
+    dec_err = float((dec - full).abs().max())
+    check(torch.allclose(dec, full, atol=1e-3, rtol=1e-3),
+          f"decode == forward within 1e-3: {dec_err}")
+    print(f"[lm-exact] f32 {LM_CHECK_LAYERS} layers at full width: kernel "
+          f"route == plain route, embeddings within {gap:.3g} of their RMS "
+          f"(<= 1e-5); OOD p-values equal ({int(near.sum())} of "
+          f"{near.numel()} held-out queries flagged as near-ties); "
+          f"teacher-forced decode == forward over {B} x {S} tokens, max abs "
+          f"err {dec_err:.3g} (1e-3); bf16 {cfg.n_layers} layers: the "
+          f"routes' embeddings differ by {bf16_gap:.3g} of their RMS (a "
+          "reading)")
+    del p32, routes, dets
+    torch.cuda.empty_cache()
+    return counts
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -957,6 +1213,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["batch"] = batch_path(Xb, yb, Xq, Xv, yv, prelim)
     batch_exactness(Xb, yb, Xq)
+    table.append(check_flash_attention(g, args.iters))
+    torch.cuda.empty_cache()
+    by_path["lm"] = lm_path()
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

@@ -1,0 +1,49 @@
+"""Architecture registry: ``get(name)`` -> ArchConfig.
+
+The same names and aliases as ``repro.configs``. The port runs the dense
+decoder-only families whose blocks are ``attn``/``attn_local``: qwen2-1.5b,
+qwen3-1.7b and gemma3-1b. The other architectures need modules the port
+does not have yet (MoE, MLA, recurrent blocks, encoder-decoder, the vision
+stub); ``get`` raises for them.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ArchConfig, MlaConfig, MoeConfig, ShapeSpec
+
+ARCH_NAMES = (
+    "gemma3_1b",
+    "granite_34b",
+    "qwen3_1_7b",
+    "qwen2_1_5b",
+    "mixtral_8x22b",
+    "deepseek_v2_236b",
+    "internvl2_26b",
+    "recurrentgemma_9b",
+    "whisper_base",
+    "xlstm_125m",
+)
+PORTED = ("gemma3_1b", "qwen3_1_7b", "qwen2_1_5b")
+
+_ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
+_ALIASES.update({"qwen3-1.7b": "qwen3_1_7b", "qwen2-1.5b": "qwen2_1_5b"})
+
+
+def get(name: str) -> ArchConfig:
+    name = _ALIASES.get(name, name)
+    if name not in ARCH_NAMES:
+        raise KeyError(f"unknown arch {name!r}; have {ARCH_NAMES}")
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"{name} is not ported yet (its family's modules wait); the port "
+            f"runs {PORTED}")
+    return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+
+
+def names() -> tuple:
+    return PORTED
+
+
+__all__ = ["ArchConfig", "MoeConfig", "MlaConfig", "ShapeSpec", "get",
+           "names", "ARCH_NAMES", "PORTED"]

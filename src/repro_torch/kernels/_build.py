@@ -41,6 +41,8 @@ SIGNATURES = {
     "rt_kde_rowsums": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                        _I, _I, _P],
     "rt_kde_expf": [_P, _P, _I64, _P],
+    "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _F, _P],
 }
 
 _lib = None

@@ -7,13 +7,17 @@ runs the plain version. The device decision itself sits in each kernel's
 wrapper; this module takes the batched form (leading tenant axis) the
 callers use, brings ``stream_update``'s ring scalars to the wrapper's
 per-tenant form and keeps the launch counts, ``stream_update``'s per mode.
-``kde_rowsums`` takes the unbatched ``(m, p)`` form of the batch measures.
+``kde_rowsums`` takes the unbatched ``(m, p)`` form of the batch measures;
+``flash_attention`` the ``(B, S, H, D)`` layout of the LM substrate (bf16
+or f32 on the card).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.cp_update import cp_knn_counts as _cp_knn_counts
+from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.interval_sweep import interval_sweep as _sweep
 from repro_torch.kernels.kde_score import kde_rowsums as _kde_rowsums
 from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
@@ -28,7 +32,12 @@ KERNELS = {
     "cp_knn_counts": _cp_knn_counts,
     "interval_sweep": _sweep,
     "kde_rowsums": _kde_rowsums,
+    "flash_attention": _flash,
 }
+
+# past this many score elements per (batch, head), a CPU tensor takes the
+# chunked online-softmax version, so long sequences stay memory-bounded
+_DENSE_SCORE_LIMIT = 2048 * 2048
 
 
 def launch_counts() -> dict[str, int]:
@@ -89,3 +98,16 @@ def stream_update(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
     return _stream_update(X, y, nbr_d, nbr_y, x_new, y_new,
                           _scalars(n, S, dev), mode=mode, head=head,
                           wrap=wrap)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    softcap=None):
+    """Attention ``(B, Sq, H, D)`` over ``k, v (B, Skv, Hkv, D)``, as
+    ``repro/kernels/ops.py::flash_attention`` routes it: the kernel on the
+    card; on the CPU the plain dense version, or the chunked one past
+    ``_DENSE_SCORE_LIMIT`` score elements."""
+    if q.device.type == "cpu" and q.shape[1] * k.shape[1] > _DENSE_SCORE_LIMIT:
+        return _ref.chunked_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale, softcap=softcap)
+    return _flash(q, k, v, causal=causal, window=window, scale=scale,
+                  softcap=softcap)

@@ -10,6 +10,11 @@ CUDA kernels use, so a row's result depends neither on the batch shape
 nor on how the work is tiled: the kernels can be held to these functions
 bit for bit, and the port's exactness properties (engine == sequential
 sessions, chunked == per-tick) do not hinge on a library reduction order.
+
+The attention functions of the LM substrate are the exception: they take
+the ``(B, S, H, D)`` layout of ``repro/models`` and PyTorch's own einsum
+and softmax reductions, and the kernel is held to them at a stated
+tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -273,6 +278,106 @@ def stream_update_fast(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode: str,
     return d_row, newL, newY
 
 
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+_NEG_INF = -1e30  # finite mask value, as in the Pallas kernel
+
+
+def _attn_mask(Sq: int, Skv: int, causal: bool, window, device,
+               q0: int = 0, k0: int = 0, bq=None, bk=None) -> torch.Tensor:
+    """``(bq, bk)`` keep-mask of query rows ``q0..`` and keys ``k0..`` at
+    right-aligned positions (query ``i`` sits at ``i + Skv - Sq``)."""
+    bq = Sq if bq is None else bq
+    bk = Skv if bk is None else bk
+    q_pos = torch.arange(q0, q0 + bq, device=device)[:, None] + (Skv - Sq)
+    k_pos = torch.arange(k0, k0 + bk, device=device)[None, :]
+    mask = k_pos < Skv
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    return mask
+
+
+def _logits(qg, kf, scale: float, softcap):
+    """f32 logits ``(B, Hkv, rep, bq, bk)`` of grouped queries ``qg (B, bq,
+    Hkv, rep, D)`` against ``kf (B, bk, Hkv, D)``: scale, then the tanh
+    cap."""
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
+    """Attention with the Pallas kernel's arithmetic: q, k, v upcast to
+    f32, logits in f32 (scale, then ``softcap * tanh(s / softcap)``),
+    masked to -1e30, softmax, ``P.V`` in f32, cast to q's dtype.
+
+    ``q (B, Sq, H, D)``, ``k, v (B, Skv, Hkv, D)`` with ``H % Hkv == 0``;
+    query head ``h`` reads kv head ``h // (H // Hkv)`` (GQA, without
+    repeating K/V). Positions are right-aligned (``q_pos = i + Skv - Sq``);
+    ``window`` keeps keys in ``(q_pos - window, q_pos]``. Unlike
+    ``repro/kernels/ref.py::flash_attention`` it does not round the logits
+    and probabilities to a bf16 input's dtype: the two agree in f32."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = scale if scale is not None else 1.0 / D ** 0.5
+    qg = q.float().reshape(B, Sq, Hkv, rep, D)
+    s = _logits(qg, k.float(), scale, softcap)
+    mask = _attn_mask(Sq, Skv, causal, window, q.device)
+    s = torch.where(mask, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: int | None = None,
+                      scale: float | None = None,
+                      softcap: float | None = None, block_q: int = 1024,
+                      block_k: int = 1024) -> torch.Tensor:
+    """``flash_attention`` with O(S * block) memory: each query block scans
+    the key blocks with running (max, denominator, accumulator) statistics,
+    the online softmax of ``repro/kernels/ref.py::chunked_attention``."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(q)
+    for q0 in range(0, Sq, block_q):
+        bq = min(block_q, Sq - q0)
+        qg = q[:, q0:q0 + bq].float().reshape(B, bq, Hkv, rep, D)
+        m_run = q.new_full((B, Hkv, rep, bq), _NEG_INF, dtype=torch.float32)
+        l_run = torch.zeros_like(m_run)
+        acc = q.new_zeros((B, Hkv, rep, bq, D), dtype=torch.float32)
+        for k0 in range(0, Skv, block_k):
+            bk = min(block_k, Skv - k0)
+            s = _logits(qg, kf[:, k0:k0 + bk], scale, softcap)
+            mask = _attn_mask(Sq, Skv, causal, window, q.device, q0, k0, bq,
+                              bk)
+            s = torch.where(mask, s, _NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgd->bgrqd", p, vf[:, k0:k0 + bk])
+            m_run = m_new
+        o = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        out[:, q0:q0 + bq] = o.permute(0, 3, 1, 2, 4).reshape(
+            B, bq, H, D).to(q.dtype)
+    return out
+
+
 __all__ = ["sq_dists", "row_dists", "cp_knn_counts", "div_k", "kde_kvals",
            "kde_rowsums", "interval_ge",
-           "reg_interval_endpoints", "stream_update", "stream_update_fast"]
+           "reg_interval_endpoints", "stream_update", "stream_update_fast",
+           "flash_attention", "chunked_attention"]

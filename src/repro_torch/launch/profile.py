@@ -4,6 +4,7 @@
     python -m repro_torch.launch.profile --regression
     python -m repro_torch.launch.profile --measure kde
     python -m repro_torch.launch.profile --kde-layouts
+    python -m repro_torch.launch.profile --arch qwen2-1.5b
 
 At a serving cell's shapes (1024 tenants, window 1024, dim 30; k 15 for
 classification, k 7 for ``--regression``), fills every tenant's window
@@ -21,8 +22,12 @@ steady-state ``predict_pvalues`` over 100 test points (one untraced call
 first). ``--kde-layouts`` times the ``kde_rowsums`` kernel's two layouts
 against each other (CUDA events) over a grid of row counts at n = 100,000,
 dim 30, 2 labels, and the read's per-label form against the one-label
-form over its m * L rows: the measurement behind ``WIDE_ROWS``. Needs a
-GPU.
+form over its m * L rows: the measurement behind ``WIDE_ROWS``.
+``--arch NAME`` traces the LM conformal-OOD serving path at full width
+(bf16, random weights from the seed): one calibration embedding pass over
+256 sequences of 512 tokens (one untraced pass first) and one decode step
+of 16 requests against a 544-token cache (one untraced step first).
+Needs a GPU.
 """
 from __future__ import annotations
 
@@ -38,7 +43,9 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.core.predictor import ConformalClassifier
 from repro_torch.data.synthetic import make_classification
 from repro_torch.kernels.kde_score import WIDE_ROWS, kde_rowsums
+from repro_torch.launch import serve
 from repro_torch.launch.serve import class_drift_traffic, reg_drift_traffic
+from repro_torch.models import lm
 from repro_torch.regression import RegressionServingEngine
 from repro_torch.serving import ServingEngine
 
@@ -49,7 +56,9 @@ N_BATCH = 100_000  # the top of the paper's n-grid (numpy.logspace(1, 5, 13))
 HAND_KERNELS = ("stream_update_class_kernel", "stream_update_reg_kernel",
                 "pairwise_sq_dists_kernel", "cp_knn_counts_kernel",
                 "interval_sweep_kernel", "kde_rowsums_kernel",
-                "kde_rowsums_wide_kernel", "kde_sumsq_kernel")
+                "kde_rowsums_wide_kernel", "kde_sumsq_kernel",
+                "flash_attention_kernel")
+LM_CALIB, LM_SEQ, LM_REQUESTS, LM_GEN = 256, 512, 16, 32  # smoke phase 7
 
 
 def device_breakdown(fn, label: str, trace: str | None) -> None:
@@ -154,6 +163,24 @@ def kde_layouts() -> int:
     return 0
 
 
+def profile_lm(arch: str, trace: str | None) -> int:
+    """One calibration embedding pass and one decode step, traced."""
+    cfg, params = serve.lm_model(arch, False, SEED, "cuda")
+    calib = serve.stream_tokens(cfg, LM_CALIB, LM_SEQ, SEED, 0, "cuda")
+    print(f"[profile] {torch.cuda.get_device_name(0)}: {cfg.name} "
+          f"{cfg.n_layers} layers d {cfg.d_model} {cfg.dtype}")
+    serve.embed(params, cfg, calib)
+    device_breakdown(lambda: serve.embed(params, cfg, calib),
+                     f"embedding pass {LM_CALIB} x {LM_SEQ}", trace)
+    req = serve.request_tokens(cfg, LM_REQUESTS, 1, SEED, "cuda")
+    cache = lm.init_cache(cfg, LM_REQUESTS, LM_SEQ + LM_GEN, "cuda")
+    lm.decode_step(params, cfg, req, cache, 0)
+    device_breakdown(lambda: lm.decode_step(params, cfg, req, cache, LM_SEQ),
+                     f"decode step {LM_REQUESTS} requests, cache "
+                     f"{LM_SEQ + LM_GEN}", None)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--regression", action="store_true",
@@ -163,11 +190,16 @@ def main(argv=None) -> int:
                     help="trace the batch classifier of this measure")
     ap.add_argument("--kde-layouts", action="store_true",
                     help="time kde_rowsums' two layouts by row count")
+    ap.add_argument("--arch", default=None,
+                    help="trace the LM serving path of this architecture "
+                    "(e.g. qwen2-1.5b)")
     ap.add_argument("--trace", default="",
                     help="write the tick (or fit) trace (Chrome JSON) here")
     args = ap.parse_args(argv)
     if args.kde_layouts:
         return kde_layouts()
+    if args.arch:
+        return profile_lm(args.arch, args.trace or None)
     if args.measure:
         return profile_batch(args.measure, args.trace or None)
     T = W + 2 * TICKS

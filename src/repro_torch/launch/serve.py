@@ -25,6 +25,19 @@ classification traffic: ``fit`` on a warm-up prefix, then per tick
 ``pvalues`` of the new point, ``observe`` it, and ``evict(0)`` once the
 window is full. Reports session-steps/s, per-operation ms and the tenants
 flagged by the running maximum of their martingale.
+
+Without ``--sessions`` the launcher serves the language model ``--arch``
+(qwen2-1.5b by default; full width unless ``--reduced``) with a conformal
+OOD head, as the JAX launcher's LM mode does: random weights from
+``--seed``, ``--calib`` calibration sequences of ``--prompt-len`` tokens
+from the synthetic token stream embedded (mean final hidden state) to fit
+``ConformalOodDetector(k=7)``; then ``--requests`` requests, the second
+half replaced by uniform random tokens, prefilled by teacher-forced
+decode steps and extended greedily by ``--gen-tokens``; prints tok/s, each
+request's conformal p-value and the in-distribution / corrupted means.
+
+    python -m repro_torch.launch.serve --arch qwen2-1.5b --calib 256 \\
+        --prompt-len 512 --requests 16 --gen-tokens 32
 """
 from __future__ import annotations
 
@@ -34,8 +47,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import configs
+from repro_torch.core.lm_conformal import (ConformalOodDetector,
+                                          sequence_embedding)
 from repro_torch.core.online import simple_mixture_log_martingale
+from repro_torch.data.lm_pipeline import TokenStream
 from repro_torch.kernels import ops
+from repro_torch.models import lm
 from repro_torch.regression import RegressionServingEngine
 from repro_torch.serving import ServingEngine, registry
 
@@ -226,10 +244,123 @@ def serve_registry(args) -> int:
     return 0
 
 
+OOD_K = 7  # the JAX launcher's ConformalOodDetector(k=7)
+
+
+def lm_model(arch: str, reduced: bool, seed: int, device, **overrides):
+    """``(cfg, params)``: ``arch`` (``reduced()`` if asked, then
+    ``overrides``) with random weights drawn from ``seed`` on ``device``."""
+    cfg = configs.get(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg, lm.init_lm(seed, cfg, device=device)
+
+
+def stream_tokens(cfg, batch: int, seq_len: int, seed: int, index: int,
+                  device) -> torch.Tensor:
+    """Batch ``index`` of ``TokenStream(seed)`` as an int32 tensor."""
+    toks = TokenStream(cfg, batch, seq_len, seed=seed).batch_at(index)
+    return torch.from_numpy(toks["tokens"]).to(device)
+
+
+def request_tokens(cfg, batch: int, seq_len: int, seed: int,
+                   device) -> torch.Tensor:
+    """Requests from ``TokenStream(seed + 1)``, the second half replaced
+    by uniform tokens drawn from a generator seeded ``seed + 2``."""
+    tokens = stream_tokens(cfg, batch, seq_len, seed + 1, 0, device)
+    g = torch.Generator(device=tokens.device).manual_seed(seed + 2)
+    tail = tokens[batch // 2:]
+    tail.copy_(torch.randint(0, cfg.vocab_size, tail.shape, generator=g,
+                             device=tokens.device, dtype=tokens.dtype))
+    return tokens
+
+
+def embed(params, cfg, tokens) -> torch.Tensor:
+    """Sequence embeddings ``(B, D)`` of ``tokens (B, S)``, one pass."""
+    return sequence_embedding(params, cfg, {"tokens": tokens})
+
+
+def generate(params, cfg, tokens, gen_tokens: int):
+    """Teacher-forced decode steps over the prompt ``tokens (B, P)``, then
+    ``gen_tokens`` greedy ones: the generated ``(B, gen_tokens)``."""
+    B, P = tokens.shape
+    cache = lm.init_cache(cfg, B, P + gen_tokens, tokens.device)
+    logits = None
+    for i in range(P):
+        logits, cache = lm.decode_step(params, cfg, tokens[:, i:i + 1],
+                                       cache, i)
+    out = []
+    cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for g in range(gen_tokens):
+        out.append(cur)
+        logits, cache = lm.decode_step(params, cfg, cur, cache, P + g)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    return torch.cat(out, dim=1)
+
+
+def _timed(fn, device):
+    """``(result, seconds)`` on the host clock, synchronised on a card."""
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def serve_lm(args) -> int:
+    cfg, params = lm_model(args.arch, args.reduced, args.seed, args.device)
+    dev = params["embed"].device
+    B, P, G = args.requests, args.prompt_len, args.gen_tokens
+    print(f"[serve] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.dtype}) on {dev}")
+    ops.reset_launch_counts()
+
+    calib = stream_tokens(cfg, args.calib, P, args.seed, 0, dev)
+    calib_emb, t_emb = _timed(lambda: embed(params, cfg, calib), dev)
+    ood, t_fit = _timed(
+        lambda: ConformalOodDetector(k=OOD_K, device=dev).fit(calib_emb),
+        dev)
+    print(f"[serve] conformal OOD head fit on {args.calib} sequences "
+          f"(embedding {t_emb * 1e3:.1f} ms, fit {t_fit * 1e3:.1f} ms)")
+
+    tokens = request_tokens(cfg, B, P, args.seed, dev)
+    gen, dt = _timed(lambda: generate(params, cfg, tokens, G), dev)
+    req_emb = embed(params, cfg, tokens)
+    pvals, t_p = _timed(lambda: ood.pvalues(req_emb), dev)
+    print(f"[serve] {B} requests x {G} tokens in {dt:.2f}s "
+          f"({B * G / dt:.1f} tok/s); p-values {t_p * 1e3:.2f} ms")
+    pv, gen = pvals.cpu().numpy(), gen.cpu().numpy()
+    for i in range(B):
+        flag = "OOD!" if pv[i] <= args.eps else "ok  "
+        print(f"  req {i:2d} [{flag}] p={pv[i]:.3f} "
+              f"gen={[int(t) for t in gen[i][:6]]}")
+    print(f"[serve] mean p in-dist={pv[:B // 2].mean():.3f} "
+          f"corrupted={pv[B // 2:].mean():.3f}")
+    peak = (f", peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+            "GiB" if dev.type == "cuda" else "")
+    print(f"[serve] kernel launches: {ops.launch_counts()}{peak}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sessions", type=int, required=True,
-                    help="concurrent CP sessions (tenants)")
+    ap.add_argument("--sessions", type=int, default=0,
+                    help="concurrent CP sessions (tenants); 0 serves the "
+                    "language model --arch")
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    help="LM mode: the architecture (qwen2-1.5b, "
+                    "qwen3-1.7b, gemma3-1b)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="LM mode: the tiny same-family config")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-tokens", type=int, default=8)
+    ap.add_argument("--calib", type=int, default=256,
+                    help="LM mode: calibration sequences")
     ap.add_argument("--regression", action="store_true",
                     help="serve k-NN regression CP (linear-label traffic, "
                     "prediction intervals) instead of classification")
@@ -245,14 +376,19 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=100,
                     help="read query points per tenant")
     ap.add_argument("--eps", type=float, default=0.1,
-                    help="miscoverage of the regression intervals")
+                    help="miscoverage of the regression intervals; the LM "
+                    "mode's OOD flag level")
     ap.add_argument("--drift", type=float, default=2.0)
     ap.add_argument("--log-threshold", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
-    return serve_registry(args) if args.measure else serve_sessions(args)
+    if args.sessions > 0:
+        return serve_registry(args) if args.measure else serve_sessions(args)
+    if args.regression or args.measure:
+        raise SystemExit("--regression and --measure need --sessions N")
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

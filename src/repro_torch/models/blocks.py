@@ -1,0 +1,159 @@
+"""Transformer block assembly and the layer stack.
+
+Counterpart of ``repro/models/blocks.py`` for the ``attn`` and
+``attn_local`` kinds (the recurrent kinds ``rglru``, ``mlstm`` and
+``slstm`` are not ported yet). Consecutive layers of one kind form a
+*run* (``pattern_runs``), as in the reference, so that a run's parameters
+map onto the reference's stacked run one layer at a time. A run is an
+``nn.ModuleList`` of blocks looped in Python: this is inference, so there
+is neither a scan nor rematerialisation. Caches are a list of runs, each a
+list of per-layer ``{"k", "v"}`` dicts.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_m
+from repro_torch.models import mlp as mlp_m
+from repro_torch.models.common import frozen, layer_norm, rms_norm
+
+ATTN_KINDS = ("attn", "attn_local")
+
+
+def _check_kind(cfg: ArchConfig, kind: str) -> None:
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet (the port has "
+            f"{ATTN_KINDS})")
+    if cfg.mla is not None or cfg.moe.n_experts:
+        raise NotImplementedError("MLA and MoE layers are not ported yet")
+
+
+def _norm_params(cfg: ArchConfig, dtype, device) -> dict:
+    if cfg.norm == "layernorm":
+        return {"w": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+                "b": torch.zeros((cfg.d_model,), dtype=dtype,
+                                 device=device)}
+    fill = torch.zeros if cfg.rms_offset else torch.ones
+    return {"w": fill((cfg.d_model,), dtype=dtype, device=device)}
+
+
+def apply_norm(p, x, cfg: ArchConfig):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+    return rms_norm(x, p["w"], cfg.norm_eps, offset=cfg.rms_offset)
+
+
+def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
+               dtype) -> nn.ModuleDict:
+    _check_kind(cfg, kind)
+    dev = generator.device
+    p = {"ln1": _norm_params(cfg, dtype, dev),
+         "attn": attn_m.init_attention(generator, cfg, dtype),
+         "ln2": _norm_params(cfg, dtype, dev),
+         "mlp": mlp_m.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)}
+    if cfg.post_norms:
+        p["post_attn"] = _norm_params(cfg, dtype, dev)
+        p["post_mlp"] = _norm_params(cfg, dtype, dev)
+    return frozen(p)
+
+
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                     dtype, device) -> dict:
+    _check_kind(cfg, kind)
+    return attn_m.init_kv_cache(cfg, batch, max_len, dtype, device)
+
+
+def _attn_kwargs(cfg: ArchConfig, kind: str):
+    window = cfg.window if kind == "attn_local" else 0
+    theta = cfg.rope_theta_local if kind == "attn_local" else cfg.rope_theta
+    return window, theta
+
+
+def _ffn(p, x, cfg: ArchConfig):
+    """The block's second half: norm, MLP, optional post-norm, residual."""
+    f = mlp_m.mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg.act)
+    if cfg.post_norms:
+        f = apply_norm(p["post_mlp"], f, cfg)
+    return x + f
+
+
+def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions,
+                     causal: bool = True):
+    """Full-sequence block application (prefill). Returns ``x``."""
+    window, theta = _attn_kwargs(cfg, kind)
+    a = attn_m.attention_full(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
+                              positions=positions, window=window,
+                              causal=causal, theta=theta)
+    if cfg.post_norms:
+        a = apply_norm(p["post_attn"], a, cfg)
+    return _ffn(p, x + a, cfg)
+
+
+def apply_block_decode(p, x, cfg: ArchConfig, kind: str, cache, index: int):
+    """One-token decode. Returns ``(x, cache)``; the cache is updated in
+    place."""
+    window, theta = _attn_kwargs(cfg, kind)
+    a, cache = attn_m.attention_decode(p["attn"], apply_norm(p["ln1"], x, cfg),
+                                       cfg, cache, index, window=window,
+                                       theta=theta)
+    if cfg.post_norms:
+        a = apply_norm(p["post_attn"], a, cfg)
+    return _ffn(p, x + a, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# runs: consecutive identical kinds
+# ---------------------------------------------------------------------------
+
+
+def pattern_runs(pattern) -> list[tuple[str, int]]:
+    runs = []
+    for kind in pattern:
+        if runs and runs[-1][0] == kind:
+            runs[-1] = (kind, runs[-1][1] + 1)
+        else:
+            runs.append((kind, 1))
+    return runs
+
+
+def init_layer_stack(generator: torch.Generator, cfg: ArchConfig,
+                     dtype) -> nn.ModuleList:
+    """One ``nn.ModuleList`` of blocks per run."""
+    return nn.ModuleList(
+        nn.ModuleList(init_block(generator, cfg, kind, dtype)
+                      for _ in range(length))
+        for kind, length in pattern_runs(cfg.pattern))
+
+
+def apply_stack_full(stacks, x, cfg: ArchConfig, positions,
+                     causal: bool = True):
+    for (kind, _), run in zip(pattern_runs(cfg.pattern), stacks):
+        for p in run:
+            x = apply_block_full(p, x, cfg, kind, positions, causal)
+    return x
+
+
+def apply_stack_decode(stacks, x, cfg: ArchConfig, caches, index: int):
+    """One-token decode through all runs; ``caches`` is aligned with the
+    runs and updated in place."""
+    for (kind, _), run, run_cache in zip(pattern_runs(cfg.pattern), stacks,
+                                         caches):
+        for p, cache in zip(run, run_cache):
+            x, _ = apply_block_decode(p, x, cfg, kind, cache, index)
+    return x, caches
+
+
+def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                     device) -> list:
+    return [[init_block_cache(cfg, kind, batch, max_len, dtype, device)
+             for _ in range(length)]
+            for kind, length in pattern_runs(cfg.pattern)]
+
+
+__all__ = ["init_block", "apply_block_full", "apply_block_decode",
+           "pattern_runs", "init_layer_stack", "apply_stack_full",
+           "apply_stack_decode", "init_stack_cache", "init_block_cache",
+           "apply_norm", "ATTN_KINDS"]

@@ -1,0 +1,111 @@
+"""Shared model-building primitives: init, norms, rotary embeddings, acts.
+
+Counterpart of ``repro/models/common.py``. Parameters keep the JAX shapes
+and are applied with ``torch.einsum``; the initialisers draw from an
+explicit ``torch.Generator`` (they cannot give ``jax.random``'s numbers:
+tests carry the JAX weights across with ``serving.convert``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def frozen(tree) -> nn.Module:
+    """A nested dict of tensors as frozen parameters: a dict whose values
+    are all tensors becomes an ``nn.ParameterDict``, any other dict an
+    ``nn.ModuleDict``. The port runs inference only, so no parameter
+    requires a gradient and no autograd graph is built."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                 for k, v in tree.items()})
+    return nn.ModuleDict({k: v if isinstance(v, nn.Module) else frozen(v)
+                          for k, v in tree.items()})
+
+
+def dense_init(shape, dtype, generator: torch.Generator,
+               scale: float | None = None) -> torch.Tensor:
+    """Truncated normal on [-2, 2] at fan-in scale (``1/sqrt(fan_in)``
+    unless ``scale``), drawn in f32 by the inverse CDF, cast to
+    ``dtype``."""
+    fan_in = math.prod(shape[:-1]) if len(shape) >= 2 else (
+        shape[0] if shape else 1)
+    std = scale if scale is not None else fan_in ** -0.5
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=torch.float32)
+    u = lo + (1.0 - 2.0 * lo) * u  # uniform on [Phi(-2), Phi(2)]
+    x = torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
+    return (x.clamp_(-2.0, 2.0) * std).to(dtype)
+
+
+def embed_init(shape, dtype, generator: torch.Generator) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=torch.float32).to(dtype)
+
+
+def rms_norm(x, weight, eps: float = 1e-6, *, offset: float = 0.0):
+    """RMSNorm in f32; gemma-style ``(1 + w)`` via ``offset=1``."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (offset + weight.float())).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+_ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_exact": F.gelu,
+    "relu": F.relu,
+}
+
+
+def act_fn(name: str):
+    return _ACTS[name]
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    """Inverse frequencies for RoPE, ``(head_dim // 2,)`` f32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Rotate the interleaved pairs ``(x[..., 0::2], x[..., 1::2])`` (not
+    the rotate-half layout). ``x (B, S, H, D)``, ``positions (B, S)``
+    int; f32 angles and math, cast back."""
+    inv = rope_frequencies(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * inv  # (B, S, D/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def softcap(logits, cap: float | None):
+    if cap is None:
+        return logits
+    return cap * torch.tanh(logits / cap)
+
+
+__all__ = ["frozen", "dense_init", "embed_init", "rms_norm", "layer_norm",
+           "act_fn", "rope_frequencies", "apply_rope", "softcap"]

@@ -16,6 +16,11 @@ prelim, class_counts)``, ``LssvmState (Phi, Y, w, C, rho)``,
 (X_train, y_train, class_counts, calib_scores)``, ``IcpLssvmState (w,
 calib_scores)``; ``rff_params_from_numpy`` carries the JAX ``rff`` feature
 map's ``W, b`` (drawn with ``jax.random``) into ``lssvm.feature_map``.
+
+A language model's parameters carry across with ``lm_params_from_numpy``
+/ ``lm_params_to_numpy``: the JAX ``init_lm`` tree (``embed``, ``layers``
+as a list of runs whose leaves have a leading layer axis, ``final_norm``,
+``lm_head`` when untied) as numpy arrays, each run split into its layers.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ import torch
 from repro_torch._device import resolve
 from repro_torch.core import icp
 from repro_torch.core.measures import kde, knn, lssvm
+from repro_torch.models import blocks as blk
+from repro_torch.models import lm
+from repro_torch.models.common import frozen
 from repro_torch.regression.stream import RegStreamState
 from repro_torch.serving.session import Session
 
@@ -100,6 +108,58 @@ def rff_params_from_numpy(W, b, device=None):
                              device))
 
 
-__all__ = ["session_from_numpy", "session_to_numpy", "reg_state_from_numpy",
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def lm_params_from_numpy(tree, cfg, device=None) -> lm.LmParams:
+    """The port's ``LmParams`` from the JAX ``init_lm`` tree as numpy
+    arrays (``cfg.param_dtype`` on ``device``, cuda unless given)."""
+    dev = resolve(device)
+    dtype = lm.dtype_of(cfg.param_dtype)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=dev
+                               ).to(dtype)
+
+    runs = blk.pattern_runs(cfg.pattern)
+    if len(tree["layers"]) != len(runs):
+        raise ValueError(f"{len(tree['layers'])} runs for the pattern's "
+                         f"{len(runs)}")
+    layers = torch.nn.ModuleList(
+        torch.nn.ModuleList(frozen(_tree_map(lambda a, i=i: t(a[i]), run))
+                            for i in range(length))
+        for (_, length), run in zip(runs, tree["layers"]))
+    head = t(tree["lm_head"]) if "lm_head" in tree else None
+    return lm.LmParams(t(tree["embed"]), layers,
+                       _tree_map(t, tree["final_norm"]), head)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _module_tree(mod) -> dict:
+    return {k: _module_tree(v) if isinstance(v, torch.nn.Module) else
+            _numpy(v) for k, v in mod.items()}
+
+
+def lm_params_to_numpy(params: lm.LmParams) -> dict:
+    """The JAX ``init_lm`` tree of ``params`` (float32 numpy arrays, each
+    run's layers stacked on a leading axis)."""
+    out = {"embed": _numpy(params["embed"]),
+           "layers": [_tree_map(lambda *xs: np.stack(xs),
+                                *map(_module_tree, run))
+                      for run in params["layers"]],
+           "final_norm": _module_tree(params["final_norm"])}
+    if "lm_head" in params:
+        out["lm_head"] = _numpy(params["lm_head"])
+    return out
+
+
+__all__ = ["lm_params_from_numpy", "lm_params_to_numpy",
+           "session_from_numpy", "session_to_numpy", "reg_state_from_numpy",
            "reg_state_to_numpy", "batch_state_from_numpy",
            "batch_state_to_numpy", "rff_params_from_numpy"]

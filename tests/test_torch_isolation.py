@@ -59,11 +59,34 @@ def test_importing_every_module_loads_no_jax_or_repro():
 
 
 def test_default_device_is_cuda():
-    from repro_torch.serving import ServingEngine
+    import numpy as np
 
-    if torch.cuda.is_available():
-        eng = ServingEngine(n_sessions=1, capacity=8, dim=2, k=2)
-        assert eng.device.type == "cuda"
-    else:
+    from repro_torch import configs
+    from repro_torch.core.lm_conformal import (ConformalLmClassifier,
+                                              ConformalOodDetector)
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine, convert
+
+    cfg = configs.get("qwen2-1.5b").reduced()
+    tree = convert.lm_params_to_numpy(lm.init_lm(0, cfg, device="cpu"))
+    emb = np.zeros((8, 4), np.float32)
+    entry_points = {
+        "engine": lambda: ServingEngine(n_sessions=1, capacity=8, dim=2,
+                                        k=2).device,
+        "init_lm": lambda: lm.init_lm(0, cfg)["embed"].device,
+        "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+            tree, cfg)["embed"].device,
+        "ood_detector": lambda: ConformalOodDetector(k=2).fit(emb)._emb.device,
+        "lm_classifier": lambda: ConformalLmClassifier(2, k=2).fit(
+            emb, np.arange(8) % 2)._state.X.device,
+    }
+    for name, make in entry_points.items():
+        if torch.cuda.is_available():
+            assert make().type == "cuda", name
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
+    if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            ServingEngine(n_sessions=1, capacity=8, dim=2, k=2)
+            serve.main(["--arch", "qwen2-1.5b", "--reduced"])
