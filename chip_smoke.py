@@ -40,8 +40,11 @@ exits non-zero without a result line:
    from the seed): ``flash_attention`` against its plain version at the
    embedding pass's shape (B 256, S 512, H 12, Hkv 2, D 128, causal), at
    gemma3's local layer (D 256, window 512), in f32 with softcap 50
-   non-causal, in f32 with Sq 16 < Skv 80, and at small odd head dims;
-   then the launcher's functions: 256 calibration sequences of 512 tokens
+   non-causal, in f32 with Sq 16 < Skv 80, at small odd head dims, and in
+   bf16 with Sq 48 < Skv 300 (MHA, ragged tiles); the useful TFLOP/s at
+   (a), the f32 body's time at (c), and the count of tensor-core
+   instructions (``HGMMA``) in the bf16 kernel's SASS; then the
+   launcher's functions: 256 calibration sequences of 512 tokens
    embedded and the OOD head fitted (k 7), 256 held-out sequences of the
    same stream scored (validity: share with p <= 0.1 at most 0.18, mean p
    in [0.40, 0.60]), 16 requests (8 of another seed's stream, 8 uniform
@@ -59,6 +62,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 from contextlib import nullcontext
 import subprocess
 import sys
@@ -94,6 +99,7 @@ FLASH_CASES = [  # name, dtype, B, Sq, Skv, H, Hkv, D, causal, window, softcap
     ("d", torch.float32, 2, 16, 80, 4, 2, 128, True, None, None),
     ("e", torch.float32, 3, 100, 100, 4, 2, 16, True, 5, None),  # --reduced
     ("f", torch.bfloat16, 2, 130, 130, 6, 3, 72, True, None, 30.0),
+    ("g", torch.bfloat16, 2, 48, 300, 8, 8, 64, True, None, None),
 ]
 BIG = 1e30
 
@@ -964,6 +970,42 @@ def live_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
     return int(keep.sum())
 
 
+def sass_mix() -> str:
+    """Instruction mix of the attention kernels in the built library, by
+    ``cuobjdump -sass``: tensor-core products (``HGMMA`` for wgmma, ``HMMA``
+    for mma.sync) and f32 FMAs per kernel. The bf16 kernel at D 128
+    (``fa_bf16_kernel<2>``, shape (a)'s) must hold ``HGMMA``."""
+    from repro_torch.kernels import _build
+
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        return "cuobjdump absent: not measured"
+    out = subprocess.run([tool, "-sass", _build.load()._name],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    mix, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = name if ("fa_bf16_kernel" in name
+                          or "flash_attention_kernel" in name) else None
+            if fn:
+                mix[fn] = dict.fromkeys(("HGMMA", "HMMA", "FFMA"), 0)
+        elif fn:
+            words = line.split("*/", 1)[-1].split() if "*/" in line else []
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            op = words[0].split(".")[0] if words else ""
+            if op in mix[fn]:
+                mix[fn][op] += 1
+    key = next((f for f in mix if "fa_bf16_kernelILi2E" in f), None)
+    check(key is not None and mix[key]["HGMMA"] > 0,
+          f"HGMMA in the bf16 attention kernel at D 128: {mix.get(key)}")
+    return "; ".join(f"{f}: {c}" for f, c in sorted(mix.items()))
+
+
 def check_flash_attention(g, iters, dev="cuda"):
     """``flash_attention`` == its plain version: f32 within 1e-5 (atol and
     rtol), bf16 within one bf16 ulp plus 1e-5 (``bf16_close``). Times shape (a), the embedding
@@ -972,7 +1014,7 @@ def check_flash_attention(g, iters, dev="cuda"):
     from repro_torch.kernels.flash_attention import flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    err, notes, timed = 0.0, [], None
+    err, notes, timed, f32_ms = 0.0, [], None, float("nan")
     for name, dt, B, Sq, Skv, H, Hkv, D, causal, window, cap in FLASH_CASES:
         q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dt)
         k = torch.randn((B, Skv, Hkv, D), generator=g, device=dev).to(dt)
@@ -990,12 +1032,20 @@ def check_flash_attention(g, iters, dev="cuda"):
         else:
             ok, beyond = bf16_close(got, want)
             check(ok, f"flash ({name}) bf16 within one ulp + 1e-5")
+            w = want.float()
+            excess = max(0.0, float((got.float() - w).abs().sub_(
+                torch.ldexp(torch.ones_like(w),
+                            torch.frexp(w).exponent - 8)).max()))
             notes.append(f"({name}) bf16 max_abs_err {diff:.3g}, "
                          f"{float((got != want).float().mean()):.2e} of "
-                         f"elements differ, {beyond:.2e} by more than 1 ulp")
+                         f"elements differ, {beyond:.2e} by more than 1 "
+                         f"ulp, the largest by {excess / 1e-5:.3f} of the "
+                         "1e-5")
         err = max(err, diff)
         if name == "a":
             timed = (q, k, v, kw, B, Sq, Skv, H, Hkv, D)
+        if name == "c":  # the f32 body, a reading
+            f32_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
         del q, k, v, got, want
     q, k, v, kw, B, Sq, Skv, H, Hkv, D = timed
     ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
@@ -1006,11 +1056,17 @@ def check_flash_attention(g, iters, dev="cuda"):
                                   enable_gqa=True), iters)
     nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D)
     pairs = live_pairs(Sq, Skv, True, None)
-    b_ms, b_by = bound(nbytes, 4 * B * H * D * pairs, BF16_FLOPS_PER_S)
+    flops = 4 * B * H * D * pairs
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     print(f"[kernel] flash_attention: " + "; ".join(notes)
           + f"; (a) B={B} S={Sq} H={H} Hkv={Hkv} D={D} causal bf16: "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}; {pairs} live pairs per head)")
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} useful TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+          f"({flops / lib_ms / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ms "
+          f"({b_by}; {pairs} live pairs per head)")
+    print(f"[kernel] flash_attention f32 body at (c): {f32_ms:.4f} ms (a "
+          "reading)")
+    print(f"[sass] flash_attention: {sass_mix()}")
     del q, k, v, qt, kt, vt
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -3,10 +3,12 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention``, the LM
 substrate's full-sequence attention (``models/attention.py::
 attention_full``): causal masking, a sliding window, a tanh logit cap and
-GQA by kv-head index, at right-aligned positions. One block per (64-row
-query tile, head, batch) keeps the running max, denominator and
-accumulator in registers and skips the key tiles no row of its tile can
-see. See the source for its design and bound.
+GQA by kv-head index, at right-aligned positions. bf16 runs both products
+on the tensor cores (wgmma, TMA-fed, P split in two bf16 parts so that
+P.V stays f32); f32 runs f32 FMAs on the CUDA cores. Both keep the running
+max, denominator and accumulator in registers, skip the key tiles no row
+of a 64-row query tile can see, and launch once per call. See the source
+for the design and bound.
 
 On a CPU tensor the wrapper runs the plain version (``ref.flash_attention``);
 on a CUDA tensor it launches the kernel or raises.

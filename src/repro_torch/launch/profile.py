@@ -57,7 +57,7 @@ HAND_KERNELS = ("stream_update_class_kernel", "stream_update_reg_kernel",
                 "pairwise_sq_dists_kernel", "cp_knn_counts_kernel",
                 "interval_sweep_kernel", "kde_rowsums_kernel",
                 "kde_rowsums_wide_kernel", "kde_sumsq_kernel",
-                "flash_attention_kernel")
+                "flash_attention_kernel", "fa_bf16_kernel")
 LM_CALIB, LM_SEQ, LM_REQUESTS, LM_GEN = 256, 512, 16, 32  # smoke phase 7
 
 
