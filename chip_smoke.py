@@ -10,20 +10,30 @@ exits non-zero without a result line:
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels against their plain PyTorch versions at the serving shapes
    (wrapped ring heads, tie cases, strided views), with kernel, plain and
-   library times (CUDA events) and each kernel's bound on this card;
+   library times (CUDA events) and each kernel's bound on this card. The
+   fused ``stream_update`` kernels (eviction repair + insert, one launch
+   a tick) are held bitwise to ``ref.stream_tick``, the plain
+   composition (``drop_backfill`` then ``stream_update_fast``), on each
+   main path's own wrapped state after its evicting ticks (phases 4 and 5:
+   evicting with a gated lane, non-evicting, and a one-hot state full of
+   ties), and timed there, the bound recounted from the tick's affected
+   rows;
 4. classification main path (k 15): ``ServingEngine.observe_many`` until
    every window is full plus more than one full window of evicting
    ticks, then ``predict``; every kernel of the path must have launched
    there. A short grow-mode run follows; then exactness (eviction ==
-   refit, chunked == per-tick, bitwise) and validity (the non-drifted
-   tenants' mean smoothed p-value is 1/2);
+   refit, chunked == per-tick, bitwise; the chunk under
+   ``set_sync_debug_mode("error")``, so a host synchronisation in a tick
+   fails, and its peak-memory rise below S*w*w bytes) and validity (the
+   non-drifted tenants' mean smoothed p-value is 1/2);
 5. regression main path (k 7, the paper's Figure 4 settings): the same
    ticks through ``RegressionServingEngine.observe_many``, then two
    ``intervals`` calls at eps 0.1 (the first, then one in steady state);
    every kernel of the path must have launched there. Then exactness
-   (chunked == per-tick; eviction == refit through ``state_view`` and
-   the neighbour lists, bitwise) and validity (mean smoothed p-value 1/2,
-   interval coverage >= 0.88 on fresh labelled points);
+   (chunked == per-tick, with phase 4's synchronisation and memory
+   checks; eviction == refit through ``state_view`` and the neighbour
+   lists, bitwise) and validity (mean smoothed p-value 1/2, interval
+   coverage >= 0.88 on fresh labelled points);
 6. batch full CP (the paper's App. E settings at the top of its n-grid:
    n = 100,000 training points, dim 30, 2 labels, k 15, h 1, rho 1): the
    ``kde_rowsums`` kernel is checked and timed with phase 3's kernels;
@@ -40,8 +50,9 @@ exits non-zero without a result line:
    from the seed): ``flash_attention`` against its plain version at the
    embedding pass's shape (B 256, S 512, H 12, Hkv 2, D 128, causal), at
    gemma3's local layer (D 256, window 512), in f32 with softcap 50
-   non-causal, in f32 with Sq 16 < Skv 80, at small odd head dims, and in
-   bf16 with Sq 48 < Skv 300 (MHA, ragged tiles); the useful TFLOP/s at
+   non-causal, in f32 with Sq 16 < Skv 80, at small odd head dims, in
+   bf16 with Sq 48 < Skv 300 (MHA, ragged tiles), and in bf16 on the
+   path without TMA (head dim 60; bases 2 bytes off 16); the useful TFLOP/s at
    (a), the f32 body's time at (c), and the count of tensor-core
    instructions (``HGMMA``) in the bf16 kernel's SASS; then the
    launcher's functions: 256 calibration sequences of 512 tokens
@@ -100,7 +111,12 @@ FLASH_CASES = [  # name, dtype, B, Sq, Skv, H, Hkv, D, causal, window, softcap
     ("e", torch.float32, 3, 100, 100, 4, 2, 16, True, 5, None),  # --reduced
     ("f", torch.bfloat16, 2, 130, 130, 6, 3, 72, True, None, 30.0),
     ("g", torch.bfloat16, 2, 48, 300, 8, 8, 64, True, None, None),
+    # bf16 without TMA (16-byte rows and bases): a head dim off a multiple
+    # of 8, and (FLASH_OFF16) operands whose base is 2 bytes off 16
+    ("h", torch.bfloat16, 2, 100, 100, 4, 2, 60, True, None, None),
+    ("i", torch.bfloat16, 2, 130, 130, 6, 3, 64, True, None, 30.0),
 ]
+FLASH_OFF16 = ("i",)
 BIG = 1e30
 
 
@@ -174,7 +190,7 @@ def check_stream_update(g, S, cap, p, k, iters):
     plain = lambda: ref.stream_update_fast(X, y, L, None, x_new,  # noqa
                                            y_new, n, mode="class",
                                            head=head, wrap=wrap)
-    dk, Lk, _ = kern()
+    dk, Lk, _, _, bk = kern()
     dp, Lp, _ = plain()
     torch.cuda.synchronize()
     err = 0.0
@@ -187,6 +203,7 @@ def check_stream_update(g, S, cap, p, k, iters):
     # the label gate: exactly the same rows admitted the candidate
     check(torch.equal((Lk != L).any(-1), (Lp != L).any(-1)),
           "stream_update label gating")
+    check(torch.equal(bk, ref.fsum(L[..., :-1])), "stream_update list sum")
     bitwise = torch.equal(dk, dp) and torch.equal(Lk, Lp)
 
     # the exact tie case (one-hot rows at distance 1.0, lists holding 1.0)
@@ -222,8 +239,9 @@ def check_stream_update(g, S, cap, p, k, iters):
           "stream_update strided views")
 
     ms, plain_ms = cuda_ms(kern, iters), cuda_ms(plain, max(iters // 10, 3))
-    nbytes = S * cap * (4 * p + 4 + 8 * k + 4) + S * (4 * p + 16)
-    b_ms, b_by = bound(nbytes, S * cap * (3 * p + 2 * k))
+    # X, y, the lists read; d, the merged lists, their sum written
+    nbytes = S * cap * (4 * p + 4 + 8 * k + 8) + S * (4 * p + 16)
+    b_ms, b_by = bound(nbytes, S * cap * (3 * p + 3 * k))
     print(f"[kernel] stream_update_class S={S} w={cap} p={p} k={k}: "
           f"max_abs_err {err:.3g} (bitwise {bitwise}), tie case exact; "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -318,7 +336,7 @@ def check_cp_counts(g, S, m, cap, p, k, L, iters):
 
 
 def check_stream_update_reg(g, S, cap, p, k, iters):
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.stream_update import stream_update
 
     X, _, L, x_new, _, n, head, wrap = ring_inputs(g, S, cap, p, k)
@@ -326,13 +344,20 @@ def check_stream_update_reg(g, S, cap, p, k, iters):
     y = torch.randn((S, cap), generator=g, device=dev)
     Y = torch.randn((S, cap, k), generator=g, device=dev)
     y_new = torch.randn((S,), generator=g, device=dev)
+    # arrival ids as the tick carries them (grow mode and
+    # regression.stream.observe run this non-evicting form)
+    A = torch.randint(0, 2**31 - 1, (S, cap, k), generator=g, device=dev,
+                      dtype=torch.int32)
+    new_aid = torch.randint(0, 2**31 - 1, (S,), generator=g, device=dev,
+                            dtype=torch.int32)
     check(bool((head + n > cap).any()), "ring heads wrapped")
+    ids = dict(mode="reg", head=head, wrap=wrap, nbr_a=A, new_aid=new_aid)
     kern = lambda: stream_update(X, y, L, Y, x_new, y_new, n,  # noqa: E731
-                                 mode="reg", head=head, wrap=wrap)
-    plain = lambda: ref.stream_update_fast(  # noqa: E731
-        X, y, L, Y, x_new, y_new, n, mode="reg", head=head, wrap=wrap)
-    dk, Lk, Yk = kern()
-    dp, Lp, Yp = plain()
+                                 **ids)
+    plain = lambda: ref.stream_tick(  # noqa: E731
+        X, y, L, Y, x_new, y_new, n, **ids)
+    dk, Lk, Yk, Ak, sk = kern()
+    dp, Lp, Yp, Ap, sp = plain()
     torch.cuda.synchronize()
     err = 0.0
     for a, b, name in ((dk, dp, "d_row"), (Lk, Lp, "lists")):
@@ -343,6 +368,8 @@ def check_stream_update_reg(g, S, cap, p, k, iters):
               f"stream_update_reg {name} within 1e-5")
         err = max(err, float((a[fin] - b[fin]).abs().max()))
     check(torch.equal(Yk, Yp), "stream_update_reg labels exact")
+    check(torch.equal(Ak, Ap), "stream_update_reg arrival ids exact")
+    check(torch.equal(sk, sp), "stream_update_reg label sum")
     admitted = int((Lk != L).any(-1).sum())
     check(admitted > 0, "the d < kth gate admitted some rows")
     bitwise = torch.equal(dk, dp) and torch.equal(Lk, Lp)
@@ -362,8 +389,8 @@ def check_stream_update_reg(g, S, cap, p, k, iters):
            torch.full((2,), 12, dtype=torch.int32, device=dev),
            torch.tensor([0, 9], dtype=torch.int32, device=dev),
            torch.full((2,), cap_t, dtype=torch.int32, device=dev)]
-    kt = stream_update(Xt.contiguous(), yt, Lt, Yt, *tie[:3], mode="reg",
-                       head=tie[3], wrap=tie[4])
+    kt = ops.stream_update(Xt.contiguous(), yt, Lt, Yt, *tie[:3],
+                           mode="reg", head=tie[3], wrap=tie[4])
     pt = ref.stream_update(Xt, yt, Lt, Yt, *tie[:3], mode="reg",
                            head=tie[3], wrap=tie[4])
     check(all(torch.equal(a, b) for a, b in zip(kt, pt)),
@@ -372,20 +399,23 @@ def check_stream_update_reg(g, S, cap, p, k, iters):
     # tenant-strided ring-block views of a larger padded state
     Xb, yb, Lb, Yb = (t.repeat_interleave(2, dim=1)
                       for t in (X[:8], y[:8], L[:8], Y[:8]))
+    Ab = A[:8].repeat_interleave(2, dim=1)
+    sub = dict(mode="reg", head=head[:8], wrap=wrap[:8], nbr_a=Ab[:, :cap],
+               new_aid=new_aid[:8])
     ks = stream_update(Xb[:, :cap], yb[:, :cap], Lb[:, :cap], Yb[:, :cap],
-                       x_new[:8], y_new[:8], n[:8], mode="reg",
-                       head=head[:8], wrap=wrap[:8])
-    ps = ref.stream_update_fast(Xb[:, :cap], yb[:, :cap], Lb[:, :cap],
-                                Yb[:, :cap], x_new[:8], y_new[:8], n[:8],
-                                mode="reg", head=head[:8], wrap=wrap[:8])
+                       x_new[:8], y_new[:8], n[:8], **sub)
+    ps = ref.stream_tick(Xb[:, :cap], yb[:, :cap], Lb[:, :cap],
+                         Yb[:, :cap], x_new[:8], y_new[:8], n[:8], **sub)
     check(all(torch.equal(a, b) for a, b in zip(ks, ps)),
           "stream_update_reg strided views")
 
     ms, plain_ms = cuda_ms(kern, iters), cuda_ms(plain, max(iters // 10, 3))
-    nbytes = S * cap * (4 * p + 4 + 16 * k + 4) + S * (4 * p + 16)
-    b_ms, b_by = bound(nbytes, S * cap * (6 * p + 2 * k + 4))
+    # X, y, the three lists read; d, the three merged lists, the label
+    # sum written
+    nbytes = S * cap * (4 * p + 4 + 24 * k + 8) + S * (4 * p + 20)
+    b_ms, b_by = bound(nbytes, S * cap * (6 * p + 3 * k + 4))
     print(f"[kernel] stream_update_reg S={S} w={cap} p={p} k={k}: "
-          f"max_abs_err {err:.3g} (bitwise {bitwise}), labels exact, "
+          f"max_abs_err {err:.3g} (bitwise {bitwise}), labels and ids exact, "
           f"{admitted} rows admitted, tie case exact; {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="stream_update_reg", route="cuda",
@@ -527,6 +557,159 @@ def check_kde_rowsums(g, X, y, iters):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 on the main paths' states: the fused tick (repair + insert)
+# ---------------------------------------------------------------------------
+
+
+def tick_inputs(state, mode, W, x, y, act, evict=True):
+    """The fused kernel's arguments for the tick ``session._sliding_step``
+    runs on ``state`` with the next traffic ``x, y`` and lanes ``act``: the
+    state's ring-block views, the window after the eviction, and fresh
+    copies of the lists (the kernel repairs them in place). ``evict=False``
+    is the non-evicting form on the same window."""
+    from repro_torch.core.online import next_aid, ring_mod
+
+    if mode == "class":
+        n, lists = state.knn.n, (state.knn.best,)
+        X, yv = state.knn.X[:, :W], state.knn.y[:, :W]
+    else:
+        n, lists = state.n, (state.nbr_d, state.nbr_y, state.nbr_a)
+        X, yv = state.X[:, :W], state.y[:, :W]
+    lists = [t[:, :W].clone() for t in lists]
+    ev = act & (n >= W)
+    s = ev.to(torch.int32) if evict else torch.zeros_like(n)
+    head1 = ring_mod(state.head + s, state.wrap)
+    n1 = n - s
+    kw = dict(mode=mode, head=head1, wrap=state.wrap, D=state.D[:, :W, :W],
+              ev=ev if evict else None)
+    if mode == "reg":
+        aid = state.aid[:, :W]
+        kw.update(aid=aid, nbr_a=lists[2],
+                  new_aid=next_aid(aid, head1, n1, state.wrap))
+    args = (X, yv, lists[0], lists[1] if mode == "reg" else None, x, y, n1)
+    return args, kw, lists
+
+
+def affected_rows(args, kw):
+    """``(affected rows, evicting tenants, tenants with affected rows)`` of
+    the tick: what the repair reads of ``D`` beyond the evicted rows."""
+    from repro_torch.core.online import ring_live
+
+    X, yv, L, Y, x, y, n1 = args
+    S, W = yv.shape
+    ar = torch.arange(S, device=yv.device)
+    hd = torch.where(kw["head"] == 0, kw["wrap"] - 1, kw["head"] - 1).long()
+    es = kw["D"][ar, hd]
+    aff = (kw["ev"][:, None] & ring_live(W, kw["head"], n1, kw["wrap"])
+           & (es <= L[..., -1]))
+    if kw["mode"] == "class":
+        aff &= yv == yv.gather(1, hd[:, None])
+    return (int(aff.sum()), int(kw["ev"].sum()),
+            int(aff.any(-1).sum()))
+
+
+def same_tick(state, mode, W, x, y, act, evict, what):
+    """The kernel == ``ref.stream_tick`` (the plain composition:
+    ``drop_backfill`` over every row of every tenant, then
+    ``stream_update_fast`` and the id merge), every output and every
+    repaired list bitwise. Returns the kernel's inputs (fresh lists) for
+    timing."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stream_update import stream_update
+
+    runs = []
+    for fn in (stream_update, ref.stream_tick):
+        args, kw, lists = tick_inputs(state, mode, W, x, y, act, evict)
+        runs.append([t for t in (*fn(*args, **kw), *lists) if t is not None])
+    torch.cuda.synchronize()
+    check(len(runs[0]) == len(runs[1]) and all(
+        torch.equal(a, b) for a, b in zip(*runs)),
+        f"fused {mode} kernel == the plain composition bitwise ({what})")
+    return tick_inputs(state, mode, W, x, y, act, evict)[:2]
+
+
+def tie_state(mode, k, dev):
+    """A small wrapped, gated state of one-hot points (distances 0, 1 and
+    sqrt 2: ties at tprime everywhere), served through the kernels."""
+    from repro_torch.regression import RegressionServingEngine
+    from repro_torch.serving import ServingEngine
+
+    S, W, P, T = 16, 64, 8, 2 * 64 + 10
+    rng = np.random.default_rng(SEED + 7)
+    xs = np.eye(P + 1, P, dtype=np.float32)[rng.integers(0, P + 1, (T, S))]
+    ys = (rng.integers(0, 2, (T, S)).astype(np.int32) if mode == "class"
+          else rng.integers(0, 3, (T, S)).astype(np.float32))
+    taus = rng.random((T, S), dtype=np.float32)
+    active = rng.random((T, S)) < 0.8
+    Eng = ServingEngine if mode == "class" else RegressionServingEngine
+    eng = Eng(n_sessions=S, capacity=W, dim=P, k=k, window=W, device=dev)
+    state, _ = eng.observe_many(eng.init_state(), xs[:-1], ys[:-1],
+                                taus[:-1], active[:-1])
+    return (state, W, *(torch.from_numpy(v[-1]).to(dev)
+                        for v in (xs, ys, active)))
+
+
+def check_fused_tick(row, state, mode, W, x, y, k, iters):
+    """Phase 3's check of the fused kernel on a main path's own wrapped
+    state after its evicting ticks (on copies of the lists): evicting with
+    lane 0 gated, non-evicting, and a state full of ties; then the times
+    of the evicting tick (kernel on fresh lists each launch; the plain
+    composition) and the bound recounted from this tick's affected rows.
+    Updates the kernel table's ``row``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stream_update import stream_update
+
+    S = x.shape[0]
+    act = torch.ones(S, dtype=torch.bool, device=x.device)
+    act[0] = False
+    args, kw = same_tick(state, mode, W, x, y, act, True,
+                         "evicting, lane 0 gated")
+    same_tick(state, mode, W, x, y, act, False, "non-evicting")
+    tstate, tW, tx, ty, tact = tie_state(mode, k, x.device)
+    same_tick(tstate, mode, tW, tx, ty, tact, True, "ties, evicting")
+    n_aff, n_ev, t_aff = affected_rows(args, kw)
+    check(n_aff > 0 and n_ev == S - 1, "rows repaired, lane 0 idle")
+
+    def fresh(count):  # one set of lists per launch (repaired in place)
+        return [tick_inputs(state, mode, W, x, y, act)[:2]
+                for _ in range(count)]
+
+    pool = fresh(iters + 2)
+    ms = cuda_ms(lambda: stream_update(*pool[-1][0], **pool.pop()[1]),
+                 iters)
+    pool = fresh(5)
+    plain_ms = cuda_ms(lambda: ref.stream_tick(*pool[-1][0], **pool.pop()[1]),
+                       3)
+    del pool
+    p_dim = x.shape[1]
+    nl = 1 if mode == "class" else 3  # lists: distances (, labels, ids)
+    # X, y, the lists read and the merged ones written; d and the list
+    # sum written; the evicted and the affected rows of D (and in
+    # regression the ids of each tenant with an affected row; the labels
+    # a classification scan compares are y, counted once); the repaired
+    # rows written
+    ids = t_aff * W if mode == "reg" else 0
+    nbytes = 4 * (S * W * p_dim + S * W + 2 * nl * S * W * k + 2 * S * W
+                  + n_ev * W + n_aff * W + ids + nl * n_aff * k
+                  + S * p_dim) + 24 * S
+    flops = (S * W * ((3 if mode == "class" else 6) * p_dim + 3 * k)
+             + 6 * n_aff * W)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[kernel] {row['name']} fused tick S={S} w={W} k={k}: bitwise == "
+          f"ref.stream_tick, the plain composition (drop_backfill + "
+          f"stream_update_fast) on the main path's wrapped state (evicting with "
+          f"lane 0 gated; non-evicting) and on a one-hot tie state; "
+          f"{n_aff / max(n_ev, 1):.2f} affected rows per evicting tenant "
+          f"({n_aff} of {n_ev * W}); evicting tick {ms:.4f} ms, plain "
+          f"composition {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{nbytes / 1e6:.1f} MB); non-evicting form (phase 3) "
+          f"{row['ms']:.4f} ms")
+    row.update(no_evict_ms=row["ms"], no_evict_bound_ms=row["bound_ms"],
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               affected_per_tenant=n_aff / max(n_ev, 1))
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: the serving engines
 # ---------------------------------------------------------------------------
 
@@ -559,20 +742,40 @@ def chunk_tick_ms(calls) -> np.ndarray:
 
 def check_chunk_equals_ticks(eng, state, xs, ys, taus, t0):
     """One ``CHUNK``-tick ``observe_many`` == as many ``observe`` calls,
-    p-values and every leaf bitwise."""
+    p-values and every leaf bitwise. The chunk (its inputs already on the
+    card) runs under ``torch.cuda.set_sync_debug_mode("error")``: a tick
+    that synchronises with the host raises. Returns the chunk's rise in
+    peak device memory, which must stay below one ``(S, w, w)`` bool
+    tensor (no such temporary in a tick)."""
     a, b = state.clone(), state.clone()
     sl = slice(t0, t0 + CHUNK)
-    a, pa = eng.observe_many(a, xs[sl], ys[sl], taus[sl])
+    S, W = state.D.shape[:2]
+    chunk = [torch.from_numpy(np.ascontiguousarray(v[sl])).to(state.D.device)
+             for v in (xs, ys, taus)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, pa = eng.observe_many(a, *chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    check(rise < S * W * W, f"a chunk's peak memory rise {rise} B is below "
+          f"S*w*w = {S * W * W} B (no (S, w, w) temporary)")
     pb = []
     for t in range(t0, t0 + CHUNK):
         b, p = eng.observe(b, xs[t], ys[t], taus[t])
         pb.append(p)
     check(torch.equal(pa, torch.stack(pb)) and equal_states(a, b),
           "observe_many chunk == per-tick observe")
+    return rise
 
 
-def classification_path(S, W):
-    """Phase 4. Returns the main path's launch counts."""
+def classification_path(S, W, row, iters):
+    """Phase 4, with phase 3's check of the fused kernel on its state
+    (updates ``row``). Returns the main path's launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import class_drift_traffic
     from repro_torch.serving import ServingEngine
@@ -613,6 +816,9 @@ def classification_path(S, W):
           and bool(((pred > 0) & (pred <= 1)).all()), "predict p-values")
     pvals = pv.cpu().numpy()  # (T_main, S)
     check(np.isfinite(pvals).all(), "finite tick p-values")
+    check_fused_tick(row, state, "class", W, torch.from_numpy(xs[T_main])
+                     .cuda(), torch.from_numpy(ys[T_main]).cuda(), K, iters)
+    torch.cuda.empty_cache()
 
     # ---- grow mode: capacity doubles under load ----------------------------
     geng = ServingEngine(n_sessions=S, capacity=64, dim=P, k=K, n_labels=L,
@@ -634,7 +840,7 @@ def classification_path(S, W):
     torch.cuda.empty_cache()
 
     # ---- exactness, bitwise ------------------------------------------------
-    check_chunk_equals_ticks(eng, state, xs, ys, taus, T_main)
+    rise = check_chunk_equals_ticks(eng, state, xs, ys, taus, T_main)
     torch.cuda.empty_cache()
     fresh = ServingEngine(n_sessions=S, capacity=W, dim=P, k=K, n_labels=L,
                           window=W, device="cuda")
@@ -646,7 +852,9 @@ def classification_path(S, W):
     check(equal_states(sm.to_linear(state), sm.to_linear(ref_state)),
           "eviction == refit after to_linear")
     print(f"[exact] chunk of {CHUNK} == per-tick; eviction == refit "
-          f"over {S} tenants (bitwise)")
+          f"over {S} tenants (bitwise); the chunk made no host "
+          f"synchronisation and raised peak memory by {rise / 2**20:.1f} MiB "
+          f"(S*w*w = {S * W * W / 2**20:.0f} MiB)")
 
     # ---- validity ---------------------------------------------------------
     mean_p = float(pvals[:, ~drifted].mean())
@@ -657,8 +865,9 @@ def classification_path(S, W):
     return counts
 
 
-def regression_path(S, W):
-    """Phase 5. Returns the main path's launch counts."""
+def regression_path(S, W, row, iters):
+    """Phase 5, with phase 3's check of the fused kernel on its state
+    (updates ``row``). Returns the main path's launch counts."""
     from repro_torch.core import regression as reg
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import (interval_coverage, reg_drift_traffic,
@@ -709,9 +918,12 @@ def regression_path(S, W):
     check(iv.shape == (S, M, 2), "intervals shape")
     pvals = pv.cpu().numpy()  # (T_main, S)
     check(np.isfinite(pvals).all(), "finite tick p-values")
+    check_fused_tick(row, state, "reg", W, torch.from_numpy(xs[T_main])
+                     .cuda(), torch.from_numpy(ys[T_main]).cuda(), k, iters)
+    torch.cuda.empty_cache()
 
     # ---- exactness, bitwise ------------------------------------------------
-    check_chunk_equals_ticks(eng, state, xs, ys, taus, T_main)
+    rise = check_chunk_equals_ticks(eng, state, xs, ys, taus, T_main)
     torch.cuda.empty_cache()
     view = rs.state_view(state, k=k)
     lists = rs.arrival_view(state)
@@ -731,7 +943,9 @@ def regression_path(S, W):
               "neighbour lists == fit's lists")
     del view, lists
     print(f"[reg-exact] chunk of {CHUNK} == per-tick; eviction == refit "
-          f"(state_view and lists) over {S} tenants (bitwise)")
+          f"(state_view and lists) over {S} tenants (bitwise); the chunk "
+          f"made no host synchronisation and raised peak memory by "
+          f"{rise / 2**20:.1f} MiB (S*w*w = {S * W * W / 2**20:.0f} MiB)")
 
     # ---- validity ---------------------------------------------------------
     mean_p = float(pvals[:, ~drifted].mean())
@@ -1019,6 +1233,11 @@ def check_flash_attention(g, iters, dev="cuda"):
         q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dt)
         k = torch.randn((B, Skv, Hkv, D), generator=g, device=dev).to(dt)
         v = torch.randn((B, Skv, Hkv, D), generator=g, device=dev).to(dt)
+        if name in FLASH_OFF16:  # contiguous views one element into a buffer
+            q, k, v = (torch.empty(t.numel() + 1, dtype=dt, device=dev)[1:]
+                       .view(t.shape).copy_(t) for t in (q, k, v))
+            check(all(t.data_ptr() % 16 == 2 for t in (q, k, v)),
+                  f"flash ({name}) bases 2 bytes off 16")
         kw = dict(causal=causal, window=window, softcap=cap)
         got = flash_attention(q, k, v, **kw)
         want = ref.flash_attention(q, k, v, **kw)
@@ -1263,9 +1482,10 @@ def main(argv=None) -> int:
     table.append(row)
     torch.cuda.empty_cache()
 
-    by_path = {"classification": classification_path(S, W)}
+    by_path = {"classification": classification_path(S, W, table[0],
+                                                     args.iters)}
     torch.cuda.empty_cache()
-    by_path["regression"] = regression_path(S, W)
+    by_path["regression"] = regression_path(S, W, table[1], args.iters)
     torch.cuda.empty_cache()
     by_path["batch"] = batch_path(Xb, yb, Xq, Xv, yv, prelim)
     batch_exactness(Xb, yb, Xq)

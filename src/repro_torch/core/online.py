@@ -1,6 +1,9 @@
 """Online CP core: the incremental simplified-k-NN state, ring-slot
 arithmetic, the shared decremental list repair, and the betting
-martingale. Counterpart of ``repro/core/online.py``.
+martingale. Counterpart of ``repro/core/online.py``. The repair
+(``drop_backfill``) and the ring ages and slots it takes live in
+``kernels/ref.py``, beside the plain version of the fused serving tick
+that calls them, and are re-exported here.
 
 Every function works on a leading tenant axis ``S``: ``X (S, cap, p)``,
 ``y (S, cap)``, ``best (S, cap, k)``, per-tenant scalars ``(S,)`` int32.
@@ -17,14 +20,8 @@ import torch
 
 from repro_torch._device import BIG, resolve
 from repro_torch.kernels import ops as kops
-
-
-def fsum(a: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, left to right, one rounding per add."""
-    acc = a[..., 0]
-    for j in range(1, a.shape[-1]):
-        acc = acc + a[..., j]
-    return acc
+from repro_torch.kernels.ref import (drop_backfill, drop_backfill_core, fsum,
+                                     ring_age, ring_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -32,27 +29,9 @@ def fsum(a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def ring_age(cap: int, head: torch.Tensor, wrap) -> torch.Tensor:
-    """``(S, cap)`` arrival age of each slot (0 = oldest) of a ring at
-    ``head`` with modulus ``wrap``; slots ``>= wrap`` get the sentinel age
-    ``cap`` (never live)."""
-    idx = torch.arange(cap, dtype=torch.int32, device=head.device)
-    h = head[..., None]
-    m = torch.as_tensor(wrap, dtype=torch.int32, device=head.device)[..., None]
-    raw = torch.where(idx >= h, idx - h, idx - h + m)
-    return torch.where(idx < m, raw, cap)
-
-
 def ring_live(cap: int, head, n, wrap) -> torch.Tensor:
     """``(S, cap)`` live mask of a ring holding ``n`` points at ``head``."""
     return ring_age(cap, head, wrap) < n[..., None]
-
-
-def ring_slots(cap: int, head, wrap) -> torch.Tensor:
-    """``(S, cap)`` slot of each arrival rank, ``(head + i) % wrap``."""
-    s = torch.arange(cap, dtype=torch.int32, device=head.device) + head[..., None]
-    m = torch.as_tensor(wrap, dtype=torch.int32, device=head.device)[..., None]
-    return torch.where(s >= m, s - m, s)
 
 
 def ring_mod(v, m):
@@ -67,87 +46,6 @@ def next_aid(aid, head, n, wrap) -> torch.Tensor:
     newest = ring_mod(head + n - 1 + wrap * (n == 0).to(n.dtype), wrap)
     last = aid.gather(-1, newest.long()[..., None])[..., 0]
     return torch.where(n > 0, last + 1, torch.zeros_like(last))
-
-
-def drop_backfill_core(L, es, cand, Ds, *, k):
-    """Decremental list repair of one evicted point (batched form of
-    ``repro.core.online.drop_backfill_core``): drop the first slot of each
-    ascending list ``L (S, w, k)`` holding the evicted distance ``es``,
-    then backfill the new k-th best by multiset rank over the stored
-    distances ``Ds (S, w, w)`` masked by ``cand``. Every output is a
-    selected stored value. Both reductions are order-free (an integer
-    count and a min), so they equal JAX's variadic reduce bit for bit.
-    Returns ``(newL, pos0, cols, b, tprime, mprime)``."""
-    pos0 = (L < es[..., None]).sum(-1, dtype=torch.int32)
-    Lup = torch.cat([L[..., 1:], torch.full_like(L[..., :1], BIG)], -1)
-    if k >= 2:
-        tprime = torch.where(pos0 <= k - 2, L[..., k - 1], L[..., k - 2])
-    else:
-        tprime = torch.full_like(es, -1.0)
-    mprime = ((L == tprime[..., None]).sum(-1, dtype=torch.int32)
-              - (es == tprime).to(torch.int32))
-    t = tprime[..., None]
-    cnt = (cand & (Ds == t)).sum(-1, dtype=torch.int32)
-    gtmin = torch.where(cand & (Ds > t), Ds, BIG).amin(-1)
-    b = torch.where(cnt > mprime, tprime, gtmin)
-    cols = torch.arange(k, device=L.device)
-    p0 = pos0[..., None]
-    newL = torch.where(cols < p0, L,
-                       torch.where(cols < k - 1, Lup, b[..., None]))
-    return newL, pos0, cols, b, tprime, mprime
-
-
-def drop_backfill(L, es, cand, Ds, aff, *, k, Ly=None, La=None, ys=None,
-                  aid=None, age=None, slots=None, aid0=None):
-    """Batched ``repro.core.online.drop_backfill``: repair the rows
-    flagged in ``aff (S, w)``; other rows pass through bitwise untouched.
-    Classification (``Ly is None``) repairs the distance lists and
-    returns ``newL``.
-
-    The labeled form (regression) also repairs the neighbour-label lists
-    ``Ly`` and arrival-id lists ``La (S, w, k)`` and returns ``(newL,
-    newLy, newLa)``. The backfill label follows fit's ties-toward-the-
-    earliest-arrival order: among the candidate columns at the backfill
-    distance ``b``, it comes from the earliest arrival above the largest
-    id the list already holds at ``b``. Ids are compared as int32
-    wraparound differences from ``aid0 (S,)``, the evicted (globally
-    earliest) live id, so the raw counters may overflow. The pick is a
-    masked min over arrival rank ``age (S, w)`` and one gather through
-    the rank -> slot permutation ``slots (S, w)``; ``ys (S, w)`` and
-    ``aid (S, w)`` are the per-slot labels and ids.
-    """
-    newL, pos0, cols, b, tprime, _ = drop_backfill_core(L, es, cand, Ds,
-                                                        k=k)
-    a = aff[..., None]
-    if Ly is None:
-        return torch.where(a, newL, L)
-    w = L.shape[-2]
-    rel_La = La - aid0[:, None, None]  # int32 wrap-subtract
-    thr = torch.where(
-        b == tprime,
-        torch.where(L == tprime[..., None], rel_La, -1).amax(-1), -1)
-    rel_aid = (aid - aid0[:, None])[:, None, :]
-    valid = Ds == b[..., None]  # (S, w, w), narrowed in place
-    valid &= cand
-    valid &= rel_aid > thr[..., None]
-    amin = torch.where(valid, age[:, None, :], w).amin(-1)
-    del valid
-    sel = slots.gather(1, amin.clamp(max=w - 1).long()).long()
-    yb, ab = ys.gather(1, sel), aid.gather(1, sel)  # b >= BIG: fixed below
-    p0 = pos0[..., None]
-    Lyup = torch.cat([Ly[..., 1:], Ly[..., :1]], -1)
-    newLy = torch.where(cols < p0, Ly,
-                        torch.where(cols < k - 1, Lyup, yb[..., None]))
-    Laup = torch.cat([La[..., 1:], La[..., :1]], -1)
-    newLa = torch.where(cols < p0, La,
-                        torch.where(cols < k - 1, Laup, ab[..., None]))
-    # missing-neighbour slots carry the row's own label (fit convention)
-    # and the neutral arrival id 0
-    big = newL >= BIG
-    newLy = torch.where(big, ys[..., None], newLy)
-    newLa = torch.where(big, 0, newLa)
-    return (torch.where(a, newL, L), torch.where(a, newLy, Ly),
-            torch.where(a, newLa, La))
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +79,7 @@ def init(capacity: int, p: int, k: int, *, n_sessions: int = 1,
 
 
 def _observe_impl(state: OnlineKnnState, x_new, y_new, tau, *, k,
-                  head=None, wrap=None):
+                  head=None, wrap=None, D=None, ev=None):
     """Price ``(x_new, y_new)`` against the window, and compute what
     learning it writes — without writing it.
 
@@ -190,6 +88,11 @@ def _observe_impl(state: OnlineKnnState, x_new, y_new, tau, *, k,
     ``(S, cap, k)`` with the new point's own list already at its slot,
     and that slot ``idx (S,)``. ``head=None`` is the linear layout (the
     new point lands at slot ``n``); otherwise at ``(head + n) % wrap``.
+    With ``ev (S,)`` (a sliding tick) the window ``(head, n)`` is the one
+    after the eviction of slot ``head - 1`` by the tenants with ``ev``
+    set, and the same launch first repairs ``state.best`` for it in
+    place, from the distances ``D (S, cap, cap)`` (``drop_backfill``'s
+    bits, over the rows that held the evicted point only).
     """
     X, y, best, n = state.X, state.y, state.best, state.n
     cap = X.shape[1]
@@ -197,15 +100,16 @@ def _observe_impl(state: OnlineKnnState, x_new, y_new, tau, *, k,
         head, wrap = torch.zeros_like(n), cap
     live = ring_live(cap, head, n, wrap)
     idx = ring_mod(head + n, wrap)
-    d, merged, _ = kops.stream_update(X, y, best, None, x_new, y_new, n,
-                                      mode="class", head=head, wrap=wrap)
+    d, merged, _, _, base = kops.stream_tick(
+        X, y, best, None, x_new, y_new, n, mode="class", head=head,
+        wrap=wrap, D=D, ev=ev)
     same = (y == y_new[:, None]) & live
     cand = torch.where(same, d, BIG)
     own = -torch.topk(-cand, k, dim=-1).values  # ascending k best
     alpha = fsum(own)
 
-    # provisional -> updated scores (cancellation-safe base + (kth or d))
-    base = fsum(best[..., :-1])
+    # provisional -> updated scores (cancellation-safe base + (kth or d));
+    # base = fsum(best[..., :-1]) comes from the same launch
     kth = best[..., -1]
     upd = same & (d < kth)
     alphas = base + torch.where(upd, d, kth)

@@ -29,10 +29,13 @@ _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
     ctypes.c_float
 # C signatures of the entry points, in argument order
 SIGNATURES = {
-    "rt_stream_update_class": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P,
-                               _P, _P, _P, _I, _I, _I, _I, _P],
-    "rt_stream_update_reg": [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rt_stream_update_class": [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _I64,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _P],
+    "rt_stream_update_reg": [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P,
+                             _I64, _P, _I64, _P, _I64, _I64, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _P],
     "rt_interval_sweep": [_P, _I64, _P, _P, _P, _P, _P, _I64, _P, _P, _P,
                           _I, _I, _I, _I, _I, _F, _P],
     "rt_pairwise_sq_dists": [_P, _I64, _P, _I64, _P, _I, _I, _I, _I, _P],

@@ -6,7 +6,8 @@ to the plain version in ``ref.py``. A CUDA tensor the kernel does not take
 runs the plain version. The device decision itself sits in each kernel's
 wrapper; this module takes the batched form (leading tenant axis) the
 callers use, brings ``stream_update``'s ring scalars to the wrapper's
-per-tenant form and keeps the launch counts, ``stream_update``'s per mode.
+per-tenant form and keeps the launch counts, ``stream_update``'s per mode
+(its fused serving-tick form, ``stream_tick``, counts there too).
 ``kde_rowsums`` takes the unbatched ``(m, p)`` form of the batch measures;
 ``flash_attention`` the ``(B, S, H, D)`` layout of the LM substrate (bf16
 or f32 on the card).
@@ -86,7 +87,29 @@ def stream_update(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
     """Distance row + gated ordered k-best merge for one new point per
     tenant. ``head=None`` is the linear layout; ``wrap`` defaults to the
     capacity. ``nbr_y=None`` (classification keeps no label lists) is
-    passed through. Returns ``(d_row, nbr_d', nbr_y')``."""
+    passed through. Returns ``(d_row, nbr_d', nbr_y')``. Reg mode runs
+    the tick's one form with zero arrival ids, whose merge it drops."""
+    ids = {}
+    if mode == "reg":
+        ids = dict(nbr_a=torch.zeros(nbr_d.shape, dtype=torch.int32,
+                                     device=nbr_d.device),
+                   new_aid=torch.zeros(X.shape[0], dtype=torch.int32,
+                                       device=X.device))
+    return stream_tick(X, y, nbr_d, nbr_y, x_new, y_new, n, mode=mode,
+                       head=head, wrap=wrap, **ids)[:3]
+
+
+def stream_tick(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
+                wrap=None, D=None, ev=None, aid=None, nbr_a=None,
+                new_aid=None):
+    """``stream_update`` with the serving tick's extras, one launch: with
+    ``ev (S,)`` the lists of the evicting tenants are first repaired in
+    place for the point at slot ``head - 1`` (``D``, and ``aid`` in reg
+    mode), ``(head, n)`` being the window after the eviction; reg mode
+    merges the arrival-id lists ``nbr_a`` with the new points' ids
+    ``new_aid`` too. Returns ``(d_row, nbr_d', nbr_y', nbr_a', lsum)``:
+    ``lsum`` the repaired lists' fixed-order sum (``fsum(nbr_d[...,
+    :-1])`` in class mode, ``fsum(nbr_y)`` in reg mode)."""
     S, cap = X.shape[:2]
     dev = X.device
     head = _scalars(0 if head is None else head, S, dev)
@@ -97,7 +120,8 @@ def stream_update(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
                  S).contiguous())
     return _stream_update(X, y, nbr_d, nbr_y, x_new, y_new,
                           _scalars(n, S, dev), mode=mode, head=head,
-                          wrap=wrap)
+                          wrap=wrap, D=D, ev=ev, aid=aid, nbr_a=nbr_a,
+                          new_aid=new_aid)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,

@@ -23,6 +23,18 @@ import torch
 _BIG = 1e30  # matches core.online.BIG
 
 
+def fsum(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right, one rounding per add; 0
+    over an empty axis (``jnp.sum``'s, so k = 1 scores are their k-th
+    distance)."""
+    if a.shape[-1] == 0:
+        return a.new_zeros(a.shape[:-1])
+    acc = a[..., 0]
+    for j in range(1, a.shape[-1]):
+        acc = acc + a[..., j]
+    return acc
+
+
 def _sumsq(A: torch.Tensor) -> torch.Tensor:
     """``sum_j A[..., j]^2`` over the last axis in fixed order."""
     acc = torch.zeros(A.shape[:-1], dtype=A.dtype, device=A.device)
@@ -172,19 +184,34 @@ def reg_interval_endpoints(X, a_prime, kth_dist, kth_label, live, X_test,
     return torch.where(lv, lo, inf), torch.where(lv, hi, -inf)
 
 
+def ring_age(cap: int, head: torch.Tensor, wrap) -> torch.Tensor:
+    """``(..., cap)`` arrival age of each slot (0 = oldest) of rings at
+    ``head`` with modulus ``wrap``; slots ``>= wrap`` get the sentinel age
+    ``cap`` (never live)."""
+    idx = torch.arange(cap, dtype=torch.int32, device=head.device)
+    h = head[..., None]
+    m = torch.as_tensor(wrap, dtype=torch.int32, device=head.device)[..., None]
+    raw = torch.where(idx >= h, idx - h, idx - h + m)
+    return torch.where(idx < m, raw, cap)
+
+
+def ring_slots(cap: int, head, wrap) -> torch.Tensor:
+    """``(..., cap)`` slot of each arrival rank, ``(head + i) % wrap``."""
+    s = torch.arange(cap, dtype=torch.int32, device=head.device) + head[..., None]
+    m = torch.as_tensor(wrap, dtype=torch.int32, device=head.device)[..., None]
+    return torch.where(s >= m, s - m, s)
+
+
 def _ring_live(cap: int, head, n, wrap=None) -> torch.Tensor:
     """``(..., cap)`` live mask of a ring window: slot ``(head + i) % wrap``
     is live for ``i in [0, n)``; slots ``>= wrap`` never are. ``head=None``
     is the linear layout ``arange(cap) < n``."""
     n = torch.as_tensor(n)
-    idx = torch.arange(cap, dtype=torch.int32, device=n.device)
     if head is None:
-        return idx < n[..., None]
-    head = torch.as_tensor(head, device=n.device)[..., None]
-    m = torch.as_tensor(cap if wrap is None else wrap, dtype=torch.int32,
-                        device=n.device)[..., None]
-    age = torch.where(idx >= head, idx - head, idx - head + m)
-    return (age < n[..., None]) & (idx < m)
+        return torch.arange(cap, dtype=torch.int32,
+                            device=n.device) < n[..., None]
+    head = torch.as_tensor(head, device=n.device)
+    return ring_age(cap, head, cap if wrap is None else wrap) < n[..., None]
 
 
 def _lift(*ts):
@@ -276,6 +303,143 @@ def stream_update_fast(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode: str,
     newY = torch.where(cols < pos, nbr_y, torch.where(cols == pos, yn, Ysh))
     newY = torch.where(newL >= _BIG, y[..., None].to(newY.dtype), newY)
     return d_row, newL, newY
+
+
+def drop_backfill_core(L, es, cand, Ds, *, k):
+    """Decremental list repair of one evicted point (batched form of
+    ``repro.core.online.drop_backfill_core``): drop the first slot of each
+    ascending list ``L (S, w, k)`` holding the evicted distance ``es``,
+    then backfill the new k-th best by multiset rank over the stored
+    distances ``Ds (S, w, w)`` masked by ``cand``. Every output is a
+    selected stored value. Both reductions are order-free (an integer
+    count and a min), so they equal JAX's variadic reduce bit for bit.
+    Returns ``(newL, pos0, cols, b, tprime, mprime)``."""
+    pos0 = (L < es[..., None]).sum(-1, dtype=torch.int32)
+    Lup = torch.cat([L[..., 1:], torch.full_like(L[..., :1], _BIG)], -1)
+    if k >= 2:
+        tprime = torch.where(pos0 <= k - 2, L[..., k - 1], L[..., k - 2])
+    else:
+        tprime = torch.full_like(es, -1.0)
+    mprime = ((L == tprime[..., None]).sum(-1, dtype=torch.int32)
+              - (es == tprime).to(torch.int32))
+    t = tprime[..., None]
+    cnt = (cand & (Ds == t)).sum(-1, dtype=torch.int32)
+    gtmin = torch.where(cand & (Ds > t), Ds, _BIG).amin(-1)
+    b = torch.where(cnt > mprime, tprime, gtmin)
+    cols = torch.arange(k, device=L.device)
+    p0 = pos0[..., None]
+    newL = torch.where(cols < p0, L,
+                       torch.where(cols < k - 1, Lup, b[..., None]))
+    return newL, pos0, cols, b, tprime, mprime
+
+
+def drop_backfill(L, es, cand, Ds, aff, *, k, Ly=None, La=None, ys=None,
+                  aid=None, age=None, slots=None, aid0=None):
+    """Batched ``repro.core.online.drop_backfill``: repair the rows
+    flagged in ``aff (S, w)``; other rows pass through bitwise untouched.
+    Classification (``Ly is None``) repairs the distance lists and
+    returns ``newL``.
+
+    The labeled form (regression) also repairs the neighbour-label lists
+    ``Ly`` and arrival-id lists ``La (S, w, k)`` and returns ``(newL,
+    newLy, newLa)``. The backfill label follows fit's ties-toward-the-
+    earliest-arrival order: among the candidate columns at the backfill
+    distance ``b``, it comes from the earliest arrival above the largest
+    id the list already holds at ``b``. Ids are compared as int32
+    wraparound differences from ``aid0 (S,)``, the evicted (globally
+    earliest) live id, so the raw counters may overflow. The pick is a
+    masked min over arrival rank ``age (S, w)`` and one gather through
+    the rank -> slot permutation ``slots (S, w)``; ``ys (S, w)`` and
+    ``aid (S, w)`` are the per-slot labels and ids.
+    """
+    newL, pos0, cols, b, tprime, _ = drop_backfill_core(L, es, cand, Ds,
+                                                        k=k)
+    a = aff[..., None]
+    if Ly is None:
+        return torch.where(a, newL, L)
+    w = L.shape[-2]
+    rel_La = La - aid0[:, None, None]  # int32 wrap-subtract
+    thr = torch.where(
+        b == tprime,
+        torch.where(L == tprime[..., None], rel_La, -1).amax(-1), -1)
+    rel_aid = (aid - aid0[:, None])[:, None, :]
+    valid = Ds == b[..., None]  # (S, w, w), narrowed in place
+    valid &= cand
+    valid &= rel_aid > thr[..., None]
+    amin = torch.where(valid, age[:, None, :], w).amin(-1)
+    del valid
+    sel = slots.gather(1, amin.clamp(max=w - 1).long()).long()
+    yb, ab = ys.gather(1, sel), aid.gather(1, sel)  # b >= BIG: fixed below
+    p0 = pos0[..., None]
+    Lyup = torch.cat([Ly[..., 1:], Ly[..., :1]], -1)
+    newLy = torch.where(cols < p0, Ly,
+                        torch.where(cols < k - 1, Lyup, yb[..., None]))
+    Laup = torch.cat([La[..., 1:], La[..., :1]], -1)
+    newLa = torch.where(cols < p0, La,
+                        torch.where(cols < k - 1, Laup, ab[..., None]))
+    # missing-neighbour slots carry the row's own label (fit convention)
+    # and the neutral arrival id 0
+    big = newL >= _BIG
+    newLy = torch.where(big, ys[..., None], newLy)
+    newLa = torch.where(big, 0, newLa)
+    return (torch.where(a, newL, L), torch.where(a, newLy, Ly),
+            torch.where(a, newLa, La))
+
+
+def stream_tick(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode: str, head,
+                wrap, D=None, ev=None, aid=None, nbr_a=None, new_aid=None):
+    """The serving tick's front end, the plain version of the fused
+    ``stream_update`` kernels: the composition the serving ticks ran
+    before the fusion, on the window ``(head, n, wrap)`` after the
+    eviction.
+
+    With ``ev (S,)`` bool, the tenants with ``ev`` set have just evicted
+    the point at slot ``head - 1`` (mod ``wrap``): ``drop_backfill``
+    repairs, in place, the rows whose lists may hold it (live, its
+    distance -- its column of ``D (S, w, w)`` -- at most the k-th best;
+    classification: the same label), over every row of every tenant and
+    the ``(S, w, w)`` candidate masks. Regression repairs the label and
+    arrival-id lists too (``aid (S, w)``). Then ``stream_update_fast``;
+    in regression the new point's id ``new_aid (S,)`` enters the id lists
+    ``nbr_a`` at the same place, BIG slots carrying id 0 (regression
+    always carries ids). Also returns the repaired lists' fixed-order sum
+    the tick's scores start from: ``fsum(nbr_d[..., :-1])`` in class mode
+    (the score without its k-th term), ``fsum(nbr_y)`` in reg mode.
+    Returns ``(d_row, nbr_d', nbr_y', nbr_a', lsum)``, ``nbr_a'`` None in
+    class mode."""
+    reg = mode == "reg"
+    if ev is not None:
+        S, w, k = nbr_d.shape
+        ar = torch.arange(S, device=nbr_d.device)
+        wrap_ = torch.as_tensor(wrap, dtype=torch.int32, device=head.device)
+        hd = torch.where(head == 0, wrap_ - 1, head - 1).long()
+        es = D[ar, :, hd]  # (S, w): distances to the evicted point
+        live = _ring_live(w, head, n, wrap_)
+        aff = ev[:, None] & live & (es <= nbr_d[..., -1])
+        if reg:
+            out = drop_backfill(
+                nbr_d, es, live[:, None, :], D, aff, k=k, Ly=nbr_y, La=nbr_a,
+                ys=y, aid=aid, age=ring_age(w, head, wrap_),
+                slots=ring_slots(w, head, wrap_), aid0=aid[ar, hd])
+            for t, o in zip((nbr_d, nbr_y, nbr_a), out):
+                t.copy_(o)
+        else:
+            aff &= y == y.gather(1, hd[:, None])
+            cand = (y[:, :, None] == y[:, None, :]) & live[:, None, :]
+            nbr_d.copy_(drop_backfill(nbr_d, es, cand, D, aff, k=k))
+    lsum = fsum(nbr_y) if reg else fsum(nbr_d[..., :-1])
+    d, nd, ny = stream_update_fast(X, y, nbr_d, nbr_y, x_new, y_new, n,
+                                   mode=mode, head=head, wrap=wrap)
+    if not reg:
+        return d, nd, ny, None, lsum
+    live = _ring_live(nbr_d.shape[-2], head, n, wrap)
+    c = torch.where(live & (d < nbr_d[..., -1]), d, _BIG)
+    _, pos, cols = _ordered_insert(nbr_d, c)
+    k = nbr_d.shape[-1]
+    Ash = torch.cat([nbr_a[..., :1], nbr_a[..., :k - 1]], -1)
+    na = torch.where(cols < pos, nbr_a,
+                     torch.where(cols == pos, new_aid[:, None, None], Ash))
+    return d, nd, ny, torch.where(nd >= _BIG, 0, na), lsum
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +541,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-__all__ = ["sq_dists", "row_dists", "cp_knn_counts", "div_k", "kde_kvals",
+__all__ = ["fsum", "sq_dists", "row_dists", "cp_knn_counts", "div_k", "kde_kvals",
            "kde_rowsums", "interval_ge",
-           "reg_interval_endpoints", "stream_update", "stream_update_fast",
-           "flash_attention", "chunked_attention"]
+           "reg_interval_endpoints", "ring_age", "ring_slots", "stream_update",
+           "stream_update_fast", "drop_backfill_core", "drop_backfill",
+           "stream_tick", "flash_attention", "chunked_attention"]

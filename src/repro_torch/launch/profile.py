@@ -53,7 +53,7 @@ S, W, P, QUERIES = 1024, 1024, 30, 100
 K_CLASS, K_REG, EPS = 15, 7, 0.1
 TICKS, CHUNK, TOP, SEED = 8, 32, 15, 0
 N_BATCH = 100_000  # the top of the paper's n-grid (numpy.logspace(1, 5, 13))
-HAND_KERNELS = ("stream_update_class_kernel", "stream_update_reg_kernel",
+HAND_KERNELS = ("stream_tick_class_kernel", "stream_tick_reg_kernel",
                 "pairwise_sq_dists_kernel", "cp_knn_counts_kernel",
                 "interval_sweep_kernel", "kde_rowsums_kernel",
                 "kde_rowsums_wide_kernel", "kde_sumsq_kernel",

@@ -21,9 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import BIG
-from repro_torch.core import online
-from repro_torch.core.online import (fsum, next_aid, ring_age, ring_live,
-                                     ring_mod, ring_slots)
+from repro_torch.core.online import fsum, next_aid, ring_live, ring_mod
 from repro_torch.core.regression import _threshold, hull_sweep, topk_lowest
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import div_k
@@ -33,13 +31,13 @@ from repro_torch.regression.stream import RegStreamState
 init = stream.init
 
 
-def _price(d_row, y_sel, y_new, tau, *, k, live, nbr_d, nbr_y, y, n):
+def _price(d_row, y_sel, y_new, tau, *, k, live, nbr_d, nbr_y, ysum, y, n):
     """Smoothed online p-value ``(S,)`` of label ``y_new`` against the
     pre-learn window: ``alpha_i = |a_i + b_i y|``, ``alpha = |a + y|``
     with ``a`` from the new point's own selected labels ``y_sel (S, k)``,
-    ties broken by ``tau``."""
+    ties broken by ``tau``; ``ysum = fsum(nbr_y)``."""
     kth = nbr_d[..., -1]
-    a_prime = y - div_k(fsum(nbr_y), k)
+    a_prime = y - div_k(ysum, k)
     enters = live & (d_row < kth)  # d_row is BIG off the live window
     a_vec = torch.where(enters, a_prime + div_k(nbr_y[..., -1], k), a_prime)
     b_vec = torch.where(enters, y.new_full((), -1.0 / k),
@@ -74,35 +72,26 @@ def _sliding_step(st: RegStreamState, x_new, y_new, tau, window, active, *,
 
     if evictable:
         ev = act & (n >= window)
-        hl = head.long()
-        dcol = Dw[ar, :, hl]  # (S, w): distances to the evicted point
-        head1 = ring_mod(head + ev.to(torch.int32), wrap)
-        n1 = n - ev.to(torch.int32)
-        live1 = ring_live(w, head1, n1, wrap)
-        affected = ev[:, None] & live1 & (dcol <= Lw[..., -1])
-        L1, Ly1, La1 = online.drop_backfill(
-            Lw, dcol, live1[:, None, :], Dw, affected, k=k, Ly=Lyw, La=Law,
-            ys=yw, aid=aidw, age=ring_age(w, head1, wrap),
-            slots=ring_slots(w, head1, wrap), aid0=aidw[ar, hl])
+        s = ev.to(torch.int32)
+        head1 = ring_mod(head + s, wrap)
+        n1 = n - s
     else:
-        head1, n1 = head, n
-        L1, Ly1, La1 = Lw, Lyw, Law
-        live1 = ring_live(w, head1, n1, wrap)
+        ev, head1, n1 = None, head, n
+    live1 = ring_live(w, head1, n1, wrap)
 
-    # learn: distance row + merge into every live row's lists (the
-    # kernel), the new point's own list, the id lists
+    # one launch: the labeled repair of the lists that held the evicted
+    # point (in place: Lw, Lyw, Law now hold them), then the distance row
+    # and the merge into every live row's lists, ids included
     il = ring_mod(head1 + n1, wrap).long()
     y_new = y_new.to(yw.dtype)
-    d_row, Lm, Lym = kops.stream_update(Xw, yw, L1, Ly1, x_new, y_new, n1,
-                                        mode="reg", head=head1, wrap=wrap)
-    sub = RegStreamState(Xw, yw, Dw, L1, Ly1, n1, head1, aidw, wrap, La1)
-    own_d, own_y, y_sel, own_a = stream._own_list(sub, d_row, y_new, k=k)
     new_aid = next_aid(aidw, head1, n1, wrap)
-    enters = live1 & (d_row < L1[..., -1])
-    Lam = stream._merge_aid(L1, La1, torch.where(enters, d_row, BIG),
-                            new_aid, Lm)
-    p = _price(d_row, y_sel, y_new, tau, k=k, live=live1, nbr_d=L1,
-               nbr_y=Ly1, y=yw, n=n1)
+    d_row, Lm, Lym, Lam, ysum = kops.stream_tick(
+        Xw, yw, Lw, Lyw, x_new, y_new, n1, mode="reg", head=head1,
+        wrap=wrap, D=Dw, ev=ev, aid=aidw, nbr_a=Law, new_aid=new_aid)
+    sub = RegStreamState(Xw, yw, Dw, Lw, Lyw, n1, head1, aidw, wrap, Law)
+    own_d, own_y, y_sel, own_a = stream._own_list(sub, d_row, y_new, k=k)
+    p = _price(d_row, y_sel, y_new, tau, k=k, live=live1, nbr_d=Lw,
+               nbr_y=Lyw, ysum=ysum, y=yw, n=n1)
 
     # gated in-place writes: one row and one column of D per tenant
     a1, a3 = act[:, None], act[:, None, None]
@@ -113,9 +102,9 @@ def _sliding_step(st: RegStreamState, x_new, y_new, tau, window, active, *,
     st.y[ar, il] = torch.where(act, y_new, st.y[ar, il])
     st.aid[ar, il] = torch.where(act, new_aid, st.aid[ar, il])
     Lm[ar, il], Lym[ar, il], Lam[ar, il] = own_d, own_y, own_a
-    st.nbr_d[:, :w] = torch.where(a3, Lm, L1)
-    st.nbr_y[:, :w] = torch.where(a3, Lym, Ly1)
-    st.nbr_a[:, :w] = torch.where(a3, Lam, La1)
+    st.nbr_d[:, :w] = torch.where(a3, Lm, Lw)
+    st.nbr_y[:, :w] = torch.where(a3, Lym, Lyw)
+    st.nbr_a[:, :w] = torch.where(a3, Lam, Law)
     st.n = torch.where(act, n1 + 1, n1)
     st.head = head1
     return st, torch.where(act, p, torch.full_like(p, float("nan")))

@@ -91,21 +91,6 @@ def init(capacity: int, p: int, k: int, *, n_sessions: int = 1,
     )
 
 
-def _merge_aid(nbr_d_pre, nbr_a, cand_d, new_aid, merged_d):
-    """Replay ``stream_update``'s ordered insert on the arrival-id lists:
-    ``pos = #{j : L[j] <= c}`` from the pre-merge distances, the insert
-    slot takes the new point's id ``new_aid (S,)``, everything above
-    shifts; BIG slots carry the neutral id 0."""
-    k = nbr_d_pre.shape[-1]
-    pos = (nbr_d_pre <= cand_d[..., None]).sum(-1, keepdim=True,
-                                               dtype=torch.int32)
-    cols = torch.arange(k, device=nbr_a.device)
-    Ash = torch.cat([nbr_a[..., :1], nbr_a[..., :k - 1]], -1)
-    newA = torch.where(cols < pos, nbr_a,
-                       torch.where(cols == pos, new_aid[:, None, None], Ash))
-    return torch.where(merged_d >= BIG, 0, newA)
-
-
 def _arrival(st: RegStreamState):
     """``(slots, live)``: the rank -> slot permutation ``(S, cap)`` and
     the rank mask ``rank < n``."""
@@ -203,18 +188,13 @@ def observe(st: RegStreamState, x_new, y_new, *, k):
     """Learn one example per tenant in O(cap k), in place: the paper's
     incremental update at slot ``(head + n) % wrap``. Returns ``(st,
     d_row)``, the live-masked distance row. Precondition: ``n < wrap``."""
-    S, cap = st.y.shape
-    ar = torch.arange(S, device=st.y.device)
+    ar = torch.arange(st.y.shape[0], device=st.y.device)
     idx = ring_mod(st.head + st.n, st.wrap).long()
     y_new = torch.as_tensor(y_new, dtype=st.y.dtype, device=st.y.device)
-    d_row, nbr_d, nbr_y = kops.stream_update(
-        st.X, st.y, st.nbr_d, st.nbr_y, x_new, y_new, st.n, mode="reg",
-        head=st.head, wrap=st.wrap)
     new_aid = next_aid(st.aid, st.head, st.n, st.wrap)
-    live = ring_live(cap, st.head, st.n, st.wrap)
-    enters = live & (d_row < st.nbr_d[..., -1])
-    nbr_a = _merge_aid(st.nbr_d, st.nbr_a, torch.where(enters, d_row, BIG),
-                       new_aid, nbr_d)
+    d_row, nbr_d, nbr_y, nbr_a, _ = kops.stream_tick(
+        st.X, st.y, st.nbr_d, st.nbr_y, x_new, y_new, st.n, mode="reg",
+        head=st.head, wrap=st.wrap, nbr_a=st.nbr_a, new_aid=new_aid)
     own_d, own_y, _, own_a = _own_list(st, d_row, y_new, k=k)
     st.D[ar, idx, :] = d_row
     st.D[ar, :, idx] = d_row

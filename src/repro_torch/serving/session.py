@@ -105,23 +105,17 @@ def _sliding_step(sess: Session, x_new, y_new, tau, window, active, *, k,
     if evictable:
         ev = act & (n >= window)
         s = ev.to(torch.int32)
-        hl = head.long()
-        dcol = Dw[ar, :, hl]  # (S, w): distances to the evicted point
         head1 = ring_mod(head + s, wrap)
         n1 = n - s
-        live1 = ring_live(w, head1, n1, wrap)
-        y_old = yw.gather(1, hl[:, None])
-        affected = (ev[:, None] & (yw == y_old) & live1
-                    & (dcol <= bw[..., -1]))
-        cand = (yw[:, :, None] == yw[:, None, :]) & live1[:, None, :]
-        b1 = online.drop_backfill(bw, dcol, cand, Dw, affected, k=k)
     else:
-        head1, n1, b1 = head, n, bw
+        ev, head1, n1 = None, head, n
 
-    # price + learn through the same code path as core.online.run_stream
+    # repair (one launch with the learn: the lists that held the evicted
+    # point, in place, so bw now holds them), price, learn -- through
+    # the same code path as core.online.run_stream
     p, d, merged, idx = online._observe_impl(
-        OnlineKnnState(Xw, yw, b1, n1), x_new, y_new, tau, k=k,
-        head=head1, wrap=wrap)
+        OnlineKnnState(Xw, yw, bw, n1), x_new, y_new, tau, k=k,
+        head=head1, wrap=wrap, D=Dw, ev=ev)
 
     il = idx.long()
     a1 = act[:, None]
@@ -130,7 +124,7 @@ def _sliding_step(sess: Session, x_new, y_new, tau, window, active, *, k,
     sess.D[ar, :w, il] = row
     knn.X[ar, il] = torch.where(a1, x_new.to(knn.X.dtype), knn.X[ar, il])
     knn.y[ar, il] = torch.where(act, y_new.to(knn.y.dtype), knn.y[ar, il])
-    knn.best[:, :w] = torch.where(act[:, None, None], merged, b1)
+    knn.best[:, :w] = torch.where(act[:, None, None], merged, bw)
     new_aid = next_aid(sess.aid[:, :w], head1, n1, wrap)
     sess.aid[ar, il] = torch.where(act, new_aid, sess.aid[ar, il])
     knn.n = torch.where(act, n1 + 1, n1)
