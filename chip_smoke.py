@@ -9,8 +9,10 @@ exits non-zero without a result line:
 1. device: name and power limit (``nvidia-smi``);
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels against their plain PyTorch versions at the serving shapes
-   (wrapped ring heads, tie cases, strided views), with kernel, plain and
-   library times (CUDA events) and each kernel's bound on this card. The
+   (wrapped ring heads, tie cases, strided views; ``pairwise_sq_dists``
+   also at a k-NN fit's row block), with kernel, plain and library times
+   (CUDA events) and each kernel's bound on this card, after a ``[sass]``
+   line with the batch kernels' static instruction mix. The
    fused ``stream_update`` kernels (eviction repair + insert, one launch
    a tick) are held bitwise to ``ref.stream_tick``, the plain
    composition (``drop_backfill`` then ``stream_update_fast``), on each
@@ -74,6 +76,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 from contextlib import nullcontext
 import subprocess
@@ -254,35 +257,52 @@ def check_stream_update(g, S, cap, p, k, iters):
 
 
 def check_pairwise(g, S, m, cap, p, iters):
+    """``pairwise_sq_dists`` == ``ref.sq_dists`` bitwise, rows alone
+    included, at the serving read's shape (S tenants, m queries, window
+    cap) and at a k-NN fit's row block (``knn.BLOCK_ELEMS // N_BATCH`` rows
+    against N_BATCH); both timed against ``torch.cdist`` (the yardstick).
+    The JSON row is the serving shape's."""
+    from repro_torch.core.measures.knn import BLOCK_ELEMS
     from repro_torch.kernels import ref
     from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
 
-    A = torch.randn((S, m, p), generator=g, device="cuda")
-    B = torch.randn((S, cap, p), generator=g, device="cuda")
-    out = pairwise_sq_dists(A, B)
-    want = ref.sq_dists(A, B)
-    scale = (A * A).sum(-1)[..., :, None] + (B * B).sum(-1)[..., None, :]
-    err = (out - want).abs()
-    check(bool((err <= 1e-5 * scale).all()),
-          "pairwise_sq_dists within 1e-5 of |a|^2 + |b|^2")
-    for i in (0, m // 3, m - 1):  # row-decomposable, bitwise
-        check(torch.equal(pairwise_sq_dists(A[:, i:i + 1], B),
-                          out[:, i:i + 1]), f"row {i} alone")
     torch.backends.cuda.matmul.allow_tf32 = False
-    ms = cuda_ms(lambda: pairwise_sq_dists(A, B), iters)
-    plain_ms = cuda_ms(lambda: ref.sq_dists(A, B), max(iters // 10, 3))
-    lib_ms = cuda_ms(lambda: torch.cdist(A, B), iters)
-    nbytes = 4 * S * (m * p + cap * p + m * cap)
-    b_ms, b_by = bound(nbytes, S * m * cap * (3 * p + 3))
-    print(f"[kernel] pairwise_sq_dists S={S} m={m} n={cap} p={p}: "
-          f"max_abs_err {float(err.max()):.3g}, rows alone bitwise; "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.cdist {lib_ms:.4f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by})")
+    rows_knn = BLOCK_ELEMS // N_BATCH
+    res = []
+    for S_, m_, n_ in ((S, m, cap), (1, rows_knn, N_BATCH)):
+        A = torch.randn((S_, m_, p), generator=g, device="cuda")
+        B = torch.randn((S_, n_, p), generator=g, device="cuda")
+        out = pairwise_sq_dists(A, B)
+        want = ref.sq_dists(A, B)
+        check(torch.equal(out, want), f"pairwise_sq_dists == plain, "
+              f"bitwise, S={S_} m={m_} n={n_}")
+        err = float((out - want).abs().max())
+        del want
+        for i in (0, m_ // 3, m_ - 1):  # row-decomposable, bitwise
+            check(torch.equal(pairwise_sq_dists(A[:, i:i + 1], B),
+                              out[:, i:i + 1]), f"row {i} alone")
+        del out
+        ms = cuda_ms(lambda: pairwise_sq_dists(A, B), iters)
+        plain_ms = cuda_ms(lambda: ref.sq_dists(A, B), max(iters // 10, 3))
+        lib_ms = cuda_ms(lambda: torch.cdist(A, B), iters)
+        # each row's norm once (2p), then 2p + 3 an output: a.b and d2
+        nbytes = 4 * S_ * (m_ * p + n_ * p + m_ * n_)
+        b_ms, b_by = bound(nbytes, S_ * m_ * n_ * (2 * p + 3)
+                           + 2 * p * S_ * (m_ + n_))
+        print(f"[kernel] pairwise_sq_dists S={S_} m={m_} n={n_} p={p}: "
+              f"bitwise == plain, rows alone bitwise; {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.cdist {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        res.append((err, ms, plain_ms, lib_ms, b_ms, b_by))
+        del A, B
+        torch.cuda.empty_cache()
+    err, ms, plain_ms, lib_ms, b_ms, b_by = res[0]
     return dict(name="pairwise_sq_dists", route="cuda",
                 source="src/repro_torch/kernels/csrc/pairwise_dist.cu",
                 replaces="src/repro/kernels/pairwise_dist.py:45",
-                max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                max_abs_err=max(r[0] for r in res), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def check_cp_counts(g, S, m, cap, p, k, L, iters):
@@ -479,12 +499,16 @@ def check_interval_sweep(g, S, m, n, p, k, iters):
 
 def check_kde_rowsums(g, X, y, iters):
     """``kde_rowsums`` == its plain version, bitwise: at n = m = N_CHECK (p
-    30, L 2, diagonal excluded), at p = 784 (L 10, App. G's MNIST widths on
-    synthetic data), with m != n and no diagonal, in both layouts and both
-    output forms (one target label per row; every label's sum, the read's
-    form) at p = 30 and p = 784, and on 256 sampled rows of the full fit
-    over ``X (N_BATCH, 30)``; the kernel's ``exp`` == ``torch.exp``. Times
-    the full fit; the plain version at n = N_CHECK."""
+    30, L 2, diagonal excluded) at h = 1 (the divisor a power of two: the
+    kernel multiplies) and h = 0.7 (it divides), with labels -1 and L among
+    the columns and rows (the extra group), at p = 784 (L 10, App. G's
+    MNIST widths on synthetic data), with m != n and no diagonal, in both
+    layouts and both output forms (one target label per row; every label's
+    sum, the read's form) at p = 30 and p = 784, and on 256 sampled rows of
+    the full fit over ``X (N_BATCH, 30)``; the kernel's ``exp`` ==
+    ``torch.exp``. Times the full fit, its bound recounted from the
+    same-label pairs it visits, and the read's per-label form at m = 100
+    and 2,000; the plain version at n = N_CHECK."""
     from repro_torch.core.online import fsum
     from repro_torch.kernels import ref
     from repro_torch.kernels.kde_score import kde_exp, kde_rowsums
@@ -497,38 +521,48 @@ def check_kde_rowsums(g, X, y, iters):
     n_exp_diff = int((kde_exp(args) != torch.exp(args)).sum())
     check(n_exp_diff == 0, f"kernel exp == torch.exp ({n_exp_diff} differ)")
 
-    def same(A, B, yA, yB, h, diag, what, n_labels=None, layout=None):
+    def same(A, B, yA, yB, h, diag, what, n_labels, layout=None):
         got = kde_rowsums(A, B, yA, yB, h, diag, n_labels, layout=layout)
         want = ref.kde_rowsums(A, B, yA, yB, h, diag, n_labels)
         check(torch.equal(got, want), f"kde_rowsums == plain, {what}")
         check(bool((want > 0).any()), f"kde_rowsums {what}: sums not all 0")
         return float((got - want).abs().max())
 
-    n8 = N_CHECK
+    n8, L = N_CHECK, N_LABELS
     A, yA = X[:n8].contiguous(), y[:n8].contiguous()
-    err = same(A, A, yA, yA, 1.0, True, f"n = m = {n8}, p = 30, L = 2, diag")
+    err = same(A, A, yA, yA, 1.0, True, f"n = m = {n8}, p = 30, L = 2, "
+               "diag", L)
+    err = max(err, same(A, A, yA, yA, 0.7, True, f"n = m = {n8}, h = 0.7, "
+                        "diag", L))
+    yO = torch.where(torch.arange(n8, device=dev) % 7 == 3, -1, yA)
+    yO = torch.where(torch.arange(n8, device=dev) % 11 == 5, L, yO)
+    yO = yO.to(torch.int32).contiguous()
+    for h in (1.0, 0.7):
+        err = max(err, same(A, A, yO, yO, h, True, f"n = m = {n8}, labels "
+                            f"-1 and {L} outside [0, {L}), h = {h}", L))
+    err = max(err, same(A, A, None, yO, 1.0, False, f"every label's sum, "
+                        f"labels -1 and {L} among the columns", L))
     W = 0.05 * torch.randn((n8, 784), generator=g, device=dev)
     yW = torch.randint(0, 10, (n8,), generator=g, device=dev,
                        dtype=torch.int32)
     err = max(err, same(W, W, yW, yW, 1.0, True, f"n = {n8}, p = 784, "
-                        "L = 10"))
+                        "L = 10", 10))
     m3 = 3 * n8 // 8
     Xm, ym = X[n8:n8 + m3].contiguous(), y[n8:n8 + m3].contiguous()
     nb = n8 // 4
-    for lay in ("rows", "wide"):
+    for lay in ("grouped", "wide"):
         err = max(err, same(Xm, A, ym, yA, 1.0, False, f"{lay} layout, m = "
-                            f"{m3} != n = {n8}, no diagonal", layout=lay))
+                            f"{m3} != n = {n8}, no diagonal", L, lay))
         err = max(err, same(Xm, A, None, yA, 1.0, False, f"{lay} layout, "
-                            f"every label's sum, m = {m3}, n = {n8}",
-                            n_labels=N_LABELS, layout=lay))
+                            f"every label's sum, m = {m3}, n = {n8}", L,
+                            lay))
         err = max(err, same(W, W[:nb], None, yW[:nb].contiguous(), 1.0,
                             False, f"{lay} layout, every label's sum, m = "
-                            f"{n8}, n = {nb}, p = 784, L = 10", n_labels=10,
-                            layout=lay))
+                            f"{n8}, n = {nb}, p = 784, L = 10", 10, lay))
         err = max(err, same(W, W[:nb], yW, yW[:nb].contiguous(), 1.0, False,
                             f"{lay} layout, m = {n8}, n = {nb}, p = 784",
-                            layout=lay))
-    full = kde_rowsums(X, X, y, y, 1.0, True)
+                            10, lay))
+    full = kde_rowsums(X, X, y, y, 1.0, True, L)
     rows = torch.randperm(X.shape[0], generator=g, device=dev)[:256]
     K = ref.kde_kvals(ref.sq_dists(X[rows], X), 1.0)
     keep = (y[rows, None] == y[None, :]) & (
@@ -538,17 +572,31 @@ def check_kde_rowsums(g, X, y, iters):
           "kde_rowsums == plain on 256 rows of the full fit")
     err = max(err, float((full[rows] - want).abs().max()))
     m = n = X.shape[0]
-    ms = cuda_ms(lambda: kde_rowsums(X, X, y, y, 1.0, True), iters)
+    ms = cuda_ms(lambda: kde_rowsums(X, X, y, y, 1.0, True, L), iters)
     plain_ms = cuda_ms(lambda: ref.kde_rowsums(A, A, yA, yA, 1.0, True), 1)
+    read_ms = {}
+    for mq in (100, 2000):  # the read's per-label form (wide layout)
+        Q = X[:mq].contiguous()
+        read_ms[mq] = cuda_ms(lambda: kde_rowsums(Q, X, None, y, 1.0,
+                                                  n_labels=L), iters)
+    # the bound counts the pairs the function needs (same label, j != i),
+    # 2p + 5 a pair, and each row's norm once (2p)
+    counts = torch.bincount(y.long(), minlength=L).double()
+    pairs = int((counts * counts).sum()) - m
     nbytes = 4 * (m * DIM + n * DIM + m + n) + 4 * m
-    b_ms, b_by = bound(nbytes, m * n * (2 * DIM + 5))
-    print(f"[kernel] kde_rowsums m=n={n} p={DIM} L={N_LABELS} diag excluded:"
-          f" bitwise == plain at ({n8}, 30), ({n8}, 784); at ({m3} x {n8}) "
-          f"and ({n8} x {nb}, 784) in both layouts and both forms; on 256 "
-          f"rows of the full fit; "
+    norms = 2 * DIM * (m + n)
+    b_ms, b_by = bound(nbytes, pairs * (2 * DIM + 5) + norms)
+    all_ms, _ = bound(nbytes, m * n * (2 * DIM + 5) + norms)
+    print(f"[kernel] kde_rowsums m=n={n} p={DIM} L={L} diag excluded:"
+          f" bitwise == plain at ({n8}, 30) h 1 and 0.7, with labels -1 and "
+          f"{L}, ({n8}, 784); at ({m3} x {n8}) and ({n8} x {nb}, 784) in "
+          f"both layouts and both forms; on 256 rows of the full fit; "
           f"exp == torch.exp on {args.numel()} "
           f"arguments; {ms:.4f} ms, plain {plain_ms:.4f} ms at n = {n8}, "
-          f"bound {b_ms:.4f} ms ({b_by}), library none")
+          f"bound {b_ms:.4f} ms ({b_by}; {pairs} same-label pairs; "
+          f"{all_ms:.4f} ms over all {m * n} pairs), library none; the "
+          f"read's per-label form m=100 {read_ms[100]:.4f} ms, m=2000 "
+          f"{read_ms[2000]:.4f} ms")
     return dict(name="kde_rowsums", route="cuda",
                 source="src/repro_torch/kernels/csrc/kde_score.cu",
                 replaces="src/repro/kernels/kde_score.py:52",
@@ -1184,36 +1232,129 @@ def live_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
     return int(keep.sum())
 
 
-def sass_mix() -> str:
-    """Instruction mix of the attention kernels in the built library, by
-    ``cuobjdump -sass``: tensor-core products (``HGMMA`` for wgmma, ``HMMA``
-    for mma.sync) and f32 FMAs per kernel. The bf16 kernel at D 128
-    (``fa_bf16_kernel<2>``, shape (a)'s) must hold ``HGMMA``."""
+def ptxas_summary(log: str) -> list:
+    """``name: registers, spill stores / loads`` of every entry function in
+    nvcc's ``-Xptxas -v`` output (empty where the library was not built in
+    this process)."""
+    out = []
+    for blk in log.split("Compiling entry function")[1:]:
+        name = blk.split("'")[1]
+        regs = re.search(r"Used (\d+) registers", blk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", blk)
+        out.append(f"{name}: {regs.group(1) if regs else '?'} registers, "
+                   f"spills {'/'.join(spill.groups()) if spill else '?'}")
+    return out
+
+
+def tile_constants() -> str:
+    """The register-tile constants of the batch kernels' sources."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    found = []
+    for src, names in (("kde_score.cu", ("KS_R", "KS_C", "KS_T", "KS_KT")),
+                       ("pairwise_dist.cu", ("PD_RM", "PD_RN", "PD_BM",
+                                             "PD_BN"))):
+        text = (csrc / src).read_text()
+        for nm in names:
+            mt = re.search(rf"#define {nm} ([^/\n]+)", text)
+            found.append(f"{nm} {mt.group(1).strip() if mt else '?'}")
+    return ", ".join(found)
+
+
+SASS_OPS = ("FADD", "FMUL", "FFMA", "MUFU", "LDS", "LDG", "STG")
+SASS_KERNELS = ("kde_group_kernel", "kde_rowsums_wide_kernel",
+                "pairwise_sq_dists_kernel")  # the [sass] line
+
+
+def sass_functions() -> dict:
+    """``{function: [(address, opcode, branch target or None)]}`` of the
+    built library, by ``cuobjdump -sass``; ``{}`` where the tool is
+    absent."""
     from repro_torch.kernels import _build
 
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
                                                      "cuobjdump")
     if not os.path.exists(tool):
-        return "cuobjdump absent: not measured"
+        return {}
     out = subprocess.run([tool, "-sass", _build.load()._name],
                          capture_output=True, text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
-    mix, fn = {}, None
+    funcs, fn = {}, None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            fn = name if ("fa_bf16_kernel" in name
-                          or "flash_attention_kernel" in name) else None
-            if fn:
-                mix[fn] = dict.fromkeys(("HGMMA", "HMMA", "FFMA"), 0)
-        elif fn:
-            words = line.split("*/", 1)[-1].split() if "*/" in line else []
-            if words and words[0].startswith("@"):
-                words = words[1:]
-            op = words[0].split(".")[0] if words else ""
-            if op in mix[fn]:
-                mix[fn][op] += 1
+            fn = line.split("Function :")[1].strip()
+            funcs[fn] = []
+            continue
+        s = line.strip()
+        if fn is None or not s.startswith("/*") or "*/" not in s:
+            continue
+        try:
+            addr = int(s[2:s.index("*/")], 16)
+        except ValueError:
+            continue
+        words = s.split("*/", 1)[1].split(";")[0].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if not words:
+            continue
+        op = words[0].split(".")[0]
+        tgt = None
+        if op == "BRA" and len(words) > 1 and words[-1].startswith("0x"):
+            tgt = int(words[-1], 16)
+        funcs[fn].append((addr, op, tgt))
+    return funcs
+
+
+def op_mix(ins) -> dict:
+    """Counts of ``SASS_OPS`` and every other opcode (``other``)."""
+    mix = dict.fromkeys(SASS_OPS + ("other",), 0)
+    for _, op, _ in ins:
+        mix[op if op in mix else "other"] += 1
+    return mix
+
+
+def inner_loops(ins) -> list:
+    """The innermost loops (a backward branch whose range holds no other
+    backward branch's range): ``[(first address, instructions)]``."""
+    spans = sorted((t, a) for a, _, t in ins if t is not None and t < a)
+    inner = [s for s in spans if not any(o != s and s[0] <= o[0]
+                                         and o[1] <= s[1] for o in spans)]
+    return [(lo, [i for i in ins if lo <= i[0] <= hi]) for lo, hi in inner]
+
+
+def sass_counts(funcs: dict, kernels: tuple) -> str:
+    """Static instruction mix of each kernel whose name holds one of
+    ``kernels``: the whole function, then its two largest innermost loops
+    (the hot loop bodies, as unrolled)."""
+    if not funcs:
+        return "cuobjdump absent: not measured"
+    parts = []
+    for fn, ins in sorted(funcs.items()):
+        if not any(k in fn for k in kernels):
+            continue
+        txt = " ".join(f"{k} {v}" for k, v in op_mix(ins).items())
+        loops = sorted(inner_loops(ins), key=lambda lp: -len(lp[1]))[:2]
+        for lo, body in loops:
+            txt += (f" | loop @{lo:#x} ({len(body)}): " + " ".join(
+                f"{k} {v}" for k, v in op_mix(body).items() if v))
+        parts.append(f"{fn}: {txt}")
+    return "; ".join(parts)
+
+
+def sass_mix() -> str:
+    """Instruction mix of the attention kernels in the built library, by
+    ``cuobjdump -sass``: tensor-core products (``HGMMA`` for wgmma, ``HMMA``
+    for mma.sync) and f32 FMAs per kernel. The bf16 kernel at D 128
+    (``fa_bf16_kernel<2>``, shape (a)'s) must hold ``HGMMA``."""
+    funcs = sass_functions()
+    if not funcs:
+        return "cuobjdump absent: not measured"
+    mix = {}
+    for fn, ins in funcs.items():
+        if "fa_bf16_kernel" in fn or "flash_attention_kernel" in fn:
+            ops = [op for _, op, _ in ins]
+            mix[fn] = {k: ops.count(k) for k in ("HGMMA", "HMMA", "FFMA")}
     key = next((f for f in mix if "fa_bf16_kernelILi2E" in f), None)
     check(key is not None and mix[key]["HGMMA"] > 0,
           f"HGMMA in the bf16 attention kernel at D 128: {mix.get(key)}")
@@ -1462,10 +1603,12 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    regs = [ln.strip() for ln in _build.build_log.splitlines()
-            if "registers" in ln]
     print(f"[build] {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds or 0.0:.1f} s); " + " | ".join(regs))
+          f"(nvcc {_build.build_seconds or 0.0:.1f} s); "
+          + " | ".join(ptxas_summary(_build.build_log)) + "; tiles "
+          + tile_constants())
+    print("[sass] static instruction mix of the batch kernels: "
+          + sass_counts(sass_functions(), SASS_KERNELS))
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     table = [check_stream_update(g, S, W, P, K, args.iters),

@@ -95,10 +95,11 @@ class IcpKdeState:
 
 
 def _kde_scores_against(X_ref, y_ref, counts, X, y_hat, *, h: float,
-                        p_dim: int):
+                        p_dim: int, n_labels: int):
     """Scores of rows ``X (b, p)`` with labels ``y_hat (b,)`` int32."""
     sums = kops.kde_rowsums(X.contiguous(), X_ref.contiguous(),
-                            y_hat.contiguous(), y_ref.contiguous(), h)
+                            y_hat.contiguous(), y_ref.contiguous(), h,
+                            n_labels=n_labels)
     c = counts[y_hat.long()]
     return -torch.where(c > 0, sums / (c * h ** p_dim), 0.0)
 
@@ -109,7 +110,8 @@ def fit_kde(X, y, *, h: float, p_dim: int, n_labels: int,
     labels = torch.arange(n_labels, dtype=y.dtype, device=y.device)
     counts = (y_tr[None, :] == labels[:, None]).sum(1, dtype=torch.int32)
     scores = _kde_scores_against(X_tr, y_tr, counts, X[t:].contiguous(),
-                                 y[t:].contiguous(), h=h, p_dim=p_dim)
+                                 y[t:].contiguous(), h=h, p_dim=p_dim,
+                                 n_labels=n_labels)
     return IcpKdeState(X_tr, y_tr, counts, scores)
 
 

@@ -94,9 +94,11 @@ class KdeState:
 
 
 def fit(X, y, *, h: float, n_labels: int) -> KdeState:
-    """O(n^2) training phase: one ``kde_rowsums`` launch."""
+    """O(n^2) training phase: one ``kde_rowsums`` launch (``n_labels``
+    lets the kernel visit each row's label alone)."""
     X, y = X.contiguous(), y.contiguous()
-    prelim = kops.kde_rowsums(X, X, y, y, h, exclude_diag=True)
+    prelim = kops.kde_rowsums(X, X, y, y, h, exclude_diag=True,
+                              n_labels=n_labels)
     return KdeState(X, y, prelim, _label_counts(y, n_labels))
 
 

@@ -38,15 +38,19 @@ SIGNATURES = {
                              _P],
     "rt_interval_sweep": [_P, _I64, _P, _P, _P, _P, _P, _I64, _P, _P, _P,
                           _I, _I, _I, _I, _I, _F, _P],
-    "rt_pairwise_sq_dists": [_P, _I64, _P, _I64, _P, _I, _I, _I, _I, _P],
+    "rt_pairwise_sq_dists": [_P, _I64, _P, _I64, _P, _P, _I, _I, _I, _I,
+                             _P],
     "rt_cp_knn_counts": [_P, _I64, _P, _P, _P, _P, _I64, _P, _P, _I, _I, _I,
                          _I, _I, _P],
-    "rt_kde_rowsums": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+    "rt_kde_rowsums": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                        _I, _I, _P],
+    "rt_kde_scratch_bytes": [_I, _I, _I, _I, _I, _I],
     "rt_kde_expf": [_P, _P, _I64, _P],
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _F, _F, _P],
 }
+
+RESTYPES = {"rt_kde_scratch_bytes": _I64}  # the rest return a CUDA error
 
 _lib = None
 build_seconds: float | None = None  # wall time of this process's build
@@ -68,8 +72,10 @@ def _sources() -> list[Path]:
 
 
 def _digest(sources: list[Path]) -> str:
+    """Hash of the flags, the sources and the headers they include
+    (``csrc/*.cuh``), so a changed header builds a new library."""
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for src in sources:
+    for src in sorted(sources + list(_CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -116,7 +122,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

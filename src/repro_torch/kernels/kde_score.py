@@ -1,13 +1,14 @@
 """Masked Gaussian-kernel row sums: wrapper of ``csrc/kde_score.cu``.
 
 Replaces ``repro/kernels/kde_score.py::kde_rowsums``, the KDE measure's
-training phase (paper Section 4.1). One thread per output sum adds every
-column strictly left to right, so a row's bits depend neither on ``m``
-nor on the launch; at the fit's shapes the kernel is bound by the
-``m*n*(2p + 5)`` flops of the fused distance, exp and sum. Without
-``y_A`` it returns every label's sum of each row, ``(m, n_labels)``: a
-read's candidate scores from one pass over the training set. See the
-source for its design and its two layouts.
+training phase (paper Section 4.1). One thread per output sum adds the
+kept columns strictly left to right, so a row's bits depend neither on
+``m`` nor on the launch; at the fit's shapes the kernel is bound by the
+``(2p + 5)`` flops of the fused distance, exp and sum of each same-label
+pair, which it alone visits (the launch groups the columns by label on
+the device). Without ``y_A`` it returns every label's sum of each row,
+``(m, n_labels)``: a read's candidate scores from one pass over the
+training set. See the source for its design and its two layouts.
 
 On a CPU tensor the wrapper runs the plain version (``ref.kde_rowsums``);
 on a CUDA tensor it launches the kernel or raises.
@@ -15,22 +16,44 @@ on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import _build, ref
 
 # Fewer rows than this take the kernel's wide layout (one block per row),
-# more its rows layout (one thread per row): where their times cross on an
-# H100 at n = 100,000, p = 30 (``python -m repro_torch.launch.profile
-# --kde-layouts``). The wide layout's time grows with the rows; the rows
-# layout's barely moves until the SMs fill.
-WIDE_ROWS = 9000
-MAX_LABELS = 256  # the per-label form's limit (KS_MAX_LABELS)
+# more its grouped layout: where their times cross on an H100 at n =
+# 100,000, p = 30, two labels, in both output forms (``python -m
+# repro_torch.launch.profile --kde-layouts``: at 4,000 rows 14.1 / 14.4
+# ms in the fit's form, 15.5 / 14.4 ms in the read's). The wide layout's
+# time grows with the rows; the grouped layout's barely moves until the
+# SMs fill, since each block runs its rows against all of their label's
+# columns in order.
+WIDE_ROWS = 4000
+MAX_LABELS = 256  # the per-label form's limit; the fit form groups these
+MAX_P_WIDE = 11776  # the wide layout's p (KW_MAX_P)
+MAX_P_GROUPED = 25600  # the grouped layout's p (KS_A_SMEM / (KS_R * 4))
 
 
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(f"kde_rowsums kernel: {what}")
+
+
+def exact_reciprocal(den: float) -> float | None:
+    """``1 / f32(den)`` when ``f32(den)`` is a power of two whose
+    reciprocal is a normal float32, else None. Then ``x * (1 / den)`` and
+    ``x / den`` round the same real number once, so the kernel may
+    multiply and keep the plain version's IEEE-division bits (h = 1: den
+    = 2)."""
+    d = torch.tensor(den, dtype=torch.float32).item()
+    if not (d > 0.0 and math.isfinite(d)):
+        return None
+    frac, e = math.frexp(d)  # d = frac * 2**e, frac in [0.5, 1)
+    if frac != 0.5 or not -126 <= 1 - e <= 127:
+        return None
+    return math.ldexp(1.0, 1 - e)
 
 
 def kde_rowsums(A: torch.Tensor, B: torch.Tensor, y_A: torch.Tensor | None,
@@ -39,9 +62,12 @@ def kde_rowsums(A: torch.Tensor, B: torch.Tensor, y_A: torch.Tensor | None,
                 layout: str | None = None) -> torch.Tensor:
     """``A (m, p)``, ``B (n, p)`` f32 contiguous, ``y_A (m,)``, ``y_B
     (n,)`` int32 -> ``(m,)`` f32; with ``y_A=None``, every label's sum
-    ``(m, n_labels)``. ``layout`` ("rows" or "wide") overrides the choice
-    by ``m`` (``WIDE_ROWS``), to time one layout against the other; the
-    bits are the same."""
+    ``(m, n_labels)``. In the ``(m,)`` form ``n_labels`` (optional) lets
+    the grouped layout visit each row's label alone; labels outside ``[0,
+    n_labels)`` (all of them without it) are compared column by column.
+    ``layout`` ("grouped" or "wide") overrides the choice by ``m``
+    (``WIDE_ROWS``), to time one layout against the other; the bits are
+    the same."""
     if A.device.type == "cpu":
         return ref.kde_rowsums(A, B, y_A, y_B, h, exclude_diag, n_labels)
     _check(A.dim() == 2 and B.dim() == 2, "unbatched (rows, p) operands")
@@ -64,19 +90,27 @@ def kde_rowsums(A: torch.Tensor, B: torch.Tensor, y_A: torch.Tensor | None,
     for t in (A, B, y_B) if per_label else (A, B, y_A, y_B):
         _check(t.is_contiguous(), "contiguous operands")
     _check(m + n < 2**31, "m + n below 2^31")
-    _check(layout in (None, "rows", "wide"), "layout rows, wide or None")
-    wide_below = {None: WIDE_ROWS, "rows": 0, "wide": 2**31 - 1}[layout]
-    L = n_labels if per_label else 1
+    _check(layout in (None, "grouped", "wide"),
+           "layout grouped, wide or None")
+    wide = p <= MAX_P_WIDE and (layout == "wide" or (
+        layout is None and m < WIDE_ROWS))
+    _check(wide or p <= MAX_P_GROUPED, f"p at most {MAX_P_GROUPED} "
+           f"(or {MAX_P_WIDE} below {WIDE_ROWS} rows)")
+    L = n_labels if per_label else min(n_labels or 0, MAX_LABELS)
+    den = 2.0 * h * h
+    inv = exact_reciprocal(den)
     lib = _build.load()
     out = torch.empty((m, L) if per_label else (m,), dtype=torch.float32,
                       device=A.device)
-    norms = torch.empty(m + n, dtype=torch.float32, device=A.device)
+    scratch = torch.empty(
+        lib.rt_kde_scratch_bytes(m, n, p, L, int(not per_label), int(wide)),
+        dtype=torch.uint8, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     rc = lib.rt_kde_rowsums(
         A.data_ptr(), B.data_ptr(), None if per_label else y_A.data_ptr(),
-        y_B.data_ptr(), norms.data_ptr(), norms[m:].data_ptr(),
-        out.data_ptr(), m, n, p, L, 2.0 * h * h, int(exclude_diag),
-        wide_below, stream)
+        y_B.data_ptr(), scratch.data_ptr(), out.data_ptr(), m, n, p, L,
+        den if inv is None else inv, int(inv is not None), int(exclude_diag),
+        int(wide), stream)
     _build.check(rc, "kde_rowsums")
     kde_rowsums.launches += 1
     return out

@@ -2,8 +2,9 @@
 
 Replaces ``repro/kernels/pairwise_dist.py::pairwise_sq_dists``. The
 kernel writes ``(S, m, n)`` f32 in the ``|a|^2 + |b|^2 - 2ab`` form with
-fixed-order f32 sums (no TF32, row-decomposable); at the serving shapes
-it is bound by its output bytes. See the source for its design.
+fixed-order f32 sums (``csrc/sqdist.cuh``, no TF32, row-decomposable),
+each row's norm computed once by a first launch; at the serving shapes it
+is bound by its output bytes. See the source for its design.
 
 On a CPU tensor the wrapper runs the plain version (``ref.sq_dists``); on
 a CUDA tensor it launches the kernel or raises.
@@ -42,13 +43,14 @@ def pairwise_sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     _check(B.shape[0] == S and B.shape[2] == p, "matching S and p")
     for t in (A, B):
         _check(rows_contiguous(t), "rows contiguous")
-    _check(1 <= S <= 65535 and m <= 65535 * 32, "launch grid limits")
+    _check(1 <= S <= 65535 and m <= 65535 * 64, "launch grid limits")
     lib = _build.load()
     out = torch.empty((S, m, n), dtype=torch.float32, device=A.device)
+    norms = torch.empty(S * (m + n), dtype=torch.float32, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     rc = lib.rt_pairwise_sq_dists(A.data_ptr(), A.stride(0), B.data_ptr(),
-                                  B.stride(0), out.data_ptr(), S, m, n, p,
-                                  stream)
+                                  B.stride(0), norms.data_ptr(),
+                                  out.data_ptr(), S, m, n, p, stream)
     _build.check(rc, "pairwise_sq_dists")
     pairwise_sq_dists.launches += 1
     return out

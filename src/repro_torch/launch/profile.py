@@ -4,6 +4,7 @@
     python -m repro_torch.launch.profile --regression
     python -m repro_torch.launch.profile --measure kde
     python -m repro_torch.launch.profile --kde-layouts
+    python src/repro_torch/launch/profile.py --kernel-times
     python -m repro_torch.launch.profile --arch qwen2-1.5b
 
 At a serving cell's shapes (1024 tenants, window 1024, dim 30; k 15 for
@@ -20,9 +21,19 @@ classifier at the paper's App. E top size (n = 100,000 training points,
 dim 30, 2 labels, h = 1): one ``ConformalClassifier.fit`` and one
 steady-state ``predict_pvalues`` over 100 test points (one untraced call
 first). ``--kde-layouts`` times the ``kde_rowsums`` kernel's two layouts
-against each other (CUDA events) over a grid of row counts at n = 100,000,
-dim 30, 2 labels, and the read's per-label form against the one-label
-form over its m * L rows: the measurement behind ``WIDE_ROWS``.
+(grouped, wide) against each other (CUDA events) over a grid of row counts
+at n = 100,000, dim 30, 2 labels, in both output forms, and the read's
+per-label form against the one-label form over its m * L rows: the
+measurement behind ``WIDE_ROWS``.
+``--kernel-times`` times ``kde_rowsums`` and ``pairwise_sq_dists`` (CUDA
+events) at the batch and serving paths' shapes: the fit's form at m = n =
+100,000 (dim 30, 2 labels, h 1, diagonal excluded), the read's per-label
+form at m = 100 and 2,000 against the same points, and
+``pairwise_sq_dists`` beside ``torch.cdist`` at the serving read's shape
+(1024 tenants, 100 queries, window 1024) and at a k-NN fit's row block
+(``knn.BLOCK_ELEMS // 100,000`` rows against 100,000). It calls only the
+wrappers' public signatures, so that run as a file with another tree's
+``src`` first on ``PYTHONPATH`` it times that tree's kernels.
 ``--arch NAME`` traces the LM conformal-OOD serving path at full width
 (bf16, random weights from the seed): one calibration embedding pass over
 256 sequences of 512 tokens (one untraced pass first) and one decode step
@@ -55,8 +66,10 @@ TICKS, CHUNK, TOP, SEED = 8, 32, 15, 0
 N_BATCH = 100_000  # the top of the paper's n-grid (numpy.logspace(1, 5, 13))
 HAND_KERNELS = ("stream_tick_class_kernel", "stream_tick_reg_kernel",
                 "pairwise_sq_dists_kernel", "cp_knn_counts_kernel",
-                "interval_sweep_kernel", "kde_rowsums_kernel",
+                "interval_sweep_kernel", "kde_group_kernel",
+                "kde_group_rank_kernel", "kde_group_scan_kernel",
                 "kde_rowsums_wide_kernel", "kde_sumsq_kernel",
+                "pairwise_norms_kernel",
                 "flash_attention_kernel", "fa_bf16_kernel")
 LM_CALIB, LM_SEQ, LM_REQUESTS, LM_GEN = 256, 512, 16, 32  # smoke phase 7
 
@@ -123,43 +136,89 @@ def _events_ms(fn, iters: int) -> float:
 
 
 def kde_layouts() -> int:
-    """Rows against wide layout of ``kde_rowsums`` by row count (one-label
-    form, diagonal excluded where m == n); the read's per-label form at m
-    = QUERIES against the one-label form over its m * L rows. Every pair
-    of layouts must give the same bits."""
+    """Grouped against wide layout of ``kde_rowsums`` by row count, in the
+    fit's form (one target label a row, two labels grouped, diagonal
+    excluded where m == n) and in the read's per-label form; the read's
+    per-label form at m = QUERIES against the one-label form over its m *
+    L rows. Every pair of layouts must give the same bits."""
     X, y = make_classification(N_BATCH + QUERIES, P, seed=SEED)
     X = torch.as_tensor(X, dtype=torch.float32, device="cuda").contiguous()
     y = torch.as_tensor(y, dtype=torch.int32, device="cuda")
-    Xtr, ytr = X[:N_BATCH].contiguous(), y[:N_BATCH].contiguous()
+    Xtr, ytr, L = X[:N_BATCH].contiguous(), y[:N_BATCH].contiguous(), 2
     print(f"[kde-layouts] {torch.cuda.get_device_name(0)}: n={N_BATCH} "
           f"dim={P}, WIDE_ROWS={WIDE_ROWS}; ms per launch (CUDA events)")
     for m in (100, 200, 1000, 2000, 4000, 8000, 9000, 10000, 12000, 16000,
               32000, 64000, N_BATCH):
         A, yA = Xtr[:m], ytr[:m]
         diag = m == N_BATCH
-        run = {lay: (lambda lay=lay: kde_rowsums(A, Xtr, yA, ytr, 1.0, diag,
-                                                 layout=lay))
-               for lay in ("rows", "wide")}
-        if not torch.equal(run["rows"](), run["wide"]()):
-            raise RuntimeError(f"layouts differ at m = {m}")
-        t = {lay: _events_ms(fn, 3 if m > 20000 else 10)
-             for lay, fn in run.items()}
-        print(f"  m={m:6d}: rows {t['rows']:9.3f}  wide {t['wide']:9.3f}  "
-              f"wide/rows {t['wide'] / t['rows']:7.3f}")
-    Xq, L = X[N_BATCH:], 2
+        forms = {"fit": (yA, diag), "per-label": (None, False)}
+        line = f"  m={m:6d}:"
+        for form, (ya, dg) in forms.items():
+            run = {lay: (lambda lay=lay, ya=ya, dg=dg: kde_rowsums(
+                A, Xtr, ya, ytr, 1.0, dg, L, layout=lay))
+                for lay in ("grouped", "wide")}
+            if not torch.equal(run["grouped"](), run["wide"]()):
+                raise RuntimeError(f"layouts differ at m = {m} ({form})")
+            t = {lay: _events_ms(fn, 3 if m > 20000 else 10)
+                 for lay, fn in run.items()}
+            line += (f"  {form}: grouped {t['grouped']:9.3f} wide "
+                     f"{t['wide']:9.3f} wide/grouped "
+                     f"{t['wide'] / t['grouped']:7.3f}")
+        print(line)
+    Xq = X[N_BATCH:]
     labels = torch.arange(L, dtype=torch.int32, device="cuda")
     Xrep = Xq.repeat_interleave(L, 0).contiguous()
     lrep = labels.repeat(QUERIES)
     every = kde_rowsums(Xq, Xtr, None, ytr, 1.0, n_labels=L)
-    one = kde_rowsums(Xrep, Xtr, lrep, ytr, 1.0)
+    one = kde_rowsums(Xrep, Xtr, lrep, ytr, 1.0, n_labels=L)
     if not torch.equal(every.reshape(-1), one):
         raise RuntimeError("per-label form differs from the one-label form")
     t_every = _events_ms(
         lambda: kde_rowsums(Xq, Xtr, None, ytr, 1.0, n_labels=L), 20)
-    t_one = _events_ms(lambda: kde_rowsums(Xrep, Xtr, lrep, ytr, 1.0), 20)
+    t_one = _events_ms(lambda: kde_rowsums(Xrep, Xtr, lrep, ytr, 1.0,
+                                           n_labels=L), 20)
     print(f"  read m={QUERIES} L={L}: per-label form {t_every:.3f} ms, "
           f"one-label form over {QUERIES * L} rows {t_one:.3f} ms "
           "(same bits)")
+    return 0
+
+
+def kernel_times() -> int:
+    """``kde_rowsums`` and ``pairwise_sq_dists`` at the paths' shapes; every
+    output checked finite."""
+    import repro_torch
+    from repro_torch.core.measures.knn import BLOCK_ELEMS
+    from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
+
+    X, y = make_classification(N_BATCH + 2000, P, seed=SEED)
+    X = torch.as_tensor(X, dtype=torch.float32, device="cuda").contiguous()
+    y = torch.as_tensor(y, dtype=torch.int32, device="cuda")
+    Xtr, ytr, Xq, L = X[:N_BATCH], y[:N_BATCH], X[N_BATCH:], 2
+    print(f"[kernel-times] {torch.cuda.get_device_name(0)}: "
+          f"{repro_torch.__file__}; ms per launch (CUDA events)")
+
+    def line(what, fn, iters):
+        if not bool(torch.isfinite(fn()).all()):
+            raise RuntimeError(f"{what}: non-finite output")
+        print(f"  {what}: {_events_ms(fn, iters):.4f} ms")
+
+    line(f"kde_rowsums fit form m=n={N_BATCH} p={P} L={L} diag excluded",
+         lambda: kde_rowsums(Xtr, Xtr, ytr, ytr, 1.0, True, L), 5)
+    for m in (100, 2000):
+        A = Xq[:m].contiguous()
+        line(f"kde_rowsums per-label form m={m} n={N_BATCH}",
+             lambda A=A: kde_rowsums(A, Xtr, None, ytr, 1.0, n_labels=L), 20)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = BLOCK_ELEMS // N_BATCH
+    for S_, A, B in ((S, torch.randn((S, QUERIES, P), generator=g,
+                                     device="cuda"),
+                      torch.randn((S, W, P), generator=g, device="cuda")),
+                     (1, Xtr[None, :rows], Xtr[None])):
+        shape = f"S={S_} m={A.shape[1]} n={B.shape[1]} p={P}"
+        line(f"pairwise_sq_dists {shape}", lambda: pairwise_sq_dists(A, B),
+             20)
+        line(f"torch.cdist {shape}", lambda: torch.cdist(A, B), 20)
     return 0
 
 
@@ -190,6 +249,9 @@ def main(argv=None) -> int:
                     help="trace the batch classifier of this measure")
     ap.add_argument("--kde-layouts", action="store_true",
                     help="time kde_rowsums' two layouts by row count")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="time kde_rowsums and pairwise_sq_dists at the "
+                    "paths' shapes")
     ap.add_argument("--arch", default=None,
                     help="trace the LM serving path of this architecture "
                     "(e.g. qwen2-1.5b)")
@@ -198,6 +260,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.kde_layouts:
         return kde_layouts()
+    if args.kernel_times:
+        return kernel_times()
     if args.arch:
         return profile_lm(args.arch, args.trace or None)
     if args.measure:

@@ -404,7 +404,8 @@ def test_icp_matches_jax(measure):
         st = clf._state
         alpha = np.stack([icp._kde_scores_against(
             st.X_train, st.y_train, st.class_counts, _t(Xt),
-            torch.full((M,), lbl, dtype=torch.int32), h=H, p_dim=P).numpy()
+            torch.full((M,), lbl, dtype=torch.int32), h=H, p_dim=P,
+            n_labels=labels).numpy()
             for lbl in range(labels)], 1)
     else:
         lab = torch.arange(labels, dtype=torch.int32).expand(M, labels)

@@ -176,3 +176,65 @@ def test_cp_knn_counts_matches_jax(n, m, l, dead):
     bat = ops.cp_knn_counts(*[torch.from_numpy(np.stack([a, a]))
                               for a in args], l)
     np.testing.assert_array_equal(bat[1].numpy(), np.asarray(want))
+
+
+def _pairwise_tiled(A, B, BM=64, BN=128, PC=32):
+    """The CUDA kernel's schedule in plain torch: every row's squared norm
+    once (a first pass, ``ref._sumsq``'s order), then 64 x 128 output
+    tiles whose dot products run over 32-feature chunks in feature order,
+    each output combined as ``(|a|^2 + |b|^2) - 2 a.b``."""
+    S, m, p = A.shape
+    n = B.shape[1]
+    a2, b2 = ref._sumsq(A), ref._sumsq(B)
+    out = A.new_empty((S, m, n))
+    for r0 in range(0, m, BM):
+        for c0 in range(0, n, BN):
+            a, b = A[:, r0:r0 + BM], B[:, c0:c0 + BN]
+            acc = A.new_zeros((S, a.shape[1], b.shape[1]))
+            for k0 in range(0, p, PC):
+                for f in range(k0, min(k0 + PC, p)):
+                    acc = acc + a[..., :, None, f] * b[..., None, :, f]
+            out[:, r0:r0 + BM, c0:c0 + BN] = (
+                a2[:, r0:r0 + BM, None] + b2[:, None, c0:c0 + BN]) - 2.0 * acc
+    return out
+
+
+@pytest.mark.parametrize("S,m,n,p", [(3, 100, 300, 30), (2, 65, 131, 37),
+                                     (1, 1, 129, 5)])
+def test_pairwise_norms_once_equals_plain_bitwise(S, m, n, p):
+    """The norms computed once and the tiled, chunked products give
+    ``ref.sq_dists``' bits; a row computed alone, and a query batch shared
+    by every tenant (tenant stride 0), give the same bits."""
+    rng = np.random.default_rng(S * m + n + p)
+    A = torch.from_numpy(rng.standard_normal((S, m, p)).astype(np.float32))
+    B = torch.from_numpy(rng.standard_normal((S, n, p)).astype(np.float32))
+    want = ref.sq_dists(A, B)
+    assert torch.equal(_pairwise_tiled(A, B), want)
+    for i in (0, m // 2, m - 1):
+        assert torch.equal(_pairwise_tiled(A[:, i:i + 1], B),
+                           want[:, i:i + 1])
+    shared = A[:1].expand(S, m, p)
+    assert torch.equal(_pairwise_tiled(shared, B), ref.sq_dists(shared, B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,m,n,p", [(64, 100, 1024, 30), (3, 2684, 4003, 30),
+                                     (2, 65, 131, 37), (4, 1, 129, 5)])
+def test_pairwise_kernel_matches_plain_on_the_card(S, m, n, p):
+    """The CUDA kernel == ``ref.sq_dists`` bitwise, n a multiple of 4 (the
+    16-byte stores) or not, rows alone and a tenant stride of 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
+
+    g = torch.Generator(device="cuda").manual_seed(S + m + n)
+    A = torch.randn((S, m, p), generator=g, device="cuda")
+    B = torch.randn((S, n, p), generator=g, device="cuda")
+    got = pairwise_sq_dists(A, B)
+    assert torch.equal(got, ref.sq_dists(A, B))
+    for i in (0, m - 1):
+        assert torch.equal(pairwise_sq_dists(A[:, i:i + 1], B),
+                           got[:, i:i + 1])
+    shared = A[:1].expand(S, m, p)
+    assert torch.equal(pairwise_sq_dists(shared, B),
+                       ref.sq_dists(shared, B))
