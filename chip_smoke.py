@@ -12,7 +12,11 @@ exits non-zero without a result line:
    (wrapped ring heads, tie cases, strided views; ``pairwise_sq_dists``
    also at a k-NN fit's row block), with kernel, plain and library times
    (CUDA events) and each kernel's bound on this card, after a ``[sass]``
-   line with the batch kernels' static instruction mix. The
+   line with the batch and read kernels' static instruction mix. The
+   read kernels (``interval_sweep``, ``cp_knn_counts``) are held bitwise
+   to their plain versions with ties at the serving shape and at the
+   edges of their tiles (``SWEEP_EDGES``, ``COUNTS_EDGES``), and their
+   branch-free square root to ``torch.sqrt`` over every float32. The
    fused ``stream_update`` kernels (eviction repair + insert, one launch
    a tick) are held bitwise to ``ref.stream_tick``, the plain
    composition (``drop_backfill`` then ``stream_update_fast``), on each
@@ -23,15 +27,19 @@ exits non-zero without a result line:
 4. classification main path (k 15): ``ServingEngine.observe_many`` until
    every window is full plus more than one full window of evicting
    ticks, then ``predict``; every kernel of the path must have launched
-   there. A short grow-mode run follows; then exactness (eviction ==
-   refit, chunked == per-tick, bitwise; the chunk under
+   there; ``predict`` once more records the arguments it passes
+   ``cp_knn_counts``, and the kernel == its plain version bitwise on
+   them (timed there). A short grow-mode run follows; then exactness
+   (eviction == refit, chunked == per-tick, bitwise; the chunk under
    ``set_sync_debug_mode("error")``, so a host synchronisation in a tick
    fails, and its peak-memory rise below S*w*w bytes) and validity (the
    non-drifted tenants' mean smoothed p-value is 1/2);
 5. regression main path (k 7, the paper's Figure 4 settings): the same
    ticks through ``RegressionServingEngine.observe_many``, then two
    ``intervals`` calls at eps 0.1 (the first, then one in steady state);
-   every kernel of the path must have launched there. Then exactness
+   every kernel of the path must have launched there; ``interval_sweep``
+   == its plain version bitwise on the arguments ``intervals`` passes it,
+   as in phase 4. Then exactness
    (chunked == per-tick, with phase 4's synchronisation and memory
    checks; eviction == refit through ``state_view`` and the neighbour
    lists, bitwise) and validity (mean smoothed p-value 1/2, interval
@@ -305,54 +313,102 @@ def check_pairwise(g, S, m, cap, p, iters):
                 library_ms=lib_ms)
 
 
+# edge shapes of the read kernels' tiles (64 rows, 128 columns, 32-feature
+# chunks, 4 labels a block): S, m, n, p, k or L, a query batch shared by
+# every tenant (tenant stride 0)
+SWEEP_EDGES = [(3, 1, 130, 5, 1, False), (3, 65, 1023, 37, 7, False),
+               (3, 100, 1024, 30, 1, True), (3, 129, 130, 30, 3, False),
+               (2, 100, 1023, 5, 7, True), (2, 129, 1024, 37, 1, False),
+               (2, 65, 130, 30, 7, True)]
+COUNTS_EDGES = [(3, 1, 130, 5, 1, False), (3, 65, 1023, 37, 16, False),
+                (3, 100, 1024, 30, 2, True), (3, 129, 130, 30, 16, False),
+                (2, 129, 1024, 5, 2, False), (2, 100, 1023, 37, 1, True),
+                (2, 65, 130, 30, 3, False), (2, 100, 1024, 30, 5, False)]
+
+
+def unit_scale(X, Xt, p):
+    """Rows rescaled to dim 30's distances, so phase 3's k-th distances
+    and alphas keep both branches alive at any p."""
+    c = (DIM / p) ** 0.5
+    return X * c, Xt * c
+
+
+def counts_ties(args):
+    """``cp_knn_counts`` operands with ties: 16 columns' k-th distance set
+    to their realised distance to row 0 (the strict ``d < kth`` gate), and
+    rows 1 and 2's alphas set to realised scores ``alpha_i`` (the ``>=`` of
+    the counts): row 1's of column 3, row 2's of each label's nearest
+    column (an updated score where it enters)."""
+    from repro_torch.kernels import ref
+
+    X, y, sums, kth, Xt, alpha = (t.clone() for t in args)
+    S, n, L, m = X.shape[0], X.shape[1], alpha.shape[-1], Xt.shape[1]
+    d = torch.sqrt(torch.clamp(ref.sq_dists(Xt[:, :3], X), min=0.0))
+    cols = torch.arange(0, n, max(n // 16, 1), device=X.device)[:16]
+    live = y[:, cols] >= 0
+    kth[:, cols] = torch.where(live, d[:, 0, cols], kth[:, cols])
+    labels = torch.arange(L, dtype=y.dtype, device=y.device)
+    same = y[:, None, :] == labels[:, None]  # (S, L, n)
+    for t in (1, 2):
+        if t >= m:
+            break
+        upd = same & (d[:, t, None, :] < kth[:, None, :])
+        a_i = torch.where(upd, ((sums - kth) + d[:, t])[:, None, :],
+                          sums[:, None, :])  # (S, L, n)
+        if t == 1:
+            c = torch.full((S, L, 1), 3, device=X.device)
+        else:
+            c = torch.where(same, d[:, t, None, :], float("inf")).argmin(
+                -1, keepdim=True)
+        alpha[:, t] = a_i.gather(-1, c)[..., 0]
+    return X, y, sums, kth, Xt, alpha
+
+
 def check_cp_counts(g, S, m, cap, p, k, L, iters):
+    """``cp_knn_counts`` == ``ref.cp_knn_counts`` bitwise (the counts
+    exact) at the serving read's shape with ties, and at the tiles' edge
+    shapes (``COUNTS_EDGES``: m, n, p and L around 64 rows, 128 columns,
+    32 features and 4 labels a block; dead columns; shared queries), on
+    inputs with ties; timed at the serving shape."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.cp_update import cp_knn_counts
+    from repro_torch.launch.profile import counts_inputs
 
-    dev = "cuda"
-    X = torch.randn((S, cap, p), generator=g, device=dev)
-    y = torch.randint(0, L, (S, cap), generator=g, device=dev,
-                      dtype=torch.int32)
-    kth = 6.0 + 3.0 * torch.rand((S, cap), generator=g, device=dev)
-    sums = kth * k * (0.7 + 0.3 * torch.rand((S, cap), generator=g,
-                                             device=dev))
-    dead = torch.rand((S, cap), generator=g, device=dev) < 0.1
-    y = torch.where(dead, -1, y)
-    sums = torch.where(dead, -BIG, sums)
-    kth = torch.where(dead, -BIG, kth)
-    Xt = torch.randn((S, m, p), generator=g, device=dev)
-    alpha = 7.5 * k * (0.7 + 0.3 * torch.rand((S, m, L), generator=g,
-                                               device=dev))
-    args = (X, y, sums, kth, Xt, alpha)
+    args = counts_ties(counts_inputs(g, S, m, cap, p, k, L))
     got = cp_knn_counts(*args, n_labels=L)
     want = ref.cp_knn_counts(*args)
-    # tie-adjacent columns: the plain version's own margin to alpha
-    d = torch.sqrt(torch.clamp(ref.sq_dists(Xt, X), min=0.0))
-    tie = torch.zeros((S, m, L), dtype=torch.int32, device=dev)
-    for lbl in range(L):
-        upd = (y[:, None, :] == lbl) & (d < kth[:, None, :])
-        a_i = torch.where(upd, (sums - kth)[:, None, :] + d, sums[:, None, :])
-        a = alpha[..., lbl:lbl + 1]
-        tie[..., lbl] = ((a_i - a).abs() <= 1e-5 * a.abs()).sum(
-            -1, dtype=torch.int32)
-    diff = (got - want).abs()
-    check(bool((diff <= tie).all()),
-          "cp_knn_counts equal outside tie-adjacent columns")
+    check(torch.equal(got, want), f"cp_knn_counts == plain, bitwise, "
+          f"S={S} m={m} n={cap} p={p} L={L} with ties")
     lo, hi = int(want.min()), int(want.max())
     check(0 < hi and lo < cap, "counts span a useful range")
+    for S_, m_, n_, p_, L_, shared in COUNTS_EDGES:
+        X, y, sums, kth, Xt, alpha = counts_inputs(g, S_, m_, n_, p_, k, L_)
+        X, Xt = unit_scale(X, Xt, p_)
+        if shared:
+            Xt = Xt[:1].expand(S_, m_, p_)
+        e = counts_ties((X, y, sums, kth, Xt, alpha))
+        if shared:  # the ties keep the tenant stride 0
+            e = e[:4] + (Xt,) + e[5:]
+        check(torch.equal(cp_knn_counts(*e, n_labels=L_),
+                          ref.cp_knn_counts(*e)),
+              f"cp_knn_counts == plain, bitwise, S={S_} m={m_} n={n_} "
+              f"p={p_} L={L_} shared={shared}")
     ms = cuda_ms(lambda: cp_knn_counts(*args, n_labels=L), iters)
     plain_ms = cuda_ms(lambda: ref.cp_knn_counts(*args), max(iters // 10, 3))
     nbytes = 4 * S * (cap * p + 3 * cap + m * p + 2 * m * L)
-    b_ms, b_by = bound(nbytes, S * m * cap * (2 * p + 7 + 3 * L))
+    # each row's norm once (2p), then 2p + 7 + 3L a pair
+    b_ms, b_by = bound(nbytes, S * m * cap * (2 * p + 7 + 3 * L)
+                       + 2 * p * S * (m + cap))
     print(f"[kernel] cp_knn_counts S={S} m={m} n={cap} p={p} L={L}: "
-          f"{int((diff > 0).sum())} differing counts, {int(tie.sum())} "
-          f"tie-adjacent columns, counts in [{lo}, {hi}]; {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+          f"bitwise == plain with ties (counts in [{lo}, {hi}]) and at "
+          f"{len(COUNTS_EDGES)} edge shapes; {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="cp_knn_counts", route="cuda",
                 source="src/repro_torch/kernels/csrc/cp_update.cu",
                 replaces="src/repro/kernels/cp_update.py:62",
-                max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                max_abs_err=float((got - want).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def check_stream_update_reg(g, S, cap, p, k, iters):
@@ -445,56 +501,154 @@ def check_stream_update_reg(g, S, cap, p, k, iters):
                 bound_by=b_by, library_ms=None)
 
 
+def sweep_ties(args):
+    """``interval_sweep`` operands with ties: 16 columns' k-th distance set
+    to their realised distance to row 0 (the strict ``d < kth`` gate), and
+    ``a_test`` +0 in row 1 and -0 in row 2."""
+    from repro_torch.kernels import ref
+
+    X, a_prime, kth, kth_label, live, Xt, a_test = (t.clone() for t in args)
+    n, m = X.shape[1], Xt.shape[1]
+    cols = torch.arange(0, n, max(n // 16, 1), device=X.device)[:16]
+    d0 = torch.sqrt(torch.clamp(ref.sq_dists(Xt[:, :1], X[:, cols]),
+                                min=0.0))
+    kth[:, cols] = d0[:, 0]
+    for t, z in ((1, 0.0), (2, -0.0)):
+        if t < m:
+            a_test[:, t] = z
+    return X, a_prime, kth, kth_label, live, Xt, a_test
+
+
+def check_sqd_sqrt() -> int:
+    """The read kernels' branch-free square root (``sqd_sqrt`` of
+    ``csrc/sqdist.cuh``) == ``torch.sqrt`` over every float32 bit pattern,
+    NaN for NaN. Returns the number of patterns checked."""
+    from repro_torch.kernels.interval_sweep import sqd_sqrt
+
+    bad, step = 0, 1 << 28
+    for lo in range(0, 1 << 32, step):
+        x = torch.arange(lo, lo + step, dtype=torch.int64,
+                         device="cuda").to(torch.int32).view(torch.float32)
+        got, want = sqd_sqrt(x), torch.sqrt(x)
+        bad += int(((got.view(torch.int32) != want.view(torch.int32))
+                    & ~(got.isnan() & want.isnan())).sum())
+        del x, got, want
+    check(bad == 0, f"sqd_sqrt == torch.sqrt over every float32 ({bad} "
+          "differ)")
+    return 1 << 32
+
+
 def check_interval_sweep(g, S, m, n, p, k, iters):
+    """``interval_sweep`` == ``ref.reg_interval_endpoints`` bitwise (``lo``
+    and ``hi``) at the serving read's shape with ties, and at the tiles'
+    edge shapes (``SWEEP_EDGES``: m, n and p around 64 rows, 128 columns
+    and 32 features a block; k 1, the linear branch; dead columns; shared
+    queries), on inputs with ties; timed at the serving shape."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.interval_sweep import interval_sweep
+    from repro_torch.launch.profile import sweep_inputs
 
-    dev = "cuda"
-    X = torch.randn((S, n, p), generator=g, device=dev)
-    a_prime = torch.randn((S, n), generator=g, device=dev)
-    kth = 6.5 + 2.0 * torch.rand((S, n), generator=g, device=dev)
-    kth_label = torch.randn((S, n), generator=g, device=dev)
-    n_live = torch.randint(n // 2, n + 1, (S, 1), generator=g, device=dev)
-    live = torch.arange(n, device=dev) < n_live
-    Xt = torch.randn((S, m, p), generator=g, device=dev)
-    a_test = torch.randn((S, m), generator=g, device=dev)
-    args = (X, a_prime, kth, kth_label, live, Xt, a_test)
+    args = sweep_ties(sweep_inputs(g, S, m, n, p))
+    X, _, kth, _, live, Xt, _ = args
     kern = lambda: interval_sweep(*args, k=k)  # noqa: E731
     plain = lambda: ref.reg_interval_endpoints(*args, k)  # noqa: E731
     got, want = kern(), plain()
-    torch.cuda.synchronize()
-    err = 0.0
-    for a, b, name in zip(got, want, ("lo", "hi")):
-        fin = torch.isfinite(b)
-        check(torch.equal(torch.isfinite(a), fin)
-              and torch.equal(a[~fin], b[~fin]),
-              f"interval_sweep {name} +-inf pattern exact")
-        check(torch.allclose(a[fin], b[fin], atol=1e-4, rtol=1e-4),
-              f"interval_sweep {name} within 1e-4")
-        err = max(err, float((a[fin] - b[fin]).abs().max()))
-    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"interval_sweep == plain, bitwise, S={S} m={m} n={n} p={p} "
+          f"k={k} with ties")
+    err = max(float((a[torch.isfinite(b)] - b[torch.isfinite(b)]).abs()
+                    .max()) for a, b in zip(got, want))
     d = torch.sqrt(torch.clamp(ref.sq_dists(Xt, X), min=0.0))
     enters = int((live[:, None, :] & (d < kth[:, None, :])).sum())
     check(0 < enters < int(live.sum()) * m,
           "both branches of the update ran")
-    # a query batch shared by every tenant (tenant stride 0)
-    shared = Xt[:1].expand(S, m, p)
-    ks = interval_sweep(*args[:5], shared, a_test, k=k)
-    kc = interval_sweep(*args[:5], shared.contiguous(), a_test, k=k)
-    check(all(torch.equal(a, b) for a, b in zip(ks, kc)),
-          "interval_sweep shared queries == their copies")
+    del d, got, want
+    for S_, m_, n_, p_, k_, shared in SWEEP_EDGES:
+        X, a_prime, kth, kth_label, live, Xt, a_test = sweep_inputs(
+            g, S_, m_, n_, p_)
+        X, Xt = unit_scale(X, Xt, p_)
+        if shared:  # a query batch shared by every tenant (stride 0)
+            Xt = Xt[:1].expand(S_, m_, p_)
+        e = sweep_ties((X, a_prime, kth, kth_label, live, Xt, a_test))
+        if shared:  # the ties keep the tenant stride 0
+            e = e[:5] + (Xt,) + e[6:]
+        kg, pg = interval_sweep(*e, k=k_), ref.reg_interval_endpoints(*e, k_)
+        check(torch.equal(kg[0], pg[0]) and torch.equal(kg[1], pg[1]),
+              f"interval_sweep == plain, bitwise, S={S_} m={m_} n={n_} "
+              f"p={p_} k={k_} shared={shared}")
+    n_sqrt = check_sqd_sqrt()
     ms, plain_ms = cuda_ms(kern, iters), cuda_ms(plain, max(iters // 10, 3))
     nbytes = S * (4 * n * p + 13 * n + 4 * m * p + 4 * m) + 8 * S * m * n
-    b_ms, b_by = bound(nbytes, S * m * n * (3 * p + 25))
-    print(f"[kernel] interval_sweep S={S} m={m} n={n} p={p} k={k}: "
-          f"max_abs_err {err:.3g} (bitwise {bitwise}), +-inf pattern exact, "
-          f"{enters} entering cells; {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
+    # each row's norm once (2p), then 2p + ~25 an output
+    b_ms, b_by = bound(nbytes, S * m * n * (2 * p + 25)
+                       + 2 * p * S * (m + n))
+    print(f"[kernel] interval_sweep S={S} m={m} n={n} p={p} k={k}: bitwise "
+          f"== plain with ties ({enters} entering cells) and at "
+          f"{len(SWEEP_EDGES)} edge shapes; sqd_sqrt == torch.sqrt over "
+          f"all {n_sqrt} float32 patterns; {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="interval_sweep", route="cuda",
                 source="src/repro_torch/kernels/csrc/interval_sweep.cu",
                 replaces="src/repro/kernels/interval_sweep.py:78",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+class recorded:
+    """Inside the block, ``ops.<name>`` (which the sessions look up at call
+    time) records a copy of the arguments of its last call and calls
+    through: the exact arguments a read passes its kernel."""
+
+    def __init__(self, name: str):
+        self.name, self.args = name, None
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._ops, self._kept = ops, getattr(ops, self.name)
+
+        def record(*args):
+            self.args = tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args)
+            return self._kept(*args)
+
+        setattr(ops, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._ops, self.name, self._kept)
+
+
+def check_read_kernel(name, read, iters):
+    """The read ``read()`` once more, recording the arguments it passes
+    ``ops.<name>``; the kernel == its plain version bitwise on them, and
+    the kernel's time there (a reading). Returns a note for the path's
+    line."""
+    from repro_torch.kernels import ops, ref
+
+    with recorded(name) as rec:
+        read()
+    a = rec.args
+    kern = getattr(ops, name)
+    if name == "cp_knn_counts":
+        got, want = kern(*a), ref.cp_knn_counts(*a[:6])
+        ok = torch.equal(got, want)
+        what = f"counts in [{int(want.min())}, {int(want.max())}]"
+    else:
+        got, want = kern(*a), ref.reg_interval_endpoints(*a)
+        ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        X, _, kth, _, live, Xt = a[:6]
+        d = torch.sqrt(torch.clamp(ref.sq_dists(Xt, X), min=0.0))
+        enters = (live[:, None, :] & (d < kth[:, None, :])).sum()
+        what = (f"{float(enters) / (float(live.sum()) * Xt.shape[1]):.4%} "
+                "of the live cells entering")
+        del d
+    check(ok, f"{name} == plain, bitwise, on the read's own arguments")
+    ms = cuda_ms(lambda: kern(*a), iters)
+    S, n, m = a[0].shape[0], a[0].shape[1], want[0].shape[-2]
+    del got, want
+    return (f"{name} == plain bitwise on the read's own arguments (S={S} "
+            f"m={m} n={n}; {what}), {ms:.4f} ms there")
 
 
 def check_kde_rowsums(g, X, y, iters):
@@ -864,6 +1018,8 @@ def classification_path(S, W, row, iters):
           and bool(((pred > 0) & (pred <= 1)).all()), "predict p-values")
     pvals = pv.cpu().numpy()  # (T_main, S)
     check(np.isfinite(pvals).all(), "finite tick p-values")
+    print("[main-read] " + check_read_kernel(
+        "cp_knn_counts", lambda: eng.predict(state, Xq), iters))
     check_fused_tick(row, state, "class", W, torch.from_numpy(xs[T_main])
                      .cuda(), torch.from_numpy(ys[T_main]).cuda(), K, iters)
     torch.cuda.empty_cache()
@@ -966,6 +1122,9 @@ def regression_path(S, W, row, iters):
     check(iv.shape == (S, M, 2), "intervals shape")
     pvals = pv.cpu().numpy()  # (T_main, S)
     check(np.isfinite(pvals).all(), "finite tick p-values")
+    print("[reg-read] " + check_read_kernel(
+        "interval_sweep", lambda: eng.intervals(state, Xq, epsilon=EPS),
+        iters))
     check_fused_tick(row, state, "reg", W, torch.from_numpy(xs[T_main])
                      .cuda(), torch.from_numpy(ys[T_main]).cuda(), k, iters)
     torch.cuda.empty_cache()
@@ -1263,7 +1422,8 @@ def tile_constants() -> str:
 
 SASS_OPS = ("FADD", "FMUL", "FFMA", "MUFU", "LDS", "LDG", "STG")
 SASS_KERNELS = ("kde_group_kernel", "kde_rowsums_wide_kernel",
-                "pairwise_sq_dists_kernel")  # the [sass] line
+                "pairwise_sq_dists_kernel", "interval_sweep_kernel",
+                "cp_knn_counts_kernel")  # the [sass] line
 
 
 def sass_functions() -> dict:
@@ -1607,7 +1767,7 @@ def main(argv=None) -> int:
           f"(nvcc {_build.build_seconds or 0.0:.1f} s); "
           + " | ".join(ptxas_summary(_build.build_log)) + "; tiles "
           + tile_constants())
-    print("[sass] static instruction mix of the batch kernels: "
+    print("[sass] static instruction mix of the batch and read kernels: "
           + sass_counts(sass_functions(), SASS_KERNELS))
 
     g = torch.Generator(device="cuda").manual_seed(SEED)

@@ -38,6 +38,7 @@ SIGNATURES = {
                              _P],
     "rt_interval_sweep": [_P, _I64, _P, _P, _P, _P, _P, _I64, _P, _P, _P,
                           _I, _I, _I, _I, _I, _F, _P],
+    "rt_sqd_sqrt": [_P, _P, _I64, _P],
     "rt_pairwise_sq_dists": [_P, _I64, _P, _I64, _P, _P, _I, _I, _I, _I,
                              _P],
     "rt_cp_knn_counts": [_P, _I64, _P, _P, _P, _P, _I64, _P, _P, _I, _I, _I,

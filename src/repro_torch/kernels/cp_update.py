@@ -1,10 +1,14 @@
 """Fused CP score update + p-value counts: wrapper of ``csrc/cp_update.cu``.
 
 Replaces ``repro/kernels/cp_update.py::cp_knn_counts``. One block per
-(tenant, tile of test rows) loops over every training column, so the
-counts need no atomics and no second pass; the kernel is bound by the
-``S*m*n*(2p + 4)`` flops of the fused distance and update. See the
-source for its design.
+(tenant, tile of 64 test rows) loops over every training column, 128 at
+a time, in register tiles of 8 rows x 4 columns a thread; norms are
+computed once, the counts stay in registers and the lanes that share a
+row add theirs by warp shuffles, so there are no atomics and no second
+pass. The kernel is bound by the ``S*m*n*(2p + 7 + 3L)`` flops of the
+fused distance and update, and gives ``ref.cp_knn_counts``' counts
+exactly.
+See the source for its design.
 
 On a CPU tensor the wrapper runs the plain version
 (``ref.cp_knn_counts``); on a CUDA tensor it launches the kernel or
@@ -49,6 +53,7 @@ def cp_knn_counts(X, y, sum_same, kth_same, X_test, alpha, *,
     _check(alpha.shape == (S, m, n_labels) and alpha.is_contiguous(),
            "alpha (S, m, n_labels) contiguous")
     _check(1 <= S <= 65535, "1 <= S <= 65535 tenants per launch")
+    _check(p >= 1, "at least one feature")
     lib = _build.load()
     out = torch.empty((S, m, n_labels), dtype=torch.int32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream

@@ -5,7 +5,12 @@ computes, for every tenant, test row and window column, the distance,
 the O(1) update of the affine score coefficients ``(a_i, b_i)`` and the
 endpoints of ``{t : |a_i + b_i t| >= |a_test + t|}``; the hull sweep
 stays with the caller. The kernel is bound by its ``8*S*m*n`` output
-bytes; see the source for its design.
+bytes. It works in 64 x 128 output tiles, 8 rows x 4 columns a thread,
+with every row's and column's norm computed once a block, the columns'
+update statistics once a thread, negations where ``b_i = 0`` would
+divide by -1, and 16-byte stores; it gives ``ref.reg_interval_endpoints``'
+bits.
+See the source for its design.
 
 On a CPU tensor the wrapper runs the plain version
 (``ref.reg_interval_endpoints``); on a CUDA tensor it launches the kernel
@@ -49,7 +54,7 @@ def interval_sweep(X, a_prime, kth_dist, kth_label, live, X_test, a_test,
     _check(a_test.shape == (S, m) and a_test.is_contiguous(),
            "a_test (S, m) contiguous")
     _check(k >= 1, "k >= 1")
-    _check(1 <= S <= 65535 and m <= 65535 * 32, "launch grid limits")
+    _check(1 <= S <= 65535 and m <= 65535 * 64, "launch grid limits")
     lib = _build.load()
     lo = torch.empty((S, m, n), dtype=torch.float32, device=X.device)
     hi = torch.empty((S, m, n), dtype=torch.float32, device=X.device)
@@ -65,3 +70,17 @@ def interval_sweep(X, a_prime, kth_dist, kth_label, live, X_test, a_test,
 
 
 interval_sweep.launches = 0
+
+
+def sqd_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The read kernels' own square root (``sqd_sqrt`` of
+    ``csrc/sqdist.cuh``) applied to a CUDA f32 tensor, to hold it against
+    ``torch.sqrt`` on the card (not counted as a launch)."""
+    _check(x.device.type == "cuda" and x.dtype == torch.float32
+           and x.is_contiguous(), "contiguous CUDA float32")
+    out = torch.empty_like(x)
+    rc = _build.load().rt_sqd_sqrt(
+        x.data_ptr(), out.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "sqd_sqrt")
+    return out

@@ -31,9 +31,12 @@ events) at the batch and serving paths' shapes: the fit's form at m = n =
 form at m = 100 and 2,000 against the same points, and
 ``pairwise_sq_dists`` beside ``torch.cdist`` at the serving read's shape
 (1024 tenants, 100 queries, window 1024) and at a k-NN fit's row block
-(``knn.BLOCK_ELEMS // 100,000`` rows against 100,000). It calls only the
-wrappers' public signatures, so that run as a file with another tree's
-``src`` first on ``PYTHONPATH`` it times that tree's kernels.
+(``knn.BLOCK_ELEMS // 100,000`` rows against 100,000), and the serving
+reads' kernels at that shape: ``interval_sweep`` (k 7) and
+``cp_knn_counts`` (2 labels), on the inputs ``chip_smoke.py`` phase 3
+draws for them. It calls only the wrappers' public signatures, so that
+run as a file with another tree's ``src`` first on ``PYTHONPATH`` it
+times that tree's kernels.
 ``--arch NAME`` traces the LM conformal-OOD serving path at full width
 (bf16, random weights from the seed): one calibration embedding pass over
 256 sequences of 512 tokens (one untraced pass first) and one decode step
@@ -183,11 +186,52 @@ def kde_layouts() -> int:
     return 0
 
 
+def sweep_inputs(g, S: int = S, m: int = QUERIES, n: int = W, p: int = P):
+    """``interval_sweep``'s seven operands at ``(S, m, n, p)`` from ``g``,
+    as ``chip_smoke.py`` phase 3 draws them (k-th distances of 6.5 to 8.5
+    at dim 30, so many live cells enter their column's list)."""
+    dev = "cuda"
+    X = torch.randn((S, n, p), generator=g, device=dev)
+    a_prime = torch.randn((S, n), generator=g, device=dev)
+    kth = 6.5 + 2.0 * torch.rand((S, n), generator=g, device=dev)
+    kth_label = torch.randn((S, n), generator=g, device=dev)
+    n_live = torch.randint(n // 2, n + 1, (S, 1), generator=g, device=dev)
+    live = torch.arange(n, device=dev) < n_live
+    Xt = torch.randn((S, m, p), generator=g, device=dev)
+    a_test = torch.randn((S, m), generator=g, device=dev)
+    return X, a_prime, kth, kth_label, live, Xt, a_test
+
+
+def counts_inputs(g, S: int = S, m: int = QUERIES, n: int = W, p: int = P,
+                  k: int = K_CLASS, L: int = 2):
+    """``cp_knn_counts``' six operands at ``(S, m, n, p)``, ``L`` labels,
+    from ``g``, as ``chip_smoke.py`` phase 3 draws them (10 % of the
+    columns dead: label -1, sum and k-th distance -1e30)."""
+    dev = "cuda"
+    X = torch.randn((S, n, p), generator=g, device=dev)
+    y = torch.randint(0, L, (S, n), generator=g, device=dev,
+                      dtype=torch.int32)
+    kth = 6.0 + 3.0 * torch.rand((S, n), generator=g, device=dev)
+    sums = kth * k * (0.7 + 0.3 * torch.rand((S, n), generator=g,
+                                             device=dev))
+    dead = torch.rand((S, n), generator=g, device=dev) < 0.1
+    y = torch.where(dead, -1, y)
+    sums = torch.where(dead, -1e30, sums)
+    kth = torch.where(dead, -1e30, kth)
+    Xt = torch.randn((S, m, p), generator=g, device=dev)
+    alpha = 7.5 * k * (0.7 + 0.3 * torch.rand((S, m, L), generator=g,
+                                               device=dev))
+    return X, y, sums, kth, Xt, alpha
+
+
 def kernel_times() -> int:
-    """``kde_rowsums`` and ``pairwise_sq_dists`` at the paths' shapes; every
-    output checked finite."""
+    """``kde_rowsums``, ``pairwise_sq_dists``, ``interval_sweep`` and
+    ``cp_knn_counts`` at the paths' shapes; every output checked finite
+    (``interval_sweep``'s, whose empty sets are infinite: free of NaN)."""
     import repro_torch
     from repro_torch.core.measures.knn import BLOCK_ELEMS
+    from repro_torch.kernels.cp_update import cp_knn_counts
+    from repro_torch.kernels.interval_sweep import interval_sweep
     from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
 
     X, y = make_classification(N_BATCH + 2000, P, seed=SEED)
@@ -197,9 +241,9 @@ def kernel_times() -> int:
     print(f"[kernel-times] {torch.cuda.get_device_name(0)}: "
           f"{repro_torch.__file__}; ms per launch (CUDA events)")
 
-    def line(what, fn, iters):
-        if not bool(torch.isfinite(fn()).all()):
-            raise RuntimeError(f"{what}: non-finite output")
+    def line(what, fn, iters, ok=lambda out: bool(torch.isfinite(out).all())):
+        if not ok(fn()):
+            raise RuntimeError(f"{what}: output fails its check")
         print(f"  {what}: {_events_ms(fn, iters):.4f} ms")
 
     line(f"kde_rowsums fit form m=n={N_BATCH} p={P} L={L} diag excluded",
@@ -219,6 +263,16 @@ def kernel_times() -> int:
         line(f"pairwise_sq_dists {shape}", lambda: pairwise_sq_dists(A, B),
              20)
         line(f"torch.cdist {shape}", lambda: torch.cdist(A, B), 20)
+    del A, B
+    shape = f"S={S} m={QUERIES} n={W} p={P}"
+    sweep = sweep_inputs(g)
+    line(f"interval_sweep {shape} k={K_REG}",
+         lambda: interval_sweep(*sweep, k=K_REG), 20,
+         ok=lambda out: not any(bool(o.isnan().any()) for o in out))
+    del sweep
+    counts = counts_inputs(g)
+    line(f"cp_knn_counts {shape} L=2",
+         lambda: cp_knn_counts(*counts, n_labels=2), 20)
     return 0
 
 
@@ -250,8 +304,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kde-layouts", action="store_true",
                     help="time kde_rowsums' two layouts by row count")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="time kde_rowsums and pairwise_sq_dists at the "
-                    "paths' shapes")
+                    help="time kde_rowsums, pairwise_sq_dists, "
+                    "interval_sweep and cp_knn_counts at the paths' shapes")
     ap.add_argument("--arch", default=None,
                     help="trace the LM serving path of this architecture "
                     "(e.g. qwen2-1.5b)")

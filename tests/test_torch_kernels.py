@@ -238,3 +238,97 @@ def test_pairwise_kernel_matches_plain_on_the_card(S, m, n, p):
     shared = A[:1].expand(S, m, p)
     assert torch.equal(pairwise_sq_dists(shared, B),
                        ref.sq_dists(shared, B))
+
+
+def _cp_counts_blocked(X, y, sum_same, kth_same, X_test, alpha, BN=128,
+                       LG=4):
+    """``cp_knn_counts`` in the CUDA kernel's schedule, plain torch: the
+    columns in chunks of 128, the last padded with label -1 and NaN sum
+    and k-th distance (a NaN score never reaches ``>=``); the labels in
+    groups of 4, each group's alphas NaN past L; every chunk's counts
+    added (integers: any order is exact)."""
+    S, n, p = X.shape
+    L = alpha.shape[-1]
+    pad = -n % BN
+    nan = float("nan")
+    Xp = torch.cat([X, X.new_zeros((S, pad, p))], 1)
+    yp = torch.cat([y, y.new_full((S, pad), -1)], 1)
+    sp = torch.cat([sum_same, sum_same.new_full((S, pad), nan)], 1)
+    kp = torch.cat([kth_same, kth_same.new_full((S, pad), nan)], 1)
+    counts = torch.zeros(alpha.shape, dtype=torch.int32)
+    for l0 in range(0, L, LG):
+        al = torch.full(alpha.shape[:-1] + (LG,), nan)
+        al[..., :min(LG, L - l0)] = alpha[..., l0:l0 + LG]
+        for c0 in range(0, n + pad, BN):
+            sl = slice(c0, c0 + BN)
+            d = torch.sqrt(torch.clamp(ref.sq_dists(X_test, Xp[:, sl]),
+                                       min=0.0))  # (S, m, BN)
+            v = torch.where(d < kp[:, None, sl], (sp - kp)[:, None, sl] + d,
+                            sp[:, None, sl])
+            for lg in range(min(LG, L - l0)):
+                a = torch.where((yp[:, None, sl] - l0) == lg, v,
+                                sp[:, None, sl])
+                counts[..., l0 + lg] += (a >= al[..., lg:lg + 1]).sum(
+                    -1, dtype=torch.int32)
+    return counts
+
+
+@pytest.mark.parametrize("n,m,L,dead", [(130, 7, 1, 9), (256, 65, 2, 0),
+                                        (300, 5, 5, 30), (129, 3, 16, 4)])
+def test_cp_counts_padded_grouped_schedule_exact(n, m, L, dead):
+    """The kernel's schedule (128-column chunks padded with NaN scores,
+    labels in groups of 4 with NaN alphas past L) counts exactly what
+    ``ref.cp_knn_counts`` counts, with ties at the strict ``d < kth`` gate
+    and at the ``>=`` of the counts, dead columns and a shared query
+    batch."""
+    rng = np.random.default_rng(n + m + L)
+    S, p = 2, 6
+    X = torch.from_numpy(rng.standard_normal((S, n, p)).astype(np.float32))
+    Xt = torch.from_numpy(rng.standard_normal((S, m, p)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, L, (S, n)).astype(np.int32))
+    kth = torch.from_numpy(rng.uniform(2.0, 4.0, (S, n)).astype(np.float32))
+    sums = kth * 5 * torch.from_numpy(
+        rng.uniform(0.7, 1.0, (S, n)).astype(np.float32))
+    d = torch.sqrt(torch.clamp(ref.sq_dists(Xt, X), min=0.0))
+    kth[:, ::7] = d[:, 0, ::7]  # the strict gate: d == kth never updates
+    y[:, n - dead:], sums[:, n - dead:], kth[:, n - dead:] = -1, -1e30, -1e30
+    alpha = torch.from_numpy(
+        rng.uniform(14.0, 20.0, (S, m, L)).astype(np.float32))
+    alpha[:, 0] = sums[:, 3:4]  # a realised score: the >= of the counts
+    for Xq in (Xt, Xt[:1].expand(S, m, p)):
+        want = ref.cp_knn_counts(X, y, sums, kth, Xq, alpha)
+        assert 0 < int(want.max()) and int(want.min()) < n
+        assert torch.equal(_cp_counts_blocked(X, y, sums, kth, Xq, alpha),
+                           want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,m,n,p,L", [(64, 100, 1024, 30, 2),
+                                       (3, 1, 130, 5, 1),
+                                       (3, 65, 1023, 37, 16),
+                                       (2, 129, 130, 30, 5)])
+def test_cp_counts_kernel_matches_plain_on_the_card(S, m, n, p, L):
+    """The CUDA kernel == ``ref.cp_knn_counts`` exactly: rows and columns
+    around the 64 x 128 tiles, p around the 32-feature chunks, L around
+    the 4-label groups, dead columns, a tenant stride of 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.cp_update import cp_knn_counts
+
+    g = torch.Generator(device="cuda").manual_seed(S + m + n + p + L)
+    X = torch.randn((S, n, p), generator=g, device="cuda") * (30 / p) ** 0.5
+    Xt = torch.randn((S, m, p), generator=g, device="cuda") * (30 / p) ** 0.5
+    y = torch.randint(0, L, (S, n), generator=g, device="cuda",
+                      dtype=torch.int32)
+    kth = 6.0 + 3.0 * torch.rand((S, n), generator=g, device="cuda")
+    sums = kth * 15 * (0.7 + 0.3 * torch.rand((S, n), generator=g,
+                                              device="cuda"))
+    dead = torch.rand((S, n), generator=g, device="cuda") < 0.1
+    y, sums = torch.where(dead, -1, y), torch.where(dead, -1e30, sums)
+    kth = torch.where(dead, -1e30, kth)
+    alpha = 112.5 * (0.7 + 0.3 * torch.rand((S, m, L), generator=g,
+                                             device="cuda"))
+    for Xq in (Xt, Xt[:1].expand(S, m, p)):
+        assert torch.equal(cp_knn_counts(X, y, sums, kth, Xq, alpha,
+                                         n_labels=L),
+                           ref.cp_knn_counts(X, y, sums, kth, Xq, alpha))

@@ -238,3 +238,154 @@ def test_cuda_only_entry_points_are_routed_by_device():
                           mode="rank")
     counts = ops.launch_counts()
     assert counts["stream_update_reg"] == counts["interval_sweep"] == 0
+
+
+def _every_exponent(sign: float) -> torch.Tensor:
+    """float32 values of one sign over every exponent (subnormals and 0
+    at the bottom, infinity at the top, no NaN), each with several
+    mantissas."""
+    mant = np.array([0, 1, 2, 0x155555, 0x400000, 0x7ffffe, 0x7fffff],
+                    np.int64)
+    bits = (np.arange(255, dtype=np.int64)[:, None] << 23 | mant).ravel()
+    bits = np.append(bits, 255 << 23)  # +inf
+    x = torch.from_numpy(bits.astype(np.int32)).view(torch.float32)
+    return x if sign > 0 else -x
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_division_by_minus_one_is_negation_bitwise(sign):
+    """The kernel's rewrite where ``b_i = 0``: ``x / f32(-1) == -x`` bit for
+    bit for every non-NaN float32 (every exponent, both signs, +-0, +-inf
+    and subnormals), so the roots there are negations."""
+    x = _every_exponent(sign)
+    assert bool(torch.isfinite(x[:-1]).all()) and bool(torch.isinf(x[-1]))
+    assert bool((x[:7] == 0).any()) and bool(((x != 0) & (x.abs() < 1.2e-38))
+                                             .any())
+    q = x / torch.tensor(-1.0, dtype=torch.float32)
+    assert torch.equal(q.view(torch.int32), (-x).view(torch.int32))
+
+
+def _interval_ge_negating(a_i, b_i, a, negate, eps=1e-12):
+    """``ref.interval_ge`` as the CUDA kernel computes it: where ``negate``
+    (the kernel: ``b_i == 0``, so ``A2 = -1``) ``A2 * C0`` is ``-C0`` and
+    the roots are negations; elsewhere the divisions by ``A2``. Every
+    other operation as the plain version, one rounding each."""
+    inf = float("inf")
+    A2 = b_i * b_i - 1.0
+    B1 = a_i * b_i - a
+    C0 = a_i * a_i - a * a
+    disc = B1 * B1 - torch.where(negate, -C0, A2 * C0)
+    sq = torch.sqrt(disc)  # NaN where not real, then unused
+    n1, n2 = -B1 + sq, -B1 - sq
+    r1 = torch.where(negate, -n1, n1 / A2)
+    r2 = torch.where(negate, -n2, n2 / A2)
+    real = disc >= 0.0
+    lo = torch.where(real, torch.minimum(r1, r2), inf)
+    hi = torch.where(real, torch.maximum(r1, r2), -inf)
+    t0 = -C0 / (2.0 * B1)
+    flat_lo = torch.where(C0 >= 0.0, -inf, inf)
+    lin_lo = torch.where(B1 > eps, t0, torch.where(B1 < -eps, -inf, flat_lo))
+    lin_hi = torch.where(B1 > eps, inf, torch.where(B1 < -eps, t0, -flat_lo))
+    quad = A2.abs() >= eps
+    return torch.where(quad, lo, lin_lo), torch.where(quad, hi, lin_hi)
+
+
+def _sweep_kernel_schedule(X, a_prime, kth, kth_label, live, Xt, a_test, k):
+    """``interval_sweep`` in the CUDA kernel's order, plain torch: every
+    row's and column's norm once, the dot products over the features in
+    order, ``d`` from the clamped ``(|x|^2 + |X|^2) - 2 x.X``, the column's
+    update ``a' + kth_label / k`` and its products hoisted, then
+    ``_interval_ge_negating`` where ``b_i = 0``."""
+    a2, b2 = ref._sumsq(Xt), ref._sumsq(X)
+    ab = torch.zeros(Xt.shape[:-1] + (X.shape[-2],))
+    for f in range(X.shape[-1]):
+        ab = ab + Xt[..., :, None, f] * X[..., None, :, f]
+    d2 = (a2[..., :, None] + b2[..., None, :]) - 2.0 * ab
+    d = torch.sqrt(torch.clamp(d2, min=0.0))
+    lv = live[..., None, :]
+    e = lv & (d < kth[..., None, :])
+    upd = a_prime + ref.div_k(kth_label, k)
+    a_i = torch.where(e, upd[..., None, :], a_prime[..., None, :])
+    b_i = torch.where(e, torch.tensor(-1.0 / k), torch.tensor(0.0))
+    lo, hi = _interval_ge_negating(a_i, b_i, a_test[..., :, None], b_i == 0)
+    inf = float("inf")
+    return torch.where(lv, lo, inf), torch.where(lv, hi, -inf)
+
+
+def _sweep_ties(seed, S, n, m, p, dead_tail):
+    """``_iv_inputs`` with ties: k-th distances set to a realised distance
+    (the strict ``d < kth`` gate), ``a_test`` +0 and -0, one ``a'`` 0."""
+    args = [torch.from_numpy(a) for a in _iv_inputs(seed, S, n, m, p,
+                                                    dead_tail)]
+    X, a_prime, kth, _, _, Xt, a_test = args
+    d = torch.sqrt(torch.clamp(ref.sq_dists(Xt, X), min=0.0))
+    kth[:, ::5] = d[:, 0, ::5]
+    a_test[:, 1], a_test[:, 2] = 0.0, -0.0
+    a_prime[:, 3] = 0.0
+    return args
+
+
+@pytest.mark.parametrize("n,m,k,dead_tail", [
+    (64, 4, 7, 0), (130, 7, 1, 17), (100, 33, 3, 5), (129, 65, 2, 0)])
+def test_interval_sweep_kernel_schedule_bitwise(n, m, k, dead_tail):
+    """The kernel's order (norms once, hoisted column products, negations
+    where ``b_i = 0``) gives ``ref.reg_interval_endpoints``' bits, signed
+    zeros included, with ties, dead columns, k = 1's linear branch and a
+    shared query batch."""
+    S, p = 2, 6
+    args = _sweep_ties(n + m + k, S, n, m, p, dead_tail)
+    for Xt in (args[5], args[5][:1].expand(S, m, p)):
+        a = args[:5] + [Xt, args[6]]
+        want = ref.reg_interval_endpoints(*a, k)
+        got = _sweep_kernel_schedule(*a, k)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert bool(torch.isfinite(want[0]).any())
+
+
+def test_negation_rewrite_needs_b_zero_mutation():
+    """The rewrite is exact only where ``b_i`` is 0: applied where ``b_i``
+    is a small nonzero (``A2`` is then not -1), the emulation no longer
+    gives ``ref.interval_ge``'s bits, while the kernel's condition does."""
+    rng = np.random.default_rng(5)
+    a_i = torch.from_numpy(rng.standard_normal(600).astype(np.float32))
+    a = torch.from_numpy(rng.standard_normal(600).astype(np.float32))
+    b_i = torch.from_numpy(rng.choice(
+        np.float32([0.0, -1.0 / 7, 0.01, -0.01]), 600))
+    want = ref.interval_ge(a_i, b_i, a)
+
+    def same(negate):
+        got = _interval_ge_negating(a_i, b_i, a, negate)
+        return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want))
+
+    assert same(b_i == 0)
+    assert not same(b_i.abs() < 0.05)  # the mutation: b_i tiny, not 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,m,n,p,k", [(64, 100, 1024, 30, 7),
+                                       (3, 1, 130, 5, 1),
+                                       (3, 65, 1023, 37, 7),
+                                       (2, 129, 130, 30, 1)])
+def test_interval_sweep_kernel_matches_plain_on_the_card(S, m, n, p, k):
+    """The CUDA kernel == ``ref.reg_interval_endpoints`` bitwise: rows and
+    columns around the 64 x 128 tiles, n a multiple of 4 (16-byte stores)
+    or not, p around the 32-feature chunks, k = 1's linear branch, dead
+    columns, a tenant stride of 0; and its square root == ``torch.sqrt``
+    on every float32 exponent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.interval_sweep import interval_sweep, sqd_sqrt
+
+    args = [a.cuda() for a in _sweep_ties(S + m + n, S, n, m, p, n // 9)]
+    for Xt in (args[5], args[5][:1].expand(S, m, p)):
+        a = args[:5] + [Xt, args[6]]
+        got = interval_sweep(*a, k=k)
+        want = ref.reg_interval_endpoints(*a, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    x = torch.cat([_every_exponent(1.0), _every_exponent(-1.0)]).cuda()
+    r, w = sqd_sqrt(x), torch.sqrt(x)
+    assert torch.equal(r.isnan(), w.isnan())
+    assert torch.equal(r[~w.isnan()].view(torch.int32),
+                       w[~w.isnan()].view(torch.int32))
