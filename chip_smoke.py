@@ -74,7 +74,34 @@ exits non-zero without a result line:
    Then, in f32 at full width and 2 layers, the kernel route's embeddings
    == the plain route's (1e-5 of their RMS) and their OOD p-values equal
    outside flagged near-ties; decode == forward (1e-3); the bf16
-   full-depth gap between the routes is printed.
+   full-depth gap between the routes is printed;
+8. the compact layout, the ring's bit-oracle: both engines with
+   ``layout="ring"`` and ``layout="compact"`` at S tenants, window =
+   capacity = 128 (k 15 / 7, 2 labels), 3 x 128 + 17 ticks past the
+   seam, about 25 % of lanes gated off a tick, a fifth of the points
+   duplicates of earlier ones (distance ties): p-values (NaN on the same
+   lanes), every leaf after ``to_linear`` and ``predict`` / ``intervals``
+   bitwise; the compact runs' ``stream_update`` launches (the kernel
+   without eviction, one a tick) join the launch counts; then, on the
+   compact path's own arguments at cap = n = 128, its kernels against
+   their plain versions, bitwise: one more compact tick's
+   ``stream_update`` launch (non-evicting, linear layout) ==
+   ``ref.stream_tick``, and the reads' ``pairwise_sq_dists``,
+   ``cp_knn_counts`` and ``interval_sweep`` == plain. Then 32 compact
+   ticks at full width on a state filled by ring ticks and made linear,
+   against 32 ring ticks on the same state: ms a tick and peak-memory
+   rise of each, the two results bitwise;
+9. the bootstrap measure (paper Section 6, Algorithm 3) at the paper's
+   App. E settings (B 10, dim 30, 2 labels; depth 5, the package
+   default): ``fit`` at n = 2,154 (a point of the paper's n-grid) and
+   ``pvalues_optimized`` over 100 points, the state and p-values on the
+   card == on the CPU bitwise, at least 64 trees fitted on the card ==
+   the per-tree plain version on the CPU bitwise; coverage on 500 fresh
+   points at eps 0.05 and 0.2 (>= 1 - eps - 0.07); 16 ticks of the
+   registry predictor's ``observe`` + ``evict(0)``, each == ``rebuild``
+   bitwise (state and 10 points' p-values); standard against optimized at
+   n = 464 over 10 points (>= 5x); then ``launch.profile --measure
+   bootstrap`` (forest calls and bytes to the card a point, busy share).
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -114,6 +141,13 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 LM_ARCH, LM_REDUCED = "qwen2-1.5b", False
 LM_CALIB, LM_SEQ, LM_REQUESTS, LM_GEN, LM_K = 256, 512, 16, 32, 7
 LM_CHECK_LAYERS, LM_DECODE_CHECK = 2, (2, 64)  # f32 checks: depth, (B, S)
+# phase 8: ring == compact at window = capacity = COMPACT_W, past the seam
+COMPACT_W = 128
+COMPACT_T = 3 * COMPACT_W + 17
+# phase 9: the paper's App. E bootstrap settings; n on its grid
+# numpy.logspace(1, 5, 13) (2,154 and 464); depth the package default
+BOOT_N, BOOT_B, BOOT_DEPTH, BOOT_M, BOOT_COVER = 2154, 10, 5, 100, 500
+BOOT_TICKS, BOOT_N_STD, BOOT_M_STD = 16, 464, 10
 FLASH_CASES = [  # name, dtype, B, Sq, Skv, H, Hkv, D, causal, window, softcap
     ("a", torch.bfloat16, 256, 512, 512, 12, 2, 128, True, None, None),
     ("b", torch.bfloat16, 4, 2048, 2048, 4, 1, 256, True, 512, None),
@@ -594,23 +628,31 @@ def check_interval_sweep(g, S, m, n, p, k, iters):
                 bound_by=b_by, library_ms=None)
 
 
+def cloned(args):
+    """``args`` (a tuple or a dict) with every tensor copied."""
+    copy = lambda a: a.clone() if torch.is_tensor(a) else a  # noqa: E731
+    if isinstance(args, dict):
+        return {n: copy(a) for n, a in args.items()}
+    return tuple(copy(a) for a in args)
+
+
 class recorded:
     """Inside the block, ``ops.<name>`` (which the sessions look up at call
-    time) records a copy of the arguments of its last call and calls
-    through: the exact arguments a read passes its kernel."""
+    time) records a copy of the arguments of its last call (``args``,
+    ``kw``) and calls through: the exact arguments a read or a tick passes
+    its kernel."""
 
     def __init__(self, name: str):
-        self.name, self.args = name, None
+        self.name, self.args, self.kw = name, None, None
 
     def __enter__(self):
         from repro_torch.kernels import ops
 
         self._ops, self._kept = ops, getattr(ops, self.name)
 
-        def record(*args):
-            self.args = tuple(a.clone() if torch.is_tensor(a) else a
-                              for a in args)
-            return self._kept(*args)
+        def record(*args, **kw):
+            self.args, self.kw = cloned(args), cloned(kw)
+            return self._kept(*args, **kw)
 
         setattr(ops, self.name, record)
         return self
@@ -630,7 +672,11 @@ def check_read_kernel(name, read, iters):
         read()
     a = rec.args
     kern = getattr(ops, name)
-    if name == "cp_knn_counts":
+    if name == "sq_dists":  # the pairwise_sq_dists kernel
+        got, want = kern(*a), ref.sq_dists(*a)
+        ok = torch.equal(got, want)
+        what = "the queries' squared distances to the window"
+    elif name == "cp_knn_counts":
         got, want = kern(*a), ref.cp_knn_counts(*a[:6])
         ok = torch.equal(got, want)
         what = f"counts in [{int(want.min())}, {int(want.max())}]"
@@ -643,11 +689,15 @@ def check_read_kernel(name, read, iters):
         what = (f"{float(enters) / (float(live.sum()) * Xt.shape[1]):.4%} "
                 "of the live cells entering")
         del d
-    check(ok, f"{name} == plain, bitwise, on the read's own arguments")
+    label = "pairwise_sq_dists" if name == "sq_dists" else name
+    check(ok, f"{label} == plain, bitwise, on the read's own arguments")
     ms = cuda_ms(lambda: kern(*a), iters)
-    S, n, m = a[0].shape[0], a[0].shape[1], want[0].shape[-2]
+    if name == "sq_dists":
+        S, m, n = want.shape
+    else:
+        S, n, m = a[0].shape[0], a[0].shape[1], want[0].shape[-2]
     del got, want
-    return (f"{name} == plain bitwise on the read's own arguments (S={S} "
+    return (f"{label} == plain bitwise on the read's own arguments (S={S} "
             f"m={m} n={n}; {what}), {ms:.4f} ms there")
 
 
@@ -1737,6 +1787,404 @@ def lm_path(dev="cuda"):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the compact layout, the ring's bit-oracle
+# ---------------------------------------------------------------------------
+
+
+def tie_traffic(rng, xs, ys, share=0.2, max_lag=64):
+    """``xs, ys`` with ``share`` of each tenant's points replaced by one of
+    its own earlier points (``1 .. max_lag`` ticks back): exact duplicates,
+    so distances tie."""
+    xs, ys = xs.copy(), ys.copy()
+    T, S = ys.shape
+    dup = rng.random((T, S)) < share
+    lag = rng.integers(1, max_lag + 1, (T, S))
+    for t in range(1, T):
+        s = np.flatnonzero(dup[t])
+        src = np.maximum(t - lag[t, s], 0)
+        xs[t, s], ys[t, s] = xs[src, s], ys[src, s]
+    return xs, ys, int(dup[1:].sum())
+
+
+def gated_run(eng, xs, ys, taus, active):
+    """``observe_many`` over ``CHUNK``-tick chunks with the gate ``active``:
+    ``(state, p (T, S))``."""
+    state, ps = eng.init_state(), []
+    for c0 in range(0, xs.shape[0], CHUNK):
+        sl = slice(c0, c0 + CHUNK)
+        state, p = eng.observe_many(state, xs[sl], ys[sl], taus[sl],
+                                    active[sl])
+        ps.append(p)
+    return state, torch.cat(ps)
+
+
+def same_p(a, b) -> bool:
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        a.nan_to_num(), b.nan_to_num())
+
+
+def check_compact_kernels(eng, state, kind, Xq, x, y, tau, iters):
+    """The compact path's kernels against their plain versions on the
+    path's own arguments (its launch counts already read): one more
+    compact tick on a copy of ``state``, whose ``stream_update`` launch
+    (the non-evicting form, in the linear layout) == ``ref.stream_tick``
+    with every output bitwise; then the read's ``pairwise_sq_dists`` and
+    its ``cp_knn_counts`` (class) or ``interval_sweep`` (reg) == plain,
+    bitwise. Returns a note for the path's line."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stream_update import stream_update
+
+    act = torch.ones(x.shape[0], dtype=torch.bool)
+    act[0] = False
+    with recorded("_stream_update") as rec:
+        eng.observe(state.clone(), x, y, tau, act)
+    a, kw = rec.args, rec.kw
+    check(kw["ev"] is None and kw["D"] is None
+          and int(kw["head"].abs().max()) == 0
+          and int(kw["wrap"].min()) == a[0].shape[1],
+          f"compact {kind}: the tick launches the non-evicting form in the "
+          "linear layout")
+    runs = []
+    for fn in (stream_update, ref.stream_tick):
+        args, kws = cloned(a), cloned(kw)
+        runs.append([t for t in (*fn(*args, **kws), *args, *kws.values())
+                     if torch.is_tensor(t)])
+    torch.cuda.synchronize()
+    check(len(runs[0]) == len(runs[1]) and all(
+        torch.equal(u, v) for u, v in zip(*runs)),
+        f"compact {kind}: stream_update == ref.stream_tick bitwise on the "
+        "compact tick's own arguments")
+    ms = cuda_ms(lambda: stream_update(*a, **kw), iters)
+    notes = [f"stream_update_{kind} (non-evicting, linear) == "
+             f"ref.stream_tick bitwise on a compact tick's own arguments "
+             f"(S={a[0].shape[0]} cap={a[0].shape[1]}), {ms:.4f} ms there"]
+    read = ((lambda: eng.predict(state, Xq)) if kind == "class" else
+            (lambda: eng.intervals(state, Xq, epsilon=EPS)))
+    for name in ("sq_dists",
+                 "cp_knn_counts" if kind == "class" else "interval_sweep"):
+        notes.append(check_read_kernel(name, read, iters))
+    return "; ".join(notes)
+
+
+def compact_exactness(S, iters):
+    """Ring == compact in both engines at window = capacity =
+    ``COMPACT_W``, across the wrap seam, gated, with duplicate points:
+    p-values, every leaf after ``to_linear`` and the reads, bitwise; then
+    the compact path's kernels against their plain versions on its own
+    arguments. Returns the compact runs' launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (class_drift_traffic,
+                                          reg_drift_traffic)
+    from repro_torch.regression import RegressionServingEngine
+    from repro_torch.regression import stream as rs
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import session as sm
+
+    W, T, P, M = COMPACT_W, COMPACT_T, DIM, QUERIES
+    rng = np.random.default_rng(SEED + 8)
+    counts = {}
+    for kind in ("class", "reg"):
+        if kind == "class":
+            xs, ys, taus, _ = class_drift_traffic(SEED + 8, S, T, P, 0.0)
+            make = lambda lay: ServingEngine(  # noqa: E731
+                n_sessions=S, capacity=W, dim=P, k=K, n_labels=N_LABELS,
+                window=W, layout=lay, device="cuda")
+            linear, k = sm.to_linear, K
+        else:
+            xs, ys, taus, _, _ = reg_drift_traffic(SEED + 8, S, T, P, 0.0)
+            make = lambda lay: RegressionServingEngine(  # noqa: E731
+                n_sessions=S, capacity=W, dim=P, k=K_REG, window=W,
+                layout=lay, device="cuda")
+            linear, k = rs.to_linear, K_REG
+        xs, ys, n_dup = tie_traffic(rng, xs, ys)
+        active = rng.random((T, S)) >= 0.25
+        # reads: half the queries repeat points of the last window
+        Xq = rng.standard_normal((S, M, P), dtype=np.float32)
+        Xq[:, :M // 2] = xs[T - M // 2:].swapaxes(0, 1)
+        ring, comp = make("ring"), make("compact")
+        a, pa = gated_run(ring, xs, ys, taus, active)
+        ra = (ring.predict(a, Xq) if kind == "class"
+              else ring.intervals(a, Xq, epsilon=EPS))
+        ops.reset_launch_counts()
+        b, pb = gated_run(comp, xs, ys, taus, active)
+        rb = (comp.predict(b, Xq) if kind == "class"
+              else comp.intervals(b, Xq, epsilon=EPS))
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        counts = {n: counts.get(n, 0) + v for n, v in c.items()}
+        name = "stream_update_" + kind
+        check(c[name] == T, f"compact {kind}: one {name} launch a tick "
+              f"({c[name]} in {T} ticks)")
+        check(int(a.head.max()) > 0 and int(b.head.max()) == 0
+              and int(b.n.min()) == W, f"compact {kind}: rings wrapped, "
+              "compact heads at 0, windows full")
+        check(bool(pa.isnan().cpu().equal(torch.from_numpy(~active))),
+              f"compact {kind}: NaN p-values exactly on the gated lanes")
+        check(same_p(pa, pb), f"compact {kind}: ring == compact p-values, "
+              "bitwise")
+        check(equal_states(linear(a), linear(b)), f"compact {kind}: ring "
+              "== compact, every leaf after to_linear, bitwise")
+        check(same_p(ra, rb), f"compact {kind}: the reads on both states, "
+              "bitwise")
+        print(f"[compact] {kind} S={S} window=capacity={W} k={k}: {T} "
+              f"ticks ({T // W} laps + {T % W}), {int((~active).sum())} of "
+              f"{T * S} lanes gated off, {n_dup} duplicate points: ring == "
+              f"compact bitwise (p-values with NaN on the gated lanes, "
+              f"every leaf after to_linear, "
+              f"{'predict' if kind == 'class' else 'intervals'} m={M}); "
+              f"compact launches {c}")
+        # one more tick repeats the last point: a zero distance, ties
+        print(f"[compact-kernels] {kind}: " + check_compact_kernels(
+            comp, b, kind, Xq, xs[T - 1], ys[T - 1], taus[T - 1], iters))
+        del a, b, ring, comp
+        torch.cuda.empty_cache()
+    return counts
+
+
+def compact_timing(S, W):
+    """``CHUNK`` compact ticks at full width on a state filled by ring
+    ticks and made linear, against as many ring ticks on the same state
+    in the same call (CUDA events a chunk); the two results bitwise."""
+    from repro_torch.launch.serve import class_drift_traffic, reg_drift_traffic
+    from repro_torch.regression import RegressionServingEngine
+    from repro_torch.regression import stream as rs
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import session as sm
+
+    T = W + 2 * CHUNK
+    for kind in ("class", "reg"):
+        if kind == "class":
+            xs, ys, taus, _ = class_drift_traffic(SEED + 9, S, T, DIM, 0.0)
+            make = lambda lay: ServingEngine(  # noqa: E731
+                n_sessions=S, capacity=W, dim=DIM, k=K, n_labels=N_LABELS,
+                window=W, layout=lay, device="cuda")
+            linear = sm.to_linear
+        else:
+            xs, ys, taus, _, _ = reg_drift_traffic(SEED + 9, S, T, DIM, 0.0)
+            make = lambda lay: RegressionServingEngine(  # noqa: E731
+                n_sessions=S, capacity=W, dim=DIM, k=K_REG, window=W,
+                layout=lay, device="cuda")
+            linear = rs.to_linear
+        ring, comp = make("ring"), make("compact")
+        state, _, _ = drive(ring, ring.init_state(), xs, ys, taus, W + CHUNK)
+        state = linear(state)
+        torch.cuda.empty_cache()
+        sl = slice(W + CHUNK, T)
+        out, ms, rise = {}, {}, {}
+        for lay, eng in (("ring", ring), ("compact", comp)):
+            st = state.clone()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            st, p = eng.observe_many(st, xs[sl], ys[sl], taus[sl])
+            e1.record()
+            e1.synchronize()
+            rise[lay] = torch.cuda.max_memory_allocated() - base
+            ms[lay] = e0.elapsed_time(e1) / CHUNK
+            out[lay] = (linear(st), p)
+            del st
+            torch.cuda.empty_cache()
+        check(same_p(out["ring"][1], out["compact"][1])
+              and equal_states(out["ring"][0], out["compact"][0]),
+              f"compact timing ({kind}): the two layouts' ticks bitwise")
+        print(f"[compact-time] {kind} S={S} window=capacity={W}: {CHUNK} "
+              f"evicting ticks on one linear state filled by {W + CHUNK} ring "
+              f"ticks: compact {ms['compact']:.3f} ms a tick, peak memory "
+              f"rise {rise['compact'] / 2**30:.2f} GiB; ring "
+              f"{ms['ring']:.3f} ms a tick, rise "
+              f"{rise['ring'] / 2**20:.1f} MiB (chunk CUDA events / ticks); "
+              "both layouts' states and p-values bitwise equal")
+        del state, out, ring, comp
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the bootstrap measure (paper Section 6, Algorithm 3)
+# ---------------------------------------------------------------------------
+
+
+def boot_states_equal(a, b) -> bool:
+    arrays = ("X", "y", "uids", "W", "star", "elig", "counts", "feat",
+              "thresh", "leaf", "pre_pred", "pre_votes")
+    bits = lambda v: np.ascontiguousarray(v).view(np.uint8)  # noqa: E731
+    return (all(getattr(a, f).dtype == getattr(b, f).dtype
+                and np.array_equal(bits(getattr(a, f)), bits(getattr(b, f)))
+                for f in arrays)
+            and (a.draw_ids, a.E, a.E_i, a.next_uid, a.next_draw)
+            == (b.draw_ids, b.E, b.E_i, b.next_uid, b.next_draw))
+
+
+def star_forest_inputs(st, x_t, t, lbl):
+    """The arguments ``pvalues_optimized`` gives the forest for test point
+    ``t`` (``x_t``) and label ``lbl``: the augmented rows and labels, the
+    star samples' multiplicities and their keyed node draws."""
+    from repro_torch.core.measures import bootstrap as boot
+
+    row_of = {d: r for r, d in enumerate(st.draw_ids)}
+    star_ref = sorted({d for lst in st.E_i for d in lst
+                       if st.star[row_of[d]] > 0})
+    srows = np.asarray([row_of[d] for d in star_ref], np.int64)
+    W = np.concatenate([st.W[srows], st.star[srows][:, None]], axis=1)
+    rng = np.random.default_rng((st.seed, boot._STAR_TAG, t, lbl))
+    fc, u = boot._node_rand(rng, len(star_ref), st.feat.shape[1],
+                            st.X.shape[1])
+    Xa = np.concatenate([st.X, x_t[None]], axis=0)
+    return Xa, np.append(st.y, np.int32(lbl)), W, fc, u
+
+
+def trees_equal_plain(X, y, W, fc, u, feat, thresh, leaf, preds, Xp, L,
+                      depth) -> int:
+    """Each tree ``r`` of a forest fitted on the card (``feat, thresh,
+    leaf (S, n_nodes)`` and its predictions ``preds (S, q)`` on ``Xp``) ==
+    ``ref.boot_fit_tree`` / ``boot_predict_tree`` on the CPU, bitwise.
+    Returns the number of trees held."""
+    from repro_torch.kernels import ref
+
+    Xc, Xpc, yc = (torch.from_numpy(np.ascontiguousarray(a))
+                   for a in (X, Xp, y))
+    for r in range(W.shape[0]):
+        f, t, lf = ref.boot_fit_tree(Xc, yc, torch.from_numpy(W[r]),
+                                     torch.from_numpy(fc[r]),
+                                     torch.from_numpy(u[r]), L, depth)
+        check(np.array_equal(f.numpy(), feat[r])
+              and np.array_equal(t.numpy().view(np.int32),
+                                 thresh[r].view(np.int32))
+              and np.array_equal(lf.numpy(), leaf[r])
+              and np.array_equal(ref.boot_predict_tree(f, t, lf, Xpc)
+                                 .numpy(), preds[r]),
+              "a tree fitted on the card == the per-tree plain version on "
+              "the CPU, bitwise")
+    return W.shape[0]
+
+
+def bootstrap_path():
+    """Phase 9 at the paper's App. E bootstrap settings. Returns the
+    p-value run's forest counts."""
+    from repro_torch.core.measures import bootstrap as boot
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.kernels import ops
+    from repro_torch.launch import profile
+    from repro_torch.serving.registry import ConformalPredictor
+
+    n, m, mc, L = BOOT_N, BOOT_M, BOOT_COVER, N_LABELS
+    X, y = make_classification(n + m + mc + BOOT_TICKS + 10, DIM, seed=SEED)
+    X, y = X.astype(np.float32), y.astype(np.int32)
+    Xtr, ytr, Xq = X[:n], y[:n], X[n:n + m]
+    Xc, yc = X[n + m:n + m + mc], y[n + m:n + m + mc]
+    Xs, ys = X[n + m + mc:-10], y[n + m + mc:-10]
+    X10 = X[-10:]
+    kw = dict(n_labels=L, B=BOOT_B, depth=BOOT_DEPTH, seed=SEED)
+
+    # ---- fit and p-values: the card == the CPU, bitwise -------------------
+    ops.reset_launch_counts()
+    st, fit_ms = timed_ms(lambda: boot.fit(Xtr, ytr, **kw, device="cuda"))
+    fit_c = ops.launch_counts()
+    ops.reset_launch_counts()
+    p_card, pv_ms = timed_ms(lambda: boot.pvalues_optimized(st, Xq))
+    counts = ops.launch_counts()
+    calls = ops.forest_calls()
+    fits, preds = calls["boot_fit_forest"], calls["boot_forest_predict"]
+    h2d = calls["h2d_bytes"]
+    check(fits == m * L and preds == m * L + 1, f"bootstrap p-values: one "
+          f"forest fit and prediction a (point, label), one candidate "
+          f"prediction ({fits}, {preds})")
+    st_cpu = boot.fit(Xtr, ytr, **kw, device="cpu")
+    check(boot_states_equal(st, st_cpu), "bootstrap fit: the card's state "
+          "== the CPU's, every array and list bitwise")
+    p_cpu = boot.pvalues_optimized(st_cpu, Xq)
+    check(p_card.tobytes() == p_cpu.tobytes(), "bootstrap p-values: the "
+          "card == the CPU, bitwise")
+    check(bool(((p_card > 0) & (p_card <= 1)).all()), "p-values in (0, 1]")
+    pre = np.flatnonzero(st.star == 0)
+    fc, u = boot._tree_rand(st.seed, [st.draw_ids[r] for r in pre],
+                            st.feat.shape[1], DIM)
+    held = trees_equal_plain(Xtr, ytr, st.W[pre], fc, u, st.feat[pre],
+                             st.thresh[pre], st.leaf[pre], st.pre_pred[pre],
+                             Xtr, L, BOOT_DEPTH)
+    n_pre = held
+    t = 0
+    while held < 64:  # then the star forests of the first test points
+        for lbl in range(L):
+            Xa, ya, W, fc, u = star_forest_inputs(st, Xq[t], t, lbl)
+            f_, t_, l_ = ops.boot_fit_forest(Xa, ya, W, fc, u, n_labels=L,
+                                             depth=BOOT_DEPTH)
+            pr = ops.boot_forest_predict(f_, t_, l_, Xtr)
+            held += trees_equal_plain(Xa, ya, W, fc, u, f_, t_, l_, pr, Xtr,
+                                      L, BOOT_DEPTH)
+        t += 1
+    print(f"[boot] n={n} p={DIM} L={L} B={BOOT_B} depth={BOOT_DEPTH}: fit "
+          f"{fit_ms:.3f} ms (B' = {st.b_prime} shared samples, {n_pre} "
+          f"pre-trained trees; {fit_c['boot_fit_forest']} forest fit and "
+          f"{fit_c['boot_forest_predict']} prediction on the card), "
+          f"pvalues_optimized m={m}: {pv_ms / m:.3f} ms a point (host "
+          f"clock, synchronised), {fits / m:.1f} forest fits + "
+          f"{preds / m:.2f} predictions and {h2d / m:.0f} B to the card a "
+          f"point; state and p-values on the card == on the CPU (bitwise); "
+          f"{held} trees ({n_pre} pre-trained, the rest the star forests of "
+          f"{t} test points) == the per-tree plain version on the CPU "
+          "(bitwise)")
+
+    # ---- coverage ----------------------------------------------------------
+    pc, cov_ms = timed_ms(lambda: boot.pvalues_optimized(st, Xc))
+    own = pc[np.arange(mc), yc]
+    covs = {eps: float(np.mean(own > eps)) for eps in (0.05, 0.2)}
+    for eps, cov in covs.items():
+        check(cov >= 1 - eps - 0.07, f"bootstrap coverage {cov} at eps {eps}")
+    print(f"[boot-valid] coverage on {mc} fresh points: "
+          + ", ".join(f"eps {e}: {c:.4f} (>= {1 - e - 0.07:.2f})"
+                      for e, c in covs.items())
+          + f"; {cov_ms / mc:.3f} ms a point")
+
+    # ---- streaming: the registry's predictor == rebuild --------------------
+    cp = ConformalPredictor("bootstrap", device="cuda", B=BOOT_B,
+                            depth=BOOT_DEPTH, n_labels=L, seed=SEED)
+    cp.fit(Xtr, ytr)
+    obs_ms, ev_ms = [], []
+    for i in range(BOOT_TICKS):
+        _, o = timed_ms(lambda: cp.observe(Xs[i], int(ys[i])))
+        _, e = timed_ms(lambda: cp.evict(0))
+        obs_ms.append(o)
+        ev_ms.append(e)
+        rb = boot.rebuild(cp._state)
+        check(boot_states_equal(cp._state, rb), "bootstrap streamed state "
+              "== rebuild, every array and list bitwise")
+        check(boot.pvalues_optimized(cp._state, X10).tobytes()
+              == boot.pvalues_optimized(rb, X10).tobytes(),
+              "bootstrap streamed p-values == rebuild's, bitwise")
+    check(cp.n == n and np.array_equal(cp._state.X, np.concatenate(
+        [Xtr[BOOT_TICKS:], Xs[:BOOT_TICKS]])), "sliding window kept")
+    print(f"[boot-stream] registry ConformalPredictor(\"bootstrap\") at "
+          f"n={n}: {BOOT_TICKS} ticks of observe + evict(0): observe p50 "
+          f"{np.percentile(obs_ms, 50):.3f} ms, evict p50 "
+          f"{np.percentile(ev_ms, 50):.3f} ms (host clock, synchronised); "
+          f"after every tick the state == rebuild (bitwise) and the "
+          f"p-values of 10 fixed points == the rebuild's; B' now "
+          f"{cp._state.b_prime}")
+    del cp
+
+    # ---- standard against optimized ----------------------------------------
+    ns, ms_ = BOOT_N_STD, BOOT_M_STD
+    st2 = boot.fit(X[:ns], y[:ns], **kw, device="cuda")
+    po, opt_ms = timed_ms(lambda: boot.pvalues_optimized(st2, Xq[:ms_]))
+    ps, std_ms = timed_ms(lambda: boot.pvalues_standard(
+        X[:ns], y[:ns], Xq[:ms_], **kw, device="cuda"))
+    speed = std_ms / opt_ms
+    check(po.shape == ps.shape == (ms_, L) and bool((ps > 0).all()),
+          "bootstrap standard p-values")
+    check(speed >= 5.0, f"bootstrap optimized is {speed:.2f}x the standard "
+          "path (>= 5x)")
+    print(f"[boot-speed] n={ns} m={ms_}: standard {std_ms / ms_:.3f} ms a "
+          f"point, optimized {opt_ms / ms_:.3f} ms a point: {speed:.1f}x "
+          "(>= 5x; host clock, synchronised)")
+
+    # ---- launches and the card's busy share --------------------------------
+    profile.profile_batch("bootstrap", None)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -1795,6 +2243,10 @@ def main(argv=None) -> int:
     table.append(check_flash_attention(g, args.iters))
     torch.cuda.empty_cache()
     by_path["lm"] = lm_path()
+    torch.cuda.empty_cache()
+    by_path["compact"] = compact_exactness(S, args.iters)
+    compact_timing(S, W)
+    by_path["bootstrap"] = bootstrap_path()
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

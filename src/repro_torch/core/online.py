@@ -17,6 +17,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch._device import BIG, resolve
 from repro_torch.kernels import ops as kops
@@ -46,6 +47,23 @@ def next_aid(aid, head, n, wrap) -> torch.Tensor:
     newest = ring_mod(head + n - 1 + wrap * (n == 0).to(n.dtype), wrap)
     last = aid.gather(-1, newest.long()[..., None])[..., 0]
     return torch.where(n > 0, last + 1, torch.zeros_like(last))
+
+
+def cshift(a: torch.Tensor, s: torch.Tensor, fill) -> torch.Tensor:
+    """Conditionally drop each tenant's leading row: ``a (S, cap, ...)``
+    shifted up by one where ``s (S,)`` is 1, ``fill`` entering at the
+    tail; a new tensor, bitwise ``a`` where ``s`` is 0. The compaction
+    primitive of the compact layout's sliding tick."""
+    shifted = torch.cat([a[:, 1:], torch.full_like(a[:, :1], fill)], 1)
+    return torch.where((s != 0).view((-1,) + (1,) * (a.dim() - 1)),
+                       shifted, a)
+
+
+def cshift2(D: torch.Tensor, s: torch.Tensor, fill) -> torch.Tensor:
+    """``cshift`` of a square ``D (S, cap, cap)`` along both of its axes:
+    its first row and column dropped where ``s`` is 1."""
+    shifted = F.pad(D[:, 1:, 1:], (0, 1, 0, 1), value=fill)
+    return torch.where((s != 0)[:, None, None], shifted, D)
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +165,15 @@ def observe(state: OnlineKnnState, x_new, y_new, tau, *, k):
 
 
 # ---------------------------------------------------------------------------
-# betting martingale over the p-value stream
+# betting martingales over the p-value stream
 # ---------------------------------------------------------------------------
+
+
+def power_martingale_increment(p, epsilon=0.92):
+    """Power betting function ``f(p) = eps * p^(eps - 1)`` (its integral
+    over [0, 1] is 1)."""
+    p = torch.as_tensor(p)
+    return epsilon * torch.pow(torch.clamp(p, min=1e-12), epsilon - 1.0)
 
 
 def simple_mixture_log_martingale(pvals: torch.Tensor) -> torch.Tensor:
@@ -190,6 +215,7 @@ def run_stream(X, y, *, k, taus=None, generator=None, capacity=None,
 
 
 __all__ = ["OnlineKnnState", "init", "observe", "observe_with_dists",
-           "run_stream", "simple_mixture_log_martingale", "ring_age",
-           "ring_live", "ring_slots", "ring_mod", "next_aid",
+           "run_stream", "power_martingale_increment",
+           "simple_mixture_log_martingale", "ring_age", "ring_live",
+           "ring_slots", "ring_mod", "next_aid", "cshift", "cshift2",
            "drop_backfill", "drop_backfill_core", "fsum", "BIG"]

@@ -9,8 +9,9 @@ naive one with ``optimized=False``.
     p = clf.predict_pvalues(X_test)          # (m, l)
     sets = clf.predict_set(X_test, eps=0.1)  # (m, l) bool
 
-Measures: "knn", "simplified_knn", "kde", "lssvm" (binary); "bootstrap" is
-not ported yet. ``InductiveConformalClassifier`` is the ICP baseline with
+Measures: "knn", "simplified_knn", "kde", "lssvm" (binary), "bootstrap"
+(Algorithm 3: its pool and p-value arithmetic on the host, its forests on
+``device``). ``InductiveConformalClassifier`` is the ICP baseline with
 the same surface. Inputs become float32 and int32 tensors on ``device``
 (``cuda`` unless the caller asks for another; it raises without a GPU).
 """
@@ -25,6 +26,7 @@ from repro_torch._device import as_tensor as _tensor
 from repro_torch._device import resolve
 from repro_torch.core import icp as icp_m
 from repro_torch.core import pvalues as pv
+from repro_torch.core.measures import bootstrap as boot_m
 from repro_torch.core.measures import kde as kde_m
 from repro_torch.core.measures import knn as knn_m
 from repro_torch.core.measures import lssvm as lssvm_m
@@ -39,8 +41,6 @@ def _to_pm1(y: torch.Tensor) -> torch.Tensor:
 def _check_measure(measure: str, n_labels: int) -> None:
     if measure not in MEASURES:
         raise ValueError(f"measure {measure!r} not in {MEASURES}")
-    if measure == "bootstrap":
-        raise NotImplementedError("bootstrap is not ported yet; see ROADMAP")
     if measure == "lssvm" and n_labels != 2:
         raise ValueError("lssvm measure is binary (labels {-1,+1}); use "
                          "one-vs-rest for more labels (paper Section 5)")
@@ -57,6 +57,8 @@ class ConformalClassifier:
     rho: float = 1.0  # LS-SVM regularizer
     feature_map: str = "linear"  # LS-SVM phi
     rff_dim: int = 128
+    B: int = 10  # bootstrap ensemble size
+    tree_depth: int = 5
     optimized: bool = True
     seed: int = 0
     device: Any = None
@@ -82,6 +84,11 @@ class ConformalClassifier:
             self._state = knn_m.fit(X, y, k=self.k)
         elif self.measure == "kde":
             self._state = kde_m.fit(X, y, h=self.h, n_labels=self.n_labels)
+        elif self.measure == "bootstrap":
+            self._state = boot_m.fit(
+                X.cpu().numpy(), y.cpu().numpy(), n_labels=self.n_labels,
+                B=self.B, depth=self.tree_depth, seed=self.seed,
+                device=self.device)
         else:
             self._state = lssvm_m.fit(self._phi(X), _to_pm1(y), self.rho)
         return self
@@ -100,6 +107,17 @@ class ConformalClassifier:
             if self.optimized:
                 return kde_m.pvalues_optimized(self._state, X_test, **kw)
             return kde_m.pvalues_standard(X, y, X_test, **kw)
+        if self.measure == "bootstrap":
+            if self.optimized:
+                p = boot_m.pvalues_optimized(self._state,
+                                             X_test.cpu().numpy())
+            else:
+                p = boot_m.pvalues_standard(
+                    X.cpu().numpy(), y.cpu().numpy(), X_test.cpu().numpy(),
+                    n_labels=self.n_labels, B=self.B, depth=self.tree_depth,
+                    seed=self.seed, device=self.device)
+            return torch.as_tensor(p, dtype=torch.float32,
+                                   device=self.device)
         if self.optimized:
             return lssvm_m.pvalues_optimized(self._state, self._phi(X_test))
         return lssvm_m.pvalues_standard(self._phi(X), _to_pm1(y),

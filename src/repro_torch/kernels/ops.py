@@ -11,11 +11,19 @@ per-tenant form and keeps the launch counts, ``stream_update``'s per mode
 ``kde_rowsums`` takes the unbatched ``(m, p)`` form of the batch measures;
 ``flash_attention`` the ``(B, S, H, D)`` layout of the LM substrate (bf16
 or f32 on the card).
+
+The bootstrap measure's forest (``boot_fit_forest``, ``boot_forest_predict``)
+is plain PyTorch on the device it is given (``boot_forest.py``): numpy in
+and out, as the measure keeps its state on the host. Each call on the
+card counts one call (``forest_calls()``; it runs many CUDA kernels) and
+the bytes it copies to the card.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch._device import resolve
+from repro_torch.kernels import boot_forest as _boot
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.cp_update import cp_knn_counts as _cp_knn_counts
 from repro_torch.kernels.flash_attention import flash_attention as _flash
@@ -41,14 +49,31 @@ KERNELS = {
 _DENSE_SCORE_LIMIT = 2048 * 2048
 
 
-def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
+def kernel_launches() -> dict[str, int]:
+    """Launches of each hand-written kernel since the last reset."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def forest_calls() -> dict[str, int]:
+    """The bootstrap forest's calls on the card since the last reset, each
+    a plain PyTorch function that runs many CUDA kernels (not one launch),
+    and under ``h2d_bytes`` the bytes those calls copied to the card."""
+    calls = {name: fn.launches for name, fn in FOREST.items()}
+    calls["h2d_bytes"] = sum(fn.h2d_bytes for fn in FOREST.values())
+    return calls
+
+
+def launch_counts() -> dict[str, int]:
+    """``kernel_launches()`` and the forest's calls on the card (calls, not
+    kernel launches: ``forest_calls()``), one count a wrapper."""
+    return {name: fn.launches for name, fn in {**KERNELS, **FOREST}.items()}
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *FOREST.values()):
         fn.launches = 0
+    for fn in FOREST.values():
+        fn.h2d_bytes = 0
 
 
 def sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -135,3 +160,50 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                                       scale=scale, softcap=softcap)
     return _flash(q, k, v, causal=causal, window=window, scale=scale,
                   softcap=softcap)
+
+
+def _on(a, dtype, dev, counter) -> torch.Tensor:
+    """``a`` (numpy or tensor) as a ``dtype`` tensor on ``dev``; a copy to
+    the card adds its bytes to ``counter.h2d_bytes``."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if t.device != dev:
+        if dev.type == "cuda":
+            counter.h2d_bytes += t.nbytes
+        t = t.to(dev)
+    return t
+
+
+def boot_fit_forest(X, y, W, feat_choice, thr_u, *, n_labels, depth,
+                    device=None):
+    """Stacked weighted extra-tree fits for the bootstrap measure on
+    ``device`` (``cuda`` by default): ``X (m, p)``, ``y (m,)``, ``W (S,
+    m)`` multiplicities, ``feat_choice``, ``thr_u (S, n_nodes)``. Returns
+    numpy ``(feat, thresh, leaf)``, each ``(S, n_nodes)``."""
+    dev = resolve(device)
+    f32, i32 = torch.float32, torch.int32
+    on = lambda a, dt: _on(a, dt, dev, boot_fit_forest)  # noqa: E731
+    out = _boot.fit_forest(on(X, f32), on(y, i32), on(W, i32),
+                           on(feat_choice, i32), on(thr_u, f32),
+                           n_labels=n_labels, depth=depth)
+    if dev.type == "cuda":
+        boot_fit_forest.launches += 1
+    return tuple(t.cpu().numpy() for t in out)
+
+
+def boot_forest_predict(feat, thresh, leaf, Xq, *, device=None):
+    """Labels ``(S, q)`` (numpy int32) of ``S`` stacked extra-trees on the
+    query rows ``Xq (q, p)``, on ``device`` (``cuda`` by default)."""
+    dev = resolve(device)
+    f32, i32 = torch.float32, torch.int32
+    on = lambda a, dt: _on(a, dt, dev, boot_forest_predict)  # noqa: E731
+    out = _boot.forest_predict(on(feat, i32), on(thresh, f32),
+                               on(leaf, i32), on(Xq, f32))
+    if dev.type == "cuda":
+        boot_forest_predict.launches += 1
+    return out.cpu().numpy()
+
+
+FOREST = {"boot_fit_forest": boot_fit_forest,
+          "boot_forest_predict": boot_forest_predict}
+boot_fit_forest.launches = boot_fit_forest.h2d_bytes = 0
+boot_forest_predict.launches = boot_forest_predict.h2d_bytes = 0

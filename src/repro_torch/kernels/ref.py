@@ -443,6 +443,80 @@ def stream_tick(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode: str, head,
 
 
 # ---------------------------------------------------------------------------
+# the bootstrap measure's extra-trees
+# ---------------------------------------------------------------------------
+
+
+def first_argmax(c: torch.Tensor) -> torch.Tensor:
+    """int32 index of the first maximum over the last axis (numpy's and
+    JAX's ``argmax`` tie rule, written out)."""
+    idx = torch.arange(c.shape[-1], device=c.device)
+    first = torch.where(c == c.amax(-1, keepdim=True), idx, c.shape[-1])
+    return first.amin(-1).to(torch.int32)
+
+
+def boot_fit_tree(X, y, w, feat_choice, thr_u, n_labels: int, depth: int):
+    """One weighted extra-tree, node by node in breadth-first order: the
+    counterpart of ``repro/kernels/ref.py::boot_fit_tree``, the semantics
+    of record of ``boot_forest.fit_forest``.
+
+    ``X (m, p)`` f32 rows, ``y (m,)`` labels, ``w (m,)`` integer
+    multiplicities, ``feat_choice (n_nodes,)`` and ``thr_u (n_nodes,)``
+    the node's pre-drawn feature and uniform. A node's leaf label is the
+    first maximum of its weighted label counts (0 when empty); an internal
+    node splits iff its weighted count is above 1 and ``hi > lo`` over its
+    drawn rows' feature values, at ``t = lo + u * (hi - lo)`` in three f32
+    roundings; a row goes right iff its value is above ``t``. Returns
+    ``(feat, thresh, leaf)`` each ``(n_nodes,)``: feature -1 and
+    threshold 0 where a node does not split."""
+    m = X.shape[0]
+    nn = 2 ** (depth + 1) - 1
+    n_internal = 2 ** depth - 1
+    dev = X.device
+    y, w = y.long(), w.long()
+    node_of = torch.zeros(m, dtype=torch.int64, device=dev)
+    feat = torch.full((nn,), -1, dtype=torch.int32, device=dev)
+    thresh = torch.zeros(nn, dtype=torch.float32, device=dev)
+    leaf = torch.zeros(nn, dtype=torch.int32, device=dev)
+    for node in range(nn):
+        mask = (node_of == node) & (w > 0)
+        cnt = torch.zeros(n_labels, dtype=torch.int64, device=dev)
+        cnt.index_add_(0, y, torch.where(mask, w, 0))
+        leaf[node] = first_argmax(cnt)
+        if node >= n_internal:
+            continue
+        f = int(feat_choice[node])
+        col = X[:, f]
+        lo = torch.where(mask, col, float("inf")).amin()
+        hi = torch.where(mask, col, float("-inf")).amax()
+        if int(cnt.sum()) > 1 and bool(hi > lo):
+            t = lo + thr_u[node] * (hi - lo)
+            feat[node], thresh[node] = f, t
+            node_of = torch.where(
+                mask, torch.where(col > t, 2 * node + 2, 2 * node + 1),
+                node_of)
+    return feat, thresh, leaf
+
+
+def boot_predict_tree(feat, thresh, leaf, Xq):
+    """Labels ``(q,)`` of one tree ``(feat, thresh, leaf)`` on the rows of
+    ``Xq (q, p)``: each row descends while its node splits (right iff its
+    feature value is above the threshold) and reads the leaf label of the
+    deepest node it reaches."""
+    q = Xq.shape[0]
+    depth = (feat.shape[0] + 1).bit_length() - 2
+    rows = torch.arange(q, device=Xq.device)
+    node = torch.zeros(q, dtype=torch.int64, device=Xq.device)
+    for _ in range(depth):
+        f = feat[node].long()
+        xv = Xq[rows, f.clamp(min=0)]
+        node = torch.where(
+            f >= 0, torch.where(xv > thresh[node], 2 * node + 2,
+                                2 * node + 1), node)
+    return leaf[node]
+
+
+# ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 
@@ -545,4 +619,5 @@ __all__ = ["fsum", "sq_dists", "row_dists", "cp_knn_counts", "div_k", "kde_kvals
            "kde_rowsums", "interval_ge",
            "reg_interval_endpoints", "ring_age", "ring_slots", "stream_update",
            "stream_update_fast", "drop_backfill_core", "drop_backfill",
-           "stream_tick", "flash_attention", "chunked_attention"]
+           "stream_tick", "first_argmax", "boot_fit_tree",
+           "boot_predict_tree", "flash_attention", "chunked_attention"]

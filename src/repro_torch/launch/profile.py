@@ -3,6 +3,7 @@
     python -m repro_torch.launch.profile --trace tick_trace.json
     python -m repro_torch.launch.profile --regression
     python -m repro_torch.launch.profile --measure kde
+    python -m repro_torch.launch.profile --measure bootstrap
     python -m repro_torch.launch.profile --kde-layouts
     python src/repro_torch/launch/profile.py --kernel-times
     python -m repro_torch.launch.profile --arch qwen2-1.5b
@@ -20,7 +21,11 @@ the most device time. ``--measure kde`` instead traces the batch KDE
 classifier at the paper's App. E top size (n = 100,000 training points,
 dim 30, 2 labels, h = 1): one ``ConformalClassifier.fit`` and one
 steady-state ``predict_pvalues`` over 100 test points (one untraced call
-first). ``--kde-layouts`` times the ``kde_rowsums`` kernel's two layouts
+first). ``--measure bootstrap`` traces the bootstrap classifier at
+``chip_smoke.py`` phase 9's size (n = 2,154, a point of the paper's
+n-grid; B 10, depth 5; 10 test points) and adds, for each traced call,
+the forest calls made on the card and the bytes they copied to it, per
+test point for the read. ``--kde-layouts`` times the ``kde_rowsums`` kernel's two layouts
 (grouped, wide) against each other (CUDA events) over a grid of row counts
 at n = 100,000, dim 30, 2 labels, in both output forms, and the read's
 per-label form against the one-label form over its m * L rows: the
@@ -56,6 +61,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.predictor import ConformalClassifier
 from repro_torch.data.synthetic import make_classification
+from repro_torch.kernels import ops
 from repro_torch.kernels.kde_score import WIDE_ROWS, kde_rowsums
 from repro_torch.launch import serve
 from repro_torch.launch.serve import class_drift_traffic, reg_drift_traffic
@@ -67,6 +73,7 @@ S, W, P, QUERIES = 1024, 1024, 30, 100
 K_CLASS, K_REG, EPS = 15, 7, 0.1
 TICKS, CHUNK, TOP, SEED = 8, 32, 15, 0
 N_BATCH = 100_000  # the top of the paper's n-grid (numpy.logspace(1, 5, 13))
+N_BOOT, BOOT_QUERIES = 2154, 10  # bootstrap: a point of that grid (phase 9)
 HAND_KERNELS = ("stream_tick_class_kernel", "stream_tick_reg_kernel",
                 "pairwise_sq_dists_kernel", "cp_knn_counts_kernel",
                 "interval_sweep_kernel", "kde_group_kernel",
@@ -106,21 +113,41 @@ def device_breakdown(fn, label: str, trace: str | None) -> None:
         prof.export_chrome_trace(trace)
 
 
+def forest_line(per: int, what: str) -> None:
+    """The bootstrap forest's calls on the card and bytes copied to it
+    since the last reset, in all and per ``what``."""
+    c = ops.forest_calls()
+    fits, preds = c["boot_fit_forest"], c["boot_forest_predict"]
+    h2d = c["h2d_bytes"]
+    print(f"  forest: {fits} fits + {preds} predictions on the card, "
+          f"{h2d} B copied to it; per {what}: {fits / per:.1f} fits, "
+          f"{preds / per:.1f} predictions, {h2d / per:.0f} B")
+
+
 def profile_batch(measure: str, trace: str | None) -> int:
     """The batch classifier's fit and steady-state predict, traced."""
-    X, y = make_classification(N_BATCH + QUERIES, P, seed=SEED)
+    boot = measure == "bootstrap"
+    n, m = (N_BOOT, BOOT_QUERIES) if boot else (N_BATCH, QUERIES)
+    X, y = make_classification(n + m, P, seed=SEED)
     X = torch.as_tensor(X, dtype=torch.float32, device="cuda").contiguous()
     y = torch.as_tensor(y, dtype=torch.int32, device="cuda")
-    Xtr, ytr, Xq = X[:N_BATCH], y[:N_BATCH], X[N_BATCH:]
+    Xtr, ytr, Xq = X[:n], y[:n], X[n:]
     clf = ConformalClassifier(measure, n_labels=2, k=K_CLASS, h=1.0,
                               device="cuda")
     print(f"[profile] {torch.cuda.get_device_name(0)}: batch {measure} "
-          f"n={N_BATCH} dim={P} m={QUERIES}")
+          f"n={n} dim={P} m={m}")
     clf.fit(Xtr[:1024], ytr[:1024])  # builds the kernels outside the trace
-    device_breakdown(lambda: clf.fit(Xtr, ytr), f"fit n={N_BATCH}", trace)
+    ops.reset_launch_counts()
+    device_breakdown(lambda: clf.fit(Xtr, ytr), f"fit n={n}", trace)
+    if boot:
+        print(f"  B' = {clf._state.b_prime} shared samples")
+        forest_line(1, "fit")
     clf.predict_pvalues(Xq)
+    ops.reset_launch_counts()
     device_breakdown(lambda: clf.predict_pvalues(Xq),
-                     f"predict_pvalues m={QUERIES} (steady state)", None)
+                     f"predict_pvalues m={m} (steady state)", None)
+    if boot:
+        forest_line(m, "test point (both labels' p-values)")
     return 0
 
 
@@ -299,7 +326,8 @@ def main(argv=None) -> int:
     ap.add_argument("--regression", action="store_true",
                     help="the regression engine's tick and intervals read")
     ap.add_argument("--measure", default=None,
-                    choices=("knn", "simplified_knn", "kde", "lssvm"),
+                    choices=("knn", "simplified_knn", "kde", "lssvm",
+                             "bootstrap"),
                     help="trace the batch classifier of this measure")
     ap.add_argument("--kde-layouts", action="store_true",
                     help="time kde_rowsums' two layouts by row count")

@@ -6,6 +6,8 @@
         --steps 2112 --window 1024 --capacity 1024 --dim 30 --k 7
     python -m repro_torch.launch.serve --measure kde --sessions 4 \\
         --steps 60 --window 32 --dim 4
+    python -m repro_torch.launch.serve --sessions 4 --measure bootstrap \\
+        --steps 48 --window 24 --boot-b 5 --tree-depth 3
 
 Serves ``--sessions`` concurrent sliding-window CP sessions, one
 ``observe`` per tick (``--device cuda`` by default), on synthetic drift
@@ -19,12 +21,16 @@ simple-mixture martingale; then one read over ``--queries`` points per
 tenant: ``predict`` p-values, or ``--regression`` prediction intervals at
 ``--eps`` with their coverage and median width on fresh labelled points.
 
-``--measure NAME`` (knn, simplified_knn, kde, lssvm) serves each tenant
-through its own registry ``ConformalPredictor`` instead, on the same
-classification traffic: ``fit`` on a warm-up prefix, then per tick
-``pvalues`` of the new point, ``observe`` it, and ``evict(0)`` once the
-window is full. Reports session-steps/s, per-operation ms and the tenants
-flagged by the running maximum of their martingale.
+``--measure NAME`` (knn, simplified_knn, kde, lssvm, bootstrap) serves
+each tenant through its own registry ``ConformalPredictor`` instead, on
+the same classification traffic: ``fit`` on a warm-up prefix, then per
+tick ``pvalues`` of the new point, ``observe`` it, and ``evict(0)`` once
+the window is full. Reports session-steps/s, per-operation ms, the
+kernel launches and the bootstrap forest's calls on the card (each call
+many CUDA kernels) apart, and the tenants flagged by the running maximum
+of their martingale. This is how the measures without a fixed-shape
+engine (bootstrap, Algorithm 3, with ``--boot-b`` trees and
+``--tree-depth``) are served.
 
 Without ``--sessions`` the launcher serves the language model ``--arch``
 (qwen2-1.5b by default; full width unless ``--reduced``) with a conformal
@@ -182,7 +188,7 @@ def serve_sessions(args) -> int:
         pv = eng.predict(state, Xq)
         print(f"[serve] predict: p-values {tuple(pv.shape)}, finite "
               f"{bool(torch.isfinite(pv).all())}")
-    print(f"[serve] kernel launches: {ops.launch_counts()}")
+    print(f"[serve] kernel launches: {ops.kernel_launches()}")
     return 0
 
 
@@ -197,7 +203,8 @@ def serve_registry(args) -> int:
     if T <= warm + 2:
         raise SystemExit(f"--steps must exceed the warm-up ({warm + 2})")
     spec = registry.get(args.measure)
-    hp = {k: v for k, v in {"k": args.k, "n_labels": 2}.items()
+    hp = {k: v for k, v in {"k": args.k, "n_labels": 2, "B": args.boot_b,
+                            "depth": args.tree_depth}.items()
           if k in spec.defaults}
     xs, ys, _, drifted = class_drift_traffic(args.seed, S, T, dim,
                                              args.drift)
@@ -240,7 +247,9 @@ def serve_registry(args) -> int:
           f"{int(flagged[drifted].sum())}/{int(drifted.sum())} drifted "
           f"tenants, {int(flagged[~drifted].sum())}/"
           f"{int((~drifted).sum())} others")
-    print(f"[serve] kernel launches: {ops.launch_counts()}")
+    print(f"[serve] kernel launches: {ops.kernel_launches()}")
+    print(f"[serve] forest calls on the card (plain PyTorch, many CUDA "
+          f"kernels each): {ops.forest_calls()}")
     return 0
 
 
@@ -342,7 +351,7 @@ def serve_lm(args) -> int:
           f"corrupted={pv[B // 2:].mean():.3f}")
     peak = (f", peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
             "GiB" if dev.type == "cuda" else "")
-    print(f"[serve] kernel launches: {ops.launch_counts()}{peak}")
+    print(f"[serve] kernel launches: {ops.kernel_launches()}{peak}")
     return 0
 
 
@@ -368,6 +377,10 @@ def main(argv=None) -> int:
                     choices=registry.available(),
                     help="serve each tenant through a registry "
                     "ConformalPredictor of this measure")
+    ap.add_argument("--boot-b", type=int, default=5,
+                    help="bootstrap ensemble size B (--measure bootstrap)")
+    ap.add_argument("--tree-depth", type=int, default=3,
+                    help="bootstrap tree depth (--measure bootstrap)")
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--dim", type=int, default=8)
     ap.add_argument("--k", type=int, default=7)

@@ -41,19 +41,26 @@ class RegressionServingEngine:
     features; k: neighbourhood size; window: sliding window (<=
     capacity), None for grow mode; dtype: state float type (float32 on
     CUDA); donate: update the caller's state in place (False: clone
-    first); device: ``cuda`` by default (raises without a GPU; ``"cpu"``
-    runs the plain PyTorch path).
+    first); layout: "ring" (default) — circular row indexing, eviction a
+    head advance that never shifts or copies the ``(cap, cap)`` distance
+    matrices; "compact" — the historic positional layout, whose eviction
+    compacts every leaf (O(cap^2) bytes a tick): the ring's bit-oracle
+    and its baseline, bit-identical to "ring"; device: ``cuda`` by
+    default (raises without a GPU; ``"cpu"`` runs the plain PyTorch
+    path).
     """
 
     def __init__(self, *, n_sessions: int, capacity: int, dim: int, k: int,
                  window: int | None = None, dtype=torch.float32,
-                 donate: bool = True, device=None):
+                 donate: bool = True, layout: str = "ring", device=None):
         if window is not None and window > capacity:
             raise ValueError(f"window {window} exceeds capacity {capacity}")
         if window is not None and window < 1:
             raise ValueError("window must be >= 1")
         if capacity < k:
             raise ValueError(f"capacity {capacity} < k {k}")
+        if layout not in ("ring", "compact"):
+            raise ValueError(f"unknown layout {layout!r}")
         self.device = resolve(device)
         self.n_sessions = n_sessions
         self.capacity = capacity
@@ -62,6 +69,9 @@ class RegressionServingEngine:
         self.window = window
         self.dtype = dtype
         self.donate = donate
+        self.layout = layout
+        self._step = (sess_m._sliding_step if layout == "ring"
+                      else sess_m._sliding_step_compact)
         # a sliding window bounds occupancy: the tick runs on the
         # [:window] block of every leaf with ring modulus == window
         self._wmax = None if window is None else max(min(window, capacity),
@@ -112,7 +122,7 @@ class RegressionServingEngine:
         window = state.capacity + 1 if self.window is None else self.window
         ps = []
         for t in range(xs.shape[0]):
-            state, p = sess_m._sliding_step(
+            state, p = self._step(
                 state, xs[t], ys[t], taus[t], window, active[t], k=self.k,
                 evictable=self.window is not None, wmax=self._wmax)
             ps.append(p)

@@ -6,6 +6,9 @@
   (smoothed online p-value of its observed label, feeding the drift
   martingales), learn it. ``D`` is read by the repair and written at one
   row and one column per tenant; no ``(cap, cap)`` buffer is copied.
+  ``_sliding_step_compact`` keeps the historic linear layout (eviction
+  compacts every leaf, ``D`` included): the ring tick's bit-oracle and
+  its baseline (``layout="compact"`` on the engine).
 * ``intervals`` / ``pvalues`` — the read paths on the arrival-ordered
   window: the pairwise kernel for the test rows' own top-k, the
   ``interval_sweep`` kernel for the critical points, then the hull
@@ -21,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import BIG
-from repro_torch.core.online import fsum, next_aid, ring_live, ring_mod
+from repro_torch.core.online import (cshift, cshift2, drop_backfill, fsum,
+                                     next_aid, ring_live, ring_mod)
 from repro_torch.core.regression import _threshold, hull_sweep, topk_lowest
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import div_k
@@ -108,6 +112,94 @@ def _sliding_step(st: RegStreamState, x_new, y_new, tau, window, active, *,
     st.n = torch.where(act, n1 + 1, n1)
     st.head = head1
     return st, torch.where(act, p, torch.full_like(p, float("nan")))
+
+
+def _sliding_step_compact(st: RegStreamState, x_new, y_new, tau, window,
+                          active, *, k, evictable: bool = True,
+                          wmax: int | None = None):
+    """The historic linear-layout tick, the ring tick's bit-oracle: an
+    evicting tenant compacts every leaf down one row (``D`` one row and
+    one column, ``cshift``), the labeled plain ``drop_backfill`` repairs
+    the lists over the compacted state (arrival rank == slot, ids
+    compared from the evicted point's), then the reg-mode
+    ``stream_update`` kernel without eviction computes the distance row
+    and merges the lists, ids included. ``wmax`` runs the step on the
+    ``[:wmax]`` block. Precondition: ``head == 0``, which the step keeps.
+    Replaces ``st``'s leaves (the block's in place) and returns ``(st, p
+    (S,))``."""
+    S, cap = st.y.shape
+    if wmax is not None and wmax < cap:
+        sub = RegStreamState(
+            st.X[:, :wmax], st.y[:, :wmax], st.D[:, :wmax, :wmax],
+            st.nbr_d[:, :wmax], st.nbr_y[:, :wmax], st.n, st.head,
+            st.aid[:, :wmax], st.wrap.clamp(max=wmax), st.nbr_a[:, :wmax])
+        sub, p = _sliding_step_compact(sub, x_new, y_new, tau, window,
+                                       active, k=k, evictable=evictable)
+        for name in ("X", "y", "nbr_d", "nbr_y", "aid", "nbr_a"):
+            getattr(st, name)[:, :wmax] = getattr(sub, name)
+        st.D[:, :wmax, :wmax] = sub.D
+        st.n = sub.n
+        return st, p
+    act = active
+    dev = st.y.device
+    ar = torch.arange(S, device=dev)
+    ranks = torch.arange(cap, dtype=torch.int32, device=dev)
+    if evictable:
+        ev = act & (st.n >= window)
+        s = ev.to(torch.int32)
+        dcol = st.D[:, :, 0]
+        affected = (ev[:, None] & (ranks < st.n[:, None])
+                    & (dcol <= st.nbr_d[..., -1]))
+        X1, y1, aid1 = (cshift(st.X, s, 0.0), cshift(st.y, s, 0.0),
+                        cshift(st.aid, s, 0))
+        D1 = cshift2(st.D, s, BIG)
+        n1 = st.n - s
+        lin = ranks.expand(S, cap)
+        L1, Ly1, La1 = drop_backfill(
+            cshift(st.nbr_d, s, BIG), cshift(dcol, s, BIG),
+            (ranks < n1[:, None])[:, None, :], D1,
+            cshift(affected, s, False), k=k, Ly=cshift(st.nbr_y, s, 0.0),
+            La=cshift(st.nbr_a, s, 0), ys=y1, aid=aid1, age=lin, slots=lin,
+            aid0=st.aid[:, 0])
+    else:
+        X1, y1, D1, aid1, n1 = st.X, st.y, st.D, st.aid, st.n
+        L1, Ly1, La1 = st.nbr_d, st.nbr_y, st.nbr_a
+
+    y_new = y_new.to(y1.dtype)
+    zero, full = torch.zeros_like(n1), torch.full_like(n1, cap)
+    new_aid = next_aid(aid1, zero, n1, full)
+    d_row, Lm, Lym, Lam, ysum = kops.stream_tick(
+        X1, y1, L1, Ly1, x_new, y_new, n1, mode="reg", nbr_a=La1,
+        new_aid=new_aid)
+    sub = RegStreamState(X1, y1, D1, L1, Ly1, n1, zero, aid1, full, La1)
+    own_d, own_y, y_sel, own_a = stream._own_list(sub, d_row, y_new, k=k)
+    p = _price(d_row, y_sel, y_new, tau, k=k, live=ranks < n1[:, None],
+               nbr_d=L1, nbr_y=Ly1, ysum=ysum, y=y1, n=n1)
+
+    # gated writes at slot n1; the clamp keeps an inactive lane of a full
+    # window in bounds (it rewrites its own values there)
+    il = n1.clamp(max=cap - 1).long()
+    a1, a3 = act[:, None], act[:, None, None]
+    row = torch.where(a1, d_row, D1[ar, il, :])  # D is symmetric
+    D1[ar, il, :] = row
+    D1[ar, :, il] = row
+    X1[ar, il] = torch.where(a1, x_new.to(X1.dtype), X1[ar, il])
+    y1[ar, il] = torch.where(act, y_new, y1[ar, il])
+    aid1[ar, il] = torch.where(act, new_aid, aid1[ar, il])
+    Lm[ar, il], Lym[ar, il], Lam[ar, il] = own_d, own_y, own_a
+    st.nbr_d = torch.where(a3, Lm, L1)
+    st.nbr_y = torch.where(a3, Lym, Ly1)
+    st.nbr_a = torch.where(a3, Lam, La1)
+    st.X, st.y, st.D, st.aid = X1, y1, D1, aid1
+    st.n = torch.where(act, n1 + 1, n1)
+    return st, torch.where(act, p, torch.full_like(p, float("nan")))
+
+
+def _observe_sliding(st: RegStreamState, x_new, y_new, tau, window, *, k):
+    """Evict-if-full then observe, every lane active: ``_sliding_step``
+    with a per-tenant ``window``."""
+    active = torch.ones_like(st.head, dtype=torch.bool)
+    return _sliding_step(st, x_new, y_new, tau, window, active, k=k)
 
 
 def _observe(st: RegStreamState, x_new, y_new, tau, *, k):

@@ -12,10 +12,10 @@ The paper's incrementally-and-decrementally optimized measures behind one
     cp.evict(0)                   # paper's decremental update, O(n)
     p = cp.pvalues(X_test)        # (m, n_labels) full-CP p-values
 
-Registered: knn, simplified_knn, kde, lssvm. ``knn_regression`` and
-``bootstrap`` are not ported yet (ROADMAP). ``fit`` returns ``(state,
-ctx)``; ``ctx`` carries non-tensor companions (the LS-SVM feature map)
-and every other hook receives it back. Predictors run on ``device``
+Registered: knn, simplified_knn, kde, lssvm, bootstrap. ``knn_regression``
+is not ported yet (ROADMAP). ``fit`` returns ``(state, ctx)``; ``ctx``
+carries non-tensor companions (the LS-SVM feature map, the bootstrap draw
+stream) and every other hook receives it back. Predictors run on ``device``
 (``cuda`` unless the caller asks for another; it raises without a GPU).
 """
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch
 from repro_torch._device import as_tensor as _tensor
 from repro_torch._device import resolve
 from repro_torch.core import pvalues as pv
+from repro_torch.core.measures import bootstrap as boot_m
 from repro_torch.core.measures import kde as kde_m
 from repro_torch.core.measures import knn as knn_m
 from repro_torch.core.measures import lssvm as lssvm_m
@@ -141,10 +142,47 @@ def _lssvm_spec() -> MeasureSpec:
                                  "rff_dim": 128, "seed": 0, "n_labels": 2})
 
 
+def _bootstrap_spec() -> MeasureSpec:
+    """Bootstrap CP (paper Section 6, Algorithm 3) served online.
+
+    The state is the host-side shared-sample-pool ``BootstrapState``, its
+    forests on the predictor's device; ``ctx`` is the measure's keyed
+    ``DrawStream``, the RNG stream ``observe`` / ``evict`` consume for
+    fresh bootstrap draws (keyed by draw id, so identical histories give
+    identical states). Both updates are exact against a from-scratch
+    build on the same effective sample set (``bootstrap.rebuild``).
+    """
+
+    def fit(X, y, hp):
+        stream = boot_m.DrawStream(hp["seed"])
+        state = boot_m.fit(
+            X.cpu().numpy(), y.cpu().numpy(), n_labels=hp["n_labels"],
+            B=hp["B"], depth=hp["depth"], seed=hp["seed"],
+            max_bprime=hp["max_bprime"], stream=stream, device=X.device)
+        return state, stream
+
+    def observe(state, stream, x, y, hp):
+        return boot_m.incremental_add(state, x.cpu().numpy(), int(y),
+                                      stream=stream)
+
+    def evict(state, stream, i, hp):
+        return boot_m.decremental_remove(state, int(i), stream=stream)
+
+    def pvalues(state, stream, X_test, hp):
+        return torch.as_tensor(
+            boot_m.pvalues_optimized(state, X_test.cpu().numpy()),
+            dtype=torch.float32, device=state.device)
+
+    return MeasureSpec("bootstrap", fit, observe, evict, pvalues,
+                       defaults={"n_labels": 2, "B": 10, "depth": 5,
+                                 "seed": 0, "max_bprime": 100000})
+
+
 register(_knn_spec("knn", simplified=False))
 register(_knn_spec("simplified_knn", simplified=True))
 register(_kde_spec())
 register(_lssvm_spec())
+register(_bootstrap_spec())
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,11 @@ distance matrices in place; the port writes in place outright: a tick
 touches one row and one column of each tenant's ``D`` through advanced
 indexing over the tenant axis (O(S*w) bytes) and never copies a
 ``(cap, cap)`` buffer.
+
+``_sliding_step_compact`` keeps the historic linear layout, whose
+eviction compacts every leaf (``D`` included, O(S*w*w) bytes a tick):
+the ring tick's bit-oracle and its baseline (``layout="compact"`` on the
+engine).
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch._device import BIG, resolve
 from repro_torch.core import online
-from repro_torch.core.online import (OnlineKnnState, fsum, next_aid,
+from repro_torch.core.online import (OnlineKnnState, cshift, cshift2,
+                                     drop_backfill, fsum, next_aid,
                                      ring_live, ring_mod, ring_slots)
 from repro_torch.kernels import ops as kops
 
@@ -131,6 +137,109 @@ def _sliding_step(sess: Session, x_new, y_new, tau, window, active, *, k,
     sess.head = head1
     p = torch.where(act, p, torch.full_like(p, float("nan")))
     return sess, p
+
+
+def _sliding_step_compact(sess: Session, x_new, y_new, tau, window, active,
+                          *, k, evictable: bool = True,
+                          wmax: int | None = None):
+    """The historic linear-layout tick, the ring tick's bit-oracle: the
+    semantics of ``_sliding_step`` with arrival order kept by position.
+    An evicting tenant compacts every leaf down one row (``D`` one row
+    and one column, ``cshift``), the plain ``drop_backfill`` repairs the
+    lists over the compacted state, and the learn goes through
+    ``online._observe_impl`` in the linear layout (on the card the
+    ``stream_update`` kernel without eviction). ``wmax`` runs the step
+    on the ``[:wmax]`` block. Precondition: ``head == 0``, which the
+    step keeps. Replaces ``sess``'s leaves (the block's in place) and
+    returns ``(sess, p (S,))``."""
+    knn = sess.knn
+    S, cap = knn.X.shape[:2]
+    if wmax is not None and wmax < cap:
+        sub = Session(OnlineKnnState(knn.X[:, :wmax], knn.y[:, :wmax],
+                                     knn.best[:, :wmax], knn.n),
+                      sess.D[:, :wmax, :wmax], sess.head,
+                      sess.aid[:, :wmax], sess.wrap.clamp(max=wmax))
+        sub, p = _sliding_step_compact(sub, x_new, y_new, tau, window,
+                                       active, k=k, evictable=evictable)
+        knn.X[:, :wmax] = sub.knn.X
+        knn.y[:, :wmax] = sub.knn.y
+        knn.best[:, :wmax] = sub.knn.best
+        sess.D[:, :wmax, :wmax] = sub.D
+        sess.aid[:, :wmax] = sub.aid
+        knn.n = sub.knn.n
+        return sess, p
+    act = active
+    dev = knn.X.device
+    ar = torch.arange(S, device=dev)
+    ranks = torch.arange(cap, dtype=torch.int32, device=dev)
+    if evictable:
+        ev = act & (knn.n >= window)
+        s = ev.to(torch.int32)
+        dcol = sess.D[:, :, 0]
+        affected = (ev[:, None] & (knn.y == knn.y[:, :1])
+                    & (ranks < knn.n[:, None]) & (dcol <= knn.best[..., -1]))
+        X1, y1 = cshift(knn.X, s, 0.0), cshift(knn.y, s, -1)
+        L1, aid1 = cshift(knn.best, s, BIG), cshift(sess.aid, s, 0)
+        D1 = cshift2(sess.D, s, BIG)
+        n1 = knn.n - s
+        cand = ((y1[:, :, None] == y1[:, None, :])
+                & (ranks < n1[:, None])[:, None, :])
+        best1 = drop_backfill(L1, cshift(dcol, s, BIG), cand, D1,
+                              cshift(affected, s, False), k=k)
+        del cand
+    else:
+        X1, y1, best1, D1 = knn.X, knn.y, knn.best, sess.D
+        aid1, n1 = sess.aid, knn.n
+
+    p, d, merged, _ = online._observe_impl(
+        OnlineKnnState(X1, y1, best1, n1), x_new, y_new, tau, k=k)
+
+    # gated writes at slot n1; the clamp keeps an inactive lane of a full
+    # window in bounds (it rewrites its own values there)
+    il = n1.clamp(max=cap - 1).long()
+    a1 = act[:, None]
+    row = torch.where(a1, d, D1[ar, il, :])  # D is symmetric
+    D1[ar, il, :] = row
+    D1[ar, :, il] = row
+    X1[ar, il] = torch.where(a1, x_new.to(X1.dtype), X1[ar, il])
+    y1[ar, il] = torch.where(act, y_new.to(y1.dtype), y1[ar, il])
+    new_aid = next_aid(aid1, torch.zeros_like(n1), n1,
+                       torch.full_like(n1, cap))
+    aid1[ar, il] = torch.where(act, new_aid, aid1[ar, il])
+    knn.X, knn.y = X1, y1
+    knn.best = torch.where(act[:, None, None], merged, best1)
+    knn.n = torch.where(act, n1 + 1, n1)
+    sess.D, sess.aid = D1, aid1
+    return sess, torch.where(act, p, torch.full_like(p, float("nan")))
+
+
+def _observe_sliding(sess: Session, x_new, y_new, tau, window, *, k):
+    """Evict-if-full then observe, every lane active: ``_sliding_step``
+    with a per-tenant ``window``."""
+    active = torch.ones_like(sess.head, dtype=torch.bool)
+    return _sliding_step(sess, x_new, y_new, tau, window, active, k=k)
+
+
+def _evict_oldest(sess: Session, *, k) -> Session:
+    """Forget every tenant's oldest live point, in place, on the ring:
+    only the head advances, and the lists that held the point (same
+    label, its distance at most their k-th) are repaired by the plain
+    ``drop_backfill`` from the stored distances. Nothing else moves.
+    Precondition: ``n >= 1``."""
+    knn = sess.knn
+    S, cap = knn.X.shape[:2]
+    ar = torch.arange(S, device=knn.X.device)
+    hl = sess.head.long()
+    dcol = sess.D[ar, :, hl]
+    head2 = ring_mod(sess.head + 1, sess.wrap)
+    n2 = knn.n - 1
+    live2 = ring_live(cap, head2, n2, sess.wrap)
+    affected = ((knn.y == knn.y[ar, hl][:, None]) & live2
+                & (dcol <= knn.best[..., -1]))
+    cand = (knn.y[:, :, None] == knn.y[:, None, :]) & live2[:, None, :]
+    knn.best = drop_backfill(knn.best, dcol, cand, sess.D, affected, k=k)
+    knn.n, sess.head = n2, head2
+    return sess
 
 
 def _observe(sess: Session, x_new, y_new, tau, *, k):

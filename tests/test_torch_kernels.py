@@ -128,7 +128,9 @@ def test_stream_update_batched_equals_per_tenant():
                                    "cp_knn_counts": 0,
                                    "interval_sweep": 0,
                                    "kde_rowsums": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "boot_fit_forest": 0,
+                                   "boot_forest_predict": 0}
 
 
 @pytest.mark.parametrize("m,n,p", [(8, 8, 4), (65, 33, 7), (128, 256, 30)])
