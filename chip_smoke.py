@@ -101,7 +101,22 @@ exits non-zero without a result line:
    registry predictor's ``observe`` + ``evict(0)``, each == ``rebuild``
    bitwise (state and 10 points' p-values); standard against optimized at
    n = 464 over 10 points (>= 5x); then ``launch.profile --measure
-   bootstrap`` (forest calls and bytes to the card a point, busy share).
+   bootstrap`` (forest calls and bytes to the card a point, busy share);
+10. the registry's k-NN regression (paper Section 8.1) at n = 4,096
+   (``make_regression``, 30 features, k 7): ``fit``, 16 ``observe``s,
+   ``evict(i)`` at the head, a middle rank and the last rank, 100
+   points' ``pvalues`` at a 64-label ``t_query`` and ``intervals`` at eps
+   0.1 on 2,000 fresh points, each timed (host clock, synchronised);
+   ``stream_update`` (reg), ``pairwise_sq_dists`` and ``interval_sweep``
+   must have launched there. Then each evict's state == ``stream.
+   from_fit`` on the remaining points (bitwise, arrival ids after the
+   order-preserving relabelling), the intervals and p-values == ``core.
+   regression``'s ``*_optimized`` on a refit of the window (bitwise, NaN
+   as NaN), coverage >= 0.88, and ``icp_intervals``' coverage >= 0.88.
+   Then the figures runner (``launch.figures``) at its smoke grid (n =
+   100, 1,000, 10,000; 10 test points; every measure, Table 2 at n =
+   1,000) with its optimized == standard checks; its kernel launches
+   count under ``figures``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -148,6 +163,8 @@ COMPACT_T = 3 * COMPACT_W + 17
 # numpy.logspace(1, 5, 13) (2,154 and 464); depth the package default
 BOOT_N, BOOT_B, BOOT_DEPTH, BOOT_M, BOOT_COVER = 2154, 10, 5, 100, 500
 BOOT_TICKS, BOOT_N_STD, BOOT_M_STD = 16, 464, 10
+# phase 10: the registry's knn_regression; then the figures' smoke grid
+REG_N, REG_OBS, REG_FRESH, REG_TQ = 4096, 16, 2000, 64
 FLASH_CASES = [  # name, dtype, B, Sq, Skv, H, Hkv, D, causal, window, softcap
     ("a", torch.bfloat16, 256, 512, 512, 12, 2, 128, True, None, None),
     ("b", torch.bfloat16, 4, 2048, 2048, 4, 1, 256, True, 512, None),
@@ -2185,6 +2202,193 @@ def bootstrap_path():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the registry's k-NN regression, then the figures runner
+# ---------------------------------------------------------------------------
+
+
+def relabelled_ids(st):
+    """``(aid, nbr_a)`` of a one-tenant regression state with arrival ids
+    replaced by their rank among the live ids (``from_fit`` numbers its
+    points from 0); fails unless the ids are in arrival order and every
+    live neighbour's id is a live point's."""
+    n = int(st.n[0])
+    live = st.aid[0, :n]
+    check(bool((live[1:] > live[:-1]).all()), "arrival ids in order")
+    ok = st.nbr_d[0] < BIG
+    rank = torch.searchsorted(live, st.nbr_a[0].contiguous())
+    check(torch.equal(live[rank.clamp(max=n - 1)][ok], st.nbr_a[0][ok]),
+          "every neighbour id is a live point's")
+    return (torch.arange(n, device=live.device, dtype=torch.int32),
+            torch.where(ok, rank.to(torch.int32), 0))
+
+
+def same_window(got, want) -> bool:
+    """Every leaf bitwise, the arrival ids after relabelling."""
+    return (all(torch.equal(getattr(got, f), getattr(want, f)) for f in
+                ("X", "y", "D", "nbr_d", "nbr_y", "n", "head", "wrap"))
+            and all(torch.equal(a, b) for a, b in
+                    zip(relabelled_ids(got), relabelled_ids(want))))
+
+
+def one_tenant(st):
+    """A registry regression state (no tenant axis) as a batch of one."""
+    from repro_torch.regression.stream import RegStreamState
+
+    return RegStreamState.from_leaves([t[None] for t in st.leaves()])
+
+
+def check_registry_kernels(cp, x, y, Xf, Xq, iters):
+    """The registry path's kernels against their plain versions on the
+    path's own arguments (its launch counts already read): one more
+    ``observe`` on a copy of the predictor's state, whose ``stream_update``
+    launch (reg mode, non-evicting, on the padded one-tenant ring: head 0,
+    wrap = cap) == ``ref.stream_tick`` with every output bitwise; then
+    ``pairwise_sq_dists`` on the arguments of the ``pvalues`` read of
+    ``Xq`` and of the ``intervals`` read of ``Xf``, and that read's
+    ``interval_sweep``, each == plain, bitwise (the fit is ``observe``
+    replayed, so its launches are the tick's). Returns a note."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stream_update import stream_update
+
+    with recorded("_stream_update") as rec:
+        cp.spec.observe(cp._state.clone(), cp._ctx, x, y, cp.hp)
+    a, kw = rec.args, rec.kw
+    check(kw["mode"] == "reg" and kw["ev"] is None and kw["D"] is None
+          and int(kw["head"].abs().max()) == 0
+          and int(kw["wrap"].min()) == a[0].shape[1],
+          "registry: observe launches the non-evicting reg form on the "
+          "padded ring")
+    runs = []
+    for fn in (stream_update, ref.stream_tick):
+        args, kws = cloned(a), cloned(kw)
+        runs.append([t for t in (*fn(*args, **kws), *args, *kws.values())
+                     if torch.is_tensor(t)])
+    torch.cuda.synchronize()
+    check(len(runs[0]) == len(runs[1]) and all(
+        torch.equal(u, v) for u, v in zip(*runs)),
+        "registry: stream_update == ref.stream_tick bitwise on an observe's "
+        "own arguments")
+    ms = cuda_ms(lambda: stream_update(*a, **kw), iters)
+    notes = [f"stream_update_reg (non-evicting, padded ring) == "
+             f"ref.stream_tick bitwise on an observe's own arguments (S="
+             f"{a[0].shape[0]} cap={a[0].shape[1]}), {ms:.4f} ms there"]
+    for name, read in (("sq_dists", lambda: cp.pvalues(Xq)),
+                       ("sq_dists", lambda: cp.intervals(Xf, EPS)),
+                       ("interval_sweep", lambda: cp.intervals(Xf, EPS))):
+        notes.append(check_read_kernel(name, read, iters))
+    return "; ".join(notes)
+
+
+def regression_registry_path(iters=20):
+    """Phase 10, part 1. Returns the registry path's launch counts."""
+    from repro_torch.core import regression as reg
+    from repro_torch.data.synthetic import make_regression
+    from repro_torch.kernels import ops
+    from repro_torch.regression import stream as rs
+    from repro_torch.serving.registry import ConformalPredictor
+
+    n, k, m = REG_N, K_REG, QUERIES
+    X, y = make_regression(n + REG_OBS + REG_FRESH + m, DIM, seed=SEED)
+    X, y = X.astype(np.float32), y.astype(np.float32)
+    Xf, yf = X[n + REG_OBS:n + REG_OBS + REG_FRESH], y[n + REG_OBS:-m]
+    Xq = X[-m:]
+    tq = np.linspace(y.min(), y.max(), REG_TQ).astype(np.float32)
+    window = list(range(n + REG_OBS))
+    drops = [0, (n + REG_OBS) // 2, n + REG_OBS - 3]  # head, middle, last
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    cp = ConformalPredictor("knn_regression", device="cuda", k=k,
+                            t_query=tq)
+    _, fit_ms = timed_ms(lambda: cp.fit(X[:n], y[:n]))
+    obs_ms = [timed_ms(lambda: cp.observe(X[t], float(y[t])))[1]
+              for t in range(n, n + REG_OBS)]
+    evicted, ev_ms = [], []
+    for i in drops:
+        _, ms = timed_ms(lambda: cp.evict(i))
+        del window[i]
+        evicted.append((one_tenant(cp._state), list(window)))
+        ev_ms.append(ms)
+    iv, iv_ms = timed_ms(lambda: cp.intervals(Xf, EPS))
+    _, iv2_ms = timed_ms(lambda: cp.intervals(Xf, EPS))
+    pv, pv_ms = timed_ms(lambda: cp.pvalues(Xq))
+    counts = ops.launch_counts()
+    for name in ("stream_update_reg", "pairwise_sq_dists",
+                 "interval_sweep"):
+        check(counts[name] > 0, f"{name} launched on the registry path")
+    check(cp.n == n + REG_OBS - 3 and iv.shape == (REG_FRESH, 2)
+          and pv.shape == (m, REG_TQ), "registry regression shapes")
+    print(f"[reg-registry] ConformalPredictor('knn_regression') n={n} "
+          f"p={DIM} k={k}: fit {fit_ms:.3f} ms, observe p50 "
+          f"{np.percentile(obs_ms, 50):.3f} ms, evict(i) at ranks {drops} "
+          + "/".join(f"{v:.3f}" for v in ev_ms) + f" ms, intervals "
+          f"m={REG_FRESH} first {iv_ms:.3f} ms steady {iv2_ms:.3f} ms, "
+          f"pvalues m={m} x {REG_TQ} labels {pv_ms:.3f} ms (host clock, "
+          f"synchronised); launches {counts}")
+    print("[reg-registry-kernels] " + check_registry_kernels(
+        cp, torch.from_numpy(Xf[0]).cuda(), float(yf[0]),
+        torch.from_numpy(Xf).cuda(), torch.from_numpy(Xq).cuda(), iters))
+
+    # ---- exactness: each evict == from_fit on the survivors ---------------
+    for (st, win), i in zip(evicted, drops):
+        ref = rs.from_fit(X[None, win], y[None, win], k=k,
+                          capacity=len(win), device="cuda")
+        check(same_window(st, ref), f"evict({i}) == from_fit on the "
+              "remaining points, every leaf bitwise (ids relabelled)")
+    fit = reg.fit(torch.from_numpy(X[window]).cuda(),
+                  torch.from_numpy(y[window]).cuda(), k=k)
+    want = reg.intervals_optimized(fit, torch.from_numpy(Xf).cuda(), k=k,
+                                   epsilon=EPS)
+    check(same_p(iv, want), "served intervals == intervals_optimized on "
+          "a refit of the window, bitwise")
+    tq_t = torch.from_numpy(tq).cuda()
+    check(torch.equal(pv, reg.pvalues_optimized(
+        fit, torch.from_numpy(Xq).cuda(), tq_t, k=k)),
+        "served p-values == pvalues_optimized on the refit, bitwise")
+    yf_t = torch.from_numpy(yf).cuda()
+    cov = float(((iv[:, 0] <= yf_t) & (yf_t <= iv[:, 1])).float().mean())
+    check(cov >= 0.88, f"registry regression coverage {cov}")
+    icp = reg.icp_intervals(torch.from_numpy(X[window]).cuda(),
+                            torch.from_numpy(y[window]).cuda(),
+                            torch.from_numpy(Xf).cuda(), k=k,
+                            t=len(window) // 2, epsilon=EPS)
+    icov = float(((icp[:, 0] <= yf_t) & (yf_t <= icp[:, 1])).float().mean())
+    check(icov >= 0.88, f"ICP regression coverage {icov}")
+    print(f"[reg-registry-exact] each evict(i) == from_fit on the remaining "
+          f"points (every leaf bitwise, ids relabelled); intervals and "
+          f"p-values == *_optimized on a refit (bitwise, NaN as NaN); "
+          f"coverage at eps {EPS} on {REG_FRESH} fresh points {cov:.4f}, "
+          f"ICP (t = n/2) {icov:.4f} (>= 0.88), empty share "
+          f"{float(iv[:, 0].isnan().float().mean()):.4f}")
+    del cp, evicted, fit
+    torch.cuda.empty_cache()
+    return counts
+
+
+def figures_path():
+    """Phase 10, part 2: the figures runner at its smoke grid. Returns
+    its launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import figures
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows, checks, notes = figures.run_grid(
+        figures.GRIDS["smoke"], m=figures.M_TEST["smoke"], device="cuda",
+        seed=SEED, table2_n=figures.TABLE2_N["smoke"],
+        emit=lambda line: print("[fig] " + line))
+    counts = ops.launch_counts()
+    for line in figures.report(rows, checks, notes):
+        print("[fig] " + line)
+    ran = sum(r["cut"] is None for r in rows)
+    check(ran > 0 and checks[figures.GRIDS["smoke"][0]],
+          "figures: rows measured and checks made")
+    print(f"[figures] smoke grid {figures.GRIDS['smoke']}: {ran} rows "
+          f"measured, {len(rows) - ran} cut, in "
+          f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -2247,6 +2451,9 @@ def main(argv=None) -> int:
     by_path["compact"] = compact_exactness(S, args.iters)
     compact_timing(S, W)
     by_path["bootstrap"] = bootstrap_path()
+    torch.cuda.empty_cache()
+    by_path["regression_registry"] = regression_registry_path(args.iters)
+    by_path["figures"] = figures_path()
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

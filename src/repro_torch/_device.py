@@ -22,6 +22,15 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def row_blocks(total: int, per: int, elems: int):
+    """``(start, stop)`` of row blocks of at most ``elems`` elements when
+    each of ``total`` rows has ``per``: how the batch paths bound the
+    memory of their ``(rows, n)`` blocks."""
+    step = max(1, elems // max(per, 1))
+    for r0 in range(0, total, step):
+        yield r0, min(r0 + step, total)
+
+
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``x`` (array-like or tensor) as a contiguous ``dtype`` tensor on
     ``device``: float inputs become float32 and labels int32 at the

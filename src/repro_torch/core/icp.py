@@ -16,6 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch._device import row_blocks
 from repro_torch.core import pvalues as pv
 from repro_torch.core.measures import knn as knn_m
 from repro_torch.core.measures import lssvm as lssvm_m
@@ -58,10 +59,11 @@ def _knn_scores_against(X_ref, y_ref, X, y_hat, *, k: int,
 def fit_knn(X, y, *, k: int, simplified: bool, t: int) -> IcpKnnState:
     """Train on ``Z[:t]``, score ``Z[t:]`` against it."""
     X_tr, y_tr = X[:t], y[:t]
+    blocks = row_blocks(X.shape[0] - t, t, knn_m.BLOCK_ELEMS)
     scores = [_knn_scores_against(X_tr, y_tr, X[t + a:t + b],
                                   y[t + a:t + b, None], k=k,
                                   simplified=simplified)[:, 0]
-              for a, b in knn_m._blocks(X.shape[0] - t, t)]
+              for a, b in blocks]
     return IcpKnnState(X_tr, y_tr, torch.cat(scores))
 
 
@@ -72,8 +74,9 @@ def pvalues_knn(state: IcpKnnState, X_test, *, k: int, simplified: bool,
     out = [icp_pvalue(state.calib_scores, _knn_scores_against(
         state.X_train, state.y_train, X_test[a:b],
         labels.expand(b - a, n_labels), k=k, simplified=simplified))
-        for a, b in knn_m._blocks(X_test.shape[0],
-                            n_labels * state.X_train.shape[0])]
+        for a, b in row_blocks(X_test.shape[0],
+                               n_labels * state.X_train.shape[0],
+                               knn_m.BLOCK_ELEMS)]
     return torch.cat(out)
 
 

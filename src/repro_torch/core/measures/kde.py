@@ -57,7 +57,8 @@ def scores_standard(X, y, x_test, y_hat, *, h: float, p_dim: int):
     Xa = torch.cat([X, x_test[None]])
     ya = torch.cat([y, y.new_full((1,), int(y_hat))])
     sums = kops.kde_rowsums(Xa, Xa, ya, ya, h, exclude_diag=True)
-    n_y = (ya[:, None] == ya[None, :]).sum(1, dtype=torch.int32) - 1
+    _, inv, cnt = torch.unique(ya, return_inverse=True, return_counts=True)
+    n_y = cnt.to(torch.int32)[inv] - 1  # same-label rows, itself excluded
     s = _scores(sums, n_y, h, p_dim)
     return s[:-1], s[-1]
 

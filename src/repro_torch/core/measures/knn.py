@@ -13,8 +13,9 @@ Distances come from ``kops.sq_dists`` (the pairwise kernel on the card:
 fixed-order sums, so a row's bits do not depend on the batch). Missing
 neighbours are ``BIG`` in both paths. Score sums over k run left to
 right (``online.fsum``), in the cancellation-safe ``base + (kth or d)``
-form of the reference. ``fit`` works in row blocks, so no ``(n, n)``
-tensor is held; the blocks give the same bits as one pass.
+form of the reference. ``fit`` and the standard path work in row blocks,
+so no ``(n, n)`` tensor is held; the blocks give the same bits as one
+pass.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch._device import BIG
+from repro_torch._device import BIG, row_blocks
 from repro_torch.core import pvalues as pv
 from repro_torch.core.online import fsum
 from repro_torch.kernels import ops as kops
@@ -52,14 +53,6 @@ def _base(best: torch.Tensor) -> torch.Tensor:
     return fsum(best[..., :-1])
 
 
-def _blocks(total: int, per: int):
-    """``(start, stop)`` of row blocks of at most ``BLOCK_ELEMS`` elements
-    when each row has ``per``."""
-    step = max(1, BLOCK_ELEMS // max(per, 1))
-    for r0 in range(0, total, step):
-        yield r0, min(r0 + step, total)
-
-
 def _score(kbest_same, kbest_diff, simplified: bool):
     num = fsum(kbest_same)
     return num if simplified else num / fsum(kbest_diff)
@@ -70,11 +63,14 @@ def _score(kbest_same, kbest_diff, simplified: bool):
 # ---------------------------------------------------------------------------
 
 
-def _standard_scores(D, ya, k: int, simplified: bool):
-    eye = torch.eye(D.shape[0], dtype=torch.bool, device=D.device)
-    eq = ya[:, None] == ya[None, :]
-    diff = None if simplified else _k_best(D, ~eq & ~eye, k)
-    return _score(_k_best(D, eq & ~eye, k), diff, simplified)
+def _standard_scores(D, ya, r0: int, k: int, simplified: bool):
+    """LOO scores of the augmented rows ``r0, r0 + 1, ...`` from their
+    distance rows ``D (b, n + 1)``."""
+    cols = torch.arange(D.shape[1], device=D.device)
+    other = cols[r0:r0 + D.shape[0], None] != cols[None, :]
+    eq = ya[r0:r0 + D.shape[0], None] == ya[None, :]
+    diff = None if simplified else _k_best(D, ~eq & other, k)
+    return _score(_k_best(D, eq & other, k), diff, simplified)
 
 
 def _augment(X, y, x_test, y_hat):
@@ -83,10 +79,23 @@ def _augment(X, y, x_test, y_hat):
     return Xa, ya
 
 
+def _augmented_scores(Xa, ya, labels, k: int, simplified: bool):
+    """``(len(labels), n + 1)`` LOO scores over ``Xa`` with the last label
+    set to each of ``labels``, in row blocks of at most ``BLOCK_ELEMS``
+    distances (the distances are label-independent)."""
+    s = Xa.new_empty((len(labels), Xa.shape[0]))
+    for r0, r1 in row_blocks(Xa.shape[0], Xa.shape[0], BLOCK_ELEMS):
+        D = _dists(Xa[r0:r1], Xa)
+        for c, lbl in enumerate(labels):
+            ya[-1] = lbl
+            s[c, r0:r1] = _standard_scores(D, ya, r0, k, simplified)
+    return s
+
+
 def scores_standard(X, y, x_test, y_hat, *, k: int, simplified: bool):
     """Naive LOO scores for one candidate: ``(alphas (n,), alpha)``."""
     Xa, ya = _augment(X, y, x_test, y_hat)
-    s = _standard_scores(_dists(Xa, Xa), ya, k, simplified)
+    s = _augmented_scores(Xa, ya, [int(y_hat)], k, simplified)[0]
     return s[:-1], s[-1]
 
 
@@ -96,11 +105,8 @@ def pvalues_standard(X, y, X_test, *, k: int, simplified: bool,
     out = X.new_empty((X_test.shape[0], n_labels))
     for t in range(X_test.shape[0]):
         Xa, ya = _augment(X, y, X_test[t], 0)
-        D = _dists(Xa, Xa)  # label-independent
-        for lbl in range(n_labels):
-            ya[-1] = lbl
-            s = _standard_scores(D, ya, k, simplified)
-            out[t, lbl] = pv.pvalue(s[:-1], s[-1])
+        s = _augmented_scores(Xa, ya, range(n_labels), k, simplified)
+        out[t] = pv.pvalue(s[:, :-1], s[:, -1])
     return out
 
 
@@ -134,7 +140,7 @@ def fit(X, y, *, k: int) -> KnnState:
     best_same = X.new_empty((n, k))
     best_diff = X.new_empty((n, k))
     cols = torch.arange(n, device=X.device)
-    for r0, r1 in _blocks(n, n):
+    for r0, r1 in row_blocks(n, n, BLOCK_ELEMS):
         D = _dists(X[r0:r1], X)
         other = cols[r0:r1, None] != cols[None, :]
         eq = y[r0:r1, None] == y[None, :]
@@ -178,7 +184,8 @@ def pvalues_optimized(state: KnnState, X_test, *, k: int, simplified: bool,
                           device=state.y.device)
     same = state.y[None, :] == labels[:, None]  # (L, n)
     out = []
-    for t0, t1 in _blocks(X_test.shape[0], n_labels * state.n):
+    for t0, t1 in row_blocks(X_test.shape[0], n_labels * state.n,
+                             BLOCK_ELEMS):
         d = _dists(X_test[t0:t1], state.X)[:, None, :]  # (b, 1, n)
         alphas = _updated_scores(state, d, same, simplified)
         alpha = _candidate_score(state, d, same, k, simplified)

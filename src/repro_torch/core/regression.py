@@ -9,21 +9,28 @@ intervals are held to bit for bit, the O(n^2) ``*_standard`` path what
 the optimized one is held to. Each function takes one data set ``X (n,
 p)`` (``fit`` also a batch ``(S, n, p)``). Sums over k run in fixed order
 (``online.fsum``) and distances come from the fixed-order ``sq_dists``,
-so a refit's bits do not depend on the batch shape.
+so a refit's bits do not depend on the batch shape. ``fit`` and
+``ab_standard`` work in row blocks of at most ``BLOCK_ELEMS`` distances
+(each row's sort is its own, so the blocks do not change the bits), which
+lets both reach the paper's n = 100,000 on one card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import math
+
+import numpy as np
 import torch
 
-from repro_torch._device import BIG
+from repro_torch._device import BIG, row_blocks
 from repro_torch.core.online import fsum
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import div_k
 from repro_torch.kernels.ref import interval_ge as _interval_ge
 
 INF = float("inf")
+BLOCK_ELEMS = 2**26  # distances in one row block of a fit or standard read
 
 
 def topk_lowest(v: torch.Tensor, k: int):
@@ -66,7 +73,9 @@ def pvalue_at(a_vec, b_vec, a, t_query):
           * t_query[:, None]).abs()
     at = (a[..., None] + t_query).abs()[..., None]
     cnt = (ai >= at).sum(-1)
-    return (cnt + 1.0).to(a_vec.dtype) / (n + 1.0)
+    # a device-scalar divisor: CUDA divides by a Python float through its
+    # reciprocal, one rounding away from the served p-values and the CPU
+    return (cnt + 1.0).to(a_vec.dtype) / a_vec.new_full((), n + 1.0)
 
 
 def hull_sweep(lo, hi, empty, thresh):
@@ -125,21 +134,27 @@ def ab_standard(X, y, X_test, *, k):
     """``(a_vec (m, n), b_vec (m, n), a (m,))`` for every test row:
     each training point's k nearest neighbours recomputed in the set
     augmented by the test object (the test column last, so it loses
-    distance ties to training points)."""
+    distance ties to training points). The ``m * n`` augmented rows go in
+    blocks, each row's distances recomputed: the O(n^2) a test point of
+    the standard path, in bounded memory."""
     n, m = X.shape[0], X_test.shape[0]
-    eye = torch.eye(n, dtype=torch.bool, device=X.device)
-    D = torch.where(eye, BIG, _dists(X, X))
     d_t = _dists(X_test, X)  # (m, n)
-    Da = torch.cat([D.expand(m, n, n), d_t[..., None]], -1)
-    _, idx = topk_lowest(Da, k)  # (m, n, k)
-    is_test = idx == n
+    cols = torch.arange(n, device=X.device)
     ya = torch.cat([y, y.new_zeros(1)])
-    labels = ya[idx]
-    a_vec = y - div_k(fsum(torch.where(is_test, 0.0, labels)), k)
-    b_vec = torch.where(is_test.any(-1), _neg_inv_k(y, k), y.new_full((), 0.))
+    a_vec, b_vec = y.new_empty(m * n), y.new_empty(m * n)
+    for q0, q1 in row_blocks(m * n, n + 1, BLOCK_ELEMS):
+        q = torch.arange(q0, q1, device=X.device)
+        j, r = q // n, q % n
+        D = torch.where(cols == r[:, None], BIG, _dists(X[r], X))
+        _, idx = topk_lowest(torch.cat([D, d_t[j, r][:, None]], -1), k)
+        is_test = idx == n
+        a_vec[q0:q1] = y[r] - div_k(fsum(torch.where(is_test, 0.0, ya[idx])),
+                                    k)
+        b_vec[q0:q1] = torch.where(is_test.any(-1), _neg_inv_k(y, k),
+                                   y.new_full((), 0.))
     _, idx_t = topk_lowest(d_t, k)
     a = -div_k(fsum(y[idx_t]), k)
-    return a_vec, b_vec, a
+    return a_vec.view(m, n), b_vec.view(m, n), a
 
 
 def pvalues_standard(X, y, X_test, t_query, *, k):
@@ -174,12 +189,19 @@ class KnnRegState:
 def fit_lists(X, y, *, k):
     """Every point's k nearest neighbours in its own set, ascending with
     ties toward the earlier row: ``(distances, labels)``, each ``(.., n,
-    k)``. The lists a streaming state must hold for this window."""
+    k)``. The lists a streaming state must hold for this window. Rows go
+    in blocks of at most ``BLOCK_ELEMS`` distances."""
     n = X.shape[-2]
-    eye = torch.eye(n, dtype=torch.bool, device=X.device)
-    D = torch.where(eye, BIG, _dists(X, X))
-    knn_d, idx = topk_lowest(D, k)
-    return knn_d, _take(y, idx)
+    cols = torch.arange(n, device=X.device)
+    knn_d = X.new_empty(X.shape[:-2] + (n, k))
+    labels = y.new_empty(X.shape[:-2] + (n, k))
+    per = n * (X.shape[0] if X.dim() == 3 else 1)
+    for r0, r1 in row_blocks(n, per, BLOCK_ELEMS):
+        eye = cols[r0:r1, None] == cols[None, :]
+        D = torch.where(eye, BIG, _dists(X[..., r0:r1, :].contiguous(), X))
+        knn_d[..., r0:r1, :], idx = topk_lowest(D, k)
+        labels[..., r0:r1, :] = _take(y, idx)
+    return knn_d, labels
 
 
 def fit(X, y, *, k) -> KnnRegState:
@@ -213,7 +235,38 @@ def intervals_optimized(state: KnnRegState, X_test, *, k, epsilon):
         *ab_optimized(state, X_test, k=k), epsilon), -1)
 
 
+# ---------------------------------------------------------------------------
+# ICP regression baseline (Papadopoulos et al. 2002)
+# ---------------------------------------------------------------------------
+
+
+def _knn_mean(X_ref, y_ref, X, *, k):
+    """Mean label ``(m,)`` of each row of ``X``'s k nearest rows of
+    ``X_ref``, ties to the lower index (JAX ``top_k``'s rule); rows in
+    blocks of at most ``BLOCK_ELEMS`` distances."""
+    blocks = row_blocks(X.shape[0], X_ref.shape[0], BLOCK_ELEMS)
+    out = [div_k(fsum(y_ref[topk_lowest(_dists(X[r0:r1], X_ref), k)[1]]), k)
+           for r0, r1 in blocks]
+    return torch.cat(out) if out else y_ref.new_empty(0)
+
+
+def icp_intervals(X, y, X_test, *, k, t, epsilon):
+    """k-NN ICP regression intervals ``(m, 2)``: ``|y - knn_mean|`` scores
+    of the calibration rows ``Z[t:]`` against the proper training set
+    ``Z[:t]``; the interval is ``knn_mean(x) -+ q``, ``q`` the
+    ``ceil((1 - eps)(n_cal + 1))``-th smallest score (clipped to the
+    set), the rank computed in float32 as the JAX package does."""
+    X_tr, y_tr = X[:t], y[:t]
+    scores = (y[t:] - _knn_mean(X_tr, y_tr, X[t:], k=k)).abs()
+    n_cal = scores.shape[0]
+    rank = math.ceil(np.float32((1.0 - epsilon) * (n_cal + 1))) - 1
+    qhat = torch.sort(scores).values[min(max(rank, 0), n_cal - 1)]
+    mu = _knn_mean(X_tr, y_tr, X_test, k=k)
+    return torch.stack([mu - qhat, mu + qhat], 1)
+
+
 __all__ = ["BIG", "topk_lowest", "pvalue_at", "hull_sweep",
            "prediction_interval", "ab_standard", "pvalues_standard",
            "intervals_standard", "KnnRegState", "fit", "fit_lists",
-           "ab_optimized", "pvalues_optimized", "intervals_optimized"]
+           "ab_optimized", "pvalues_optimized", "intervals_optimized",
+           "icp_intervals"]

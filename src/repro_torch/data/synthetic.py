@@ -1,11 +1,11 @@
-"""Synthetic classification data, the port's own copy.
+"""Synthetic data, the port's own copy.
 
-``make_classification`` and ``train_test_split`` repeat
-``repro/data/synthetic.py``'s numpy recipe draw for draw (sklearn's
-recipe: class centroids on the vertices of a hypercube in an
+``make_classification``, ``make_regression`` and ``train_test_split``
+repeat ``repro/data/synthetic.py``'s numpy recipes draw for draw
+(sklearn's: class centroids on the vertices of a hypercube in an
 ``n_informative``-dim subspace, random linear mixing into redundant
-features, gaussian noise), so the same seed gives the same arrays in
-both packages. Both are deterministic in ``seed``.
+features, gaussian noise; a random sparse linear model), so the same seed
+gives the same arrays in both packages. All are deterministic in ``seed``.
 """
 from __future__ import annotations
 
@@ -38,6 +38,22 @@ def make_classification(
         X = X_inf
     perm = rng.permutation(n_features)
     return X[:, perm].astype(np.float64), y.astype(np.int32)
+
+
+def make_regression(
+    n_samples: int = 100,
+    n_features: int = 30,
+    n_informative: int = 10,
+    noise: float = 1.0,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    n_informative = min(n_informative, n_features)
+    X = rng.standard_normal((n_samples, n_features))
+    w = np.zeros(n_features)
+    w[:n_informative] = rng.standard_normal(n_informative) * 10.0
+    y = X @ w + noise * rng.standard_normal(n_samples)
+    return X.astype(np.float64), y.astype(np.float64)
 
 
 def train_test_split(X, y, test_frac: float = 0.3, seed: int = 0):

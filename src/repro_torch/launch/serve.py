@@ -30,7 +30,9 @@ kernel launches and the bootstrap forest's calls on the card (each call
 many CUDA kernels) apart, and the tenants flagged by the running maximum
 of their martingale. This is how the measures without a fixed-shape
 engine (bootstrap, Algorithm 3, with ``--boot-b`` trees and
-``--tree-depth``) are served.
+``--tree-depth``) are served. The registry's regression measure
+(``knn_regression``) is refused, as the JAX launcher refuses it: regression
+is served by ``--regression``.
 
 Without ``--sessions`` the launcher serves the language model ``--arch``
 (qwen2-1.5b by default; full width unless ``--reduced``) with a conformal
@@ -198,11 +200,15 @@ def serve_registry(args) -> int:
     over tenants, one exact-shape ``ConformalPredictor`` each. Drift is
     flagged on the running maximum of the log martingale, since a measure
     that retrains on its window re-conforms within a few ticks."""
+    spec = registry.get(args.measure)
+    if spec.intervals is not None:
+        raise SystemExit(
+            f"--measure {args.measure} is a regression measure; use "
+            "--regression for the engine-served regression path")
     S, T, dim, w = args.sessions, args.steps, args.dim, args.window
     warm = min(w, max(8, T // 4))
     if T <= warm + 2:
         raise SystemExit(f"--steps must exceed the warm-up ({warm + 2})")
-    spec = registry.get(args.measure)
     hp = {k: v for k, v in {"k": args.k, "n_labels": 2, "B": args.boot_b,
                             "depth": args.tree_depth}.items()
           if k in spec.defaults}

@@ -107,11 +107,10 @@ def _gather_rows(t: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     return t.gather(1, idx)
 
 
-def arrival_view(st: RegStreamState) -> RegStreamState:
-    """The state with every O(cap) leaf in arrival order (head 0, the
-    linear layout's inert fills beyond ``n``); ``D`` is passed through
-    untouched (still ring-indexed)."""
-    slots, live = _arrival(st)
+def _gathered(st: RegStreamState, slots, live, n) -> RegStreamState:
+    """Every O(cap) leaf gathered through the rank -> slot map ``slots
+    (S, cap)`` (head 0, wrap = cap, the linear layout's inert fills off
+    ``live``), ``n`` live points; ``D`` is passed through untouched."""
     l3 = live[..., None]
     return RegStreamState(
         X=torch.where(l3, _gather_rows(st.X, slots), 0.0),
@@ -119,11 +118,27 @@ def arrival_view(st: RegStreamState) -> RegStreamState:
         D=st.D,
         nbr_d=torch.where(l3, _gather_rows(st.nbr_d, slots), BIG),
         nbr_y=torch.where(l3, _gather_rows(st.nbr_y, slots), 0.0),
-        n=st.n,
+        n=n,
         head=torch.zeros_like(st.head),
         aid=torch.where(live, st.aid.gather(1, slots), 0),
         wrap=torch.full_like(st.wrap, st.capacity),
         nbr_a=torch.where(l3, _gather_rows(st.nbr_a, slots), 0))
+
+
+def _gathered_D(D, slots, live) -> torch.Tensor:
+    """``D (S, cap, cap)`` with rows and columns gathered through
+    ``slots``, BIG off ``live``."""
+    S, cap = slots.shape
+    D = D.gather(1, slots[:, :, None].expand(S, cap, cap))
+    D = D.gather(2, slots[:, None, :].expand(S, cap, cap))
+    return torch.where(live[:, :, None] & live[:, None, :], D, BIG)
+
+
+def arrival_view(st: RegStreamState) -> RegStreamState:
+    """The state with every O(cap) leaf in arrival order (head 0, the
+    linear layout's inert fills beyond ``n``); ``D`` is passed through
+    untouched (still ring-indexed)."""
+    return _gathered(st, *_arrival(st), st.n)
 
 
 def to_linear(st: RegStreamState) -> RegStreamState:
@@ -131,13 +146,9 @@ def to_linear(st: RegStreamState) -> RegStreamState:
     leaf what the same window served through the linear layout holds.
     Absolute arrival ids are preserved (the lists ``nbr_a`` reference
     them by value); they are not renumbered."""
-    view = arrival_view(st)
     slots, live = _arrival(st)
-    S, cap = slots.shape
-    D = st.D.gather(1, slots[:, :, None].expand(S, cap, cap))
-    D = D.gather(2, slots[:, None, :].expand(S, cap, cap))
-    view.D = torch.where(live[:, :, None] & live[:, None, :], D, BIG)
-    view.n = st.n.clone()
+    view = _gathered(st, slots, live, st.n.clone())
+    view.D = _gathered_D(st.D, slots, live)
     return view
 
 
@@ -228,6 +239,47 @@ def evict_oldest(st: RegStreamState, *, k) -> RegStreamState:
     return st
 
 
+def evict(st: RegStreamState, i, *, k) -> RegStreamState:
+    """Forget each tenant's ``i``-th oldest live point (``i`` an int or
+    ``(S,)``; 0 is the oldest), in O(cap^2): a new state, normalized to
+    head 0 and wrap = cap. The survivors are gathered into arrival order
+    (arbitrary mid-window forgetting has no O(cap) repair, as in the JAX
+    ``_evict``); the rows whose list may have held the evicted point
+    (``d <= kth``: on ties membership cannot be told from the distance)
+    are recomputed from the stored distances with ``topk_lowest``, whose
+    lowest-index rule is, in arrival order, fit's earliest-arrival rule.
+    Arrival ids keep their values. Precondition: ``0 <= i < n``."""
+    cap = st.capacity
+    S, dev = st.n.shape[0], st.n.device
+    i = torch.as_tensor(i, dtype=torch.int32, device=dev).expand(S)
+    ar = torch.arange(S, device=dev)
+    dcol = st.D[ar, :, ring_mod(st.head + i, st.wrap).long()]
+    affected = (ring_live(cap, st.head, st.n, st.wrap)
+                & (dcol <= st.nbr_d[..., -1]))
+
+    # survivor slots in arrival order, rank i dropped; the last rank maps
+    # to itself and takes the inert fill below
+    ranks = torch.arange(cap, device=dev)
+    src = torch.clamp(ranks + (ranks >= i[:, None]), max=cap - 1)
+    slots = ring_slots(cap, st.head, st.wrap).long().gather(1, src)
+    n2 = st.n - 1
+    live2 = ranks < n2[:, None]
+    out = _gathered(st, slots, live2, n2)
+    out.D = _gathered_D(st.D, slots, live2)
+    aff = (live2 & affected.gather(1, slots))[..., None]
+
+    rec_d, idx = topk_lowest(out.D, k)
+    flat = idx.flatten(1)
+    big = rec_d >= BIG
+    rec_y = out.y.gather(1, flat).view(idx.shape)
+    rec_a = out.aid.gather(1, flat).view(idx.shape)
+    out.nbr_d = torch.where(aff, rec_d, out.nbr_d)
+    out.nbr_y = torch.where(aff, torch.where(big, out.y[..., None], rec_y),
+                            out.nbr_y)
+    out.nbr_a = torch.where(aff, torch.where(big, 0, rec_a), out.nbr_a)
+    return out
+
+
 def from_fit(X, y, *, k, capacity: int, device=None) -> RegStreamState:
     """Seed a state from batch data ``X (S, n, p)``, ``y (S, n)`` by
     replaying ``observe``: the incremental construction is the fit."""
@@ -242,5 +294,5 @@ def from_fit(X, y, *, k, capacity: int, device=None) -> RegStreamState:
 
 
 __all__ = ["RegStreamState", "init", "arrival_view", "to_linear",
-           "arrival_stats", "state_view", "observe", "evict_oldest",
-           "from_fit"]
+           "arrival_stats", "state_view", "observe", "evict",
+           "evict_oldest", "from_fit"]

@@ -2,7 +2,8 @@
 ``repro/serving/registry.py``.
 
 The paper's incrementally-and-decrementally optimized measures behind one
-``fit / observe / evict / pvalues`` surface::
+``fit / observe / evict / pvalues`` surface (regression measures add an
+``intervals`` hook)::
 
     from repro_torch.serving import registry
 
@@ -12,11 +13,15 @@ The paper's incrementally-and-decrementally optimized measures behind one
     cp.evict(0)                   # paper's decremental update, O(n)
     p = cp.pvalues(X_test)        # (m, n_labels) full-CP p-values
 
-Registered: knn, simplified_knn, kde, lssvm, bootstrap. ``knn_regression``
-is not ported yet (ROADMAP). ``fit`` returns ``(state, ctx)``; ``ctx``
-carries non-tensor companions (the LS-SVM feature map, the bootstrap draw
-stream) and every other hook receives it back. Predictors run on ``device``
-(``cuda`` unless the caller asks for another; it raises without a GPU).
+Registered: knn, simplified_knn, kde, lssvm, bootstrap and knn_regression
+(streaming k-NN regression, paper Section 8.1: ``cp.intervals(X_test,
+eps)``, or ``pvalues`` at a ``t_query`` label grid). ``fit`` returns
+``(state, ctx)``; ``ctx`` carries non-tensor companions (the LS-SVM
+feature map, the bootstrap draw stream) and every other hook receives it
+back. Each spec's ``fit`` casts the labels it is given, as the JAX specs
+do: int32 for the classifiers, float32 for regression. Predictors run on
+``device`` (``cuda`` unless the caller asks for another; it raises
+without a GPU).
 """
 from __future__ import annotations
 
@@ -24,14 +29,17 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch._device import BIG, resolve
 from repro_torch._device import as_tensor as _tensor
-from repro_torch._device import resolve
 from repro_torch.core import pvalues as pv
 from repro_torch.core.measures import bootstrap as boot_m
 from repro_torch.core.measures import kde as kde_m
 from repro_torch.core.measures import knn as knn_m
 from repro_torch.core.measures import lssvm as lssvm_m
+from repro_torch.regression import session as rsession
+from repro_torch.regression import stream as rstream
 
 
 @dataclass(frozen=True)
@@ -44,6 +52,8 @@ class MeasureSpec:
     evict: Callable[..., Any] | None  # (state, ctx, i, hp) -> state
     pvalues: Callable[..., torch.Tensor]  # (state, ctx, X_test, hp)
     defaults: dict
+    # regression measures: (state, ctx, X_test, epsilon, hp) -> (m, 2)
+    intervals: Callable[..., torch.Tensor] | None = None
 
 
 _REGISTRY: dict[str, MeasureSpec] = {}
@@ -73,7 +83,7 @@ def available() -> tuple[str, ...]:
 
 def _knn_spec(name: str, simplified: bool) -> MeasureSpec:
     def fit(X, y, hp):
-        return knn_m.fit(X, y, k=hp["k"]), None
+        return knn_m.fit(X, y.to(torch.int32), k=hp["k"]), None
 
     def observe(state, ctx, x, y, hp):
         return knn_m.incremental_add(state, x, int(y), k=hp["k"])
@@ -92,7 +102,8 @@ def _knn_spec(name: str, simplified: bool) -> MeasureSpec:
 
 def _kde_spec() -> MeasureSpec:
     def fit(X, y, hp):
-        return kde_m.fit(X, y, h=hp["h"], n_labels=hp["n_labels"]), None
+        return kde_m.fit(X, y.to(torch.int32), h=hp["h"],
+                         n_labels=hp["n_labels"]), None
 
     def observe(state, ctx, x, y, hp):
         return kde_m.incremental_add(state, x, int(y), h=hp["h"])
@@ -156,7 +167,8 @@ def _bootstrap_spec() -> MeasureSpec:
     def fit(X, y, hp):
         stream = boot_m.DrawStream(hp["seed"])
         state = boot_m.fit(
-            X.cpu().numpy(), y.cpu().numpy(), n_labels=hp["n_labels"],
+            X.cpu().numpy(), y.to(torch.int32).cpu().numpy(),
+            n_labels=hp["n_labels"],
             B=hp["B"], depth=hp["depth"], seed=hp["seed"],
             max_bprime=hp["max_bprime"], stream=stream, device=X.device)
         return state, stream
@@ -178,10 +190,82 @@ def _bootstrap_spec() -> MeasureSpec:
                                  "seed": 0, "max_bprime": 100000})
 
 
+def _knn_regression_spec() -> MeasureSpec:
+    """Streaming k-NN regression CP (paper Section 8.1).
+
+    The state is a ``RegStreamState`` without the tenant axis (the JAX
+    registry's shapes) with capacity == n, kept linear (head 0, the ring
+    never wraps), so growing or shrinking it by a row moves the ring
+    modulus along; each hook lends it to the batched stream functions as
+    one tenant. ``pvalues`` evaluates p(t) at the ``t_query`` label grid;
+    ``intervals`` is the natural read path.
+    """
+
+    def _one(st):  # the registry's state as a batch of one tenant
+        return rstream.RegStreamState.from_leaves(
+            [t[None] for t in st.leaves()])
+
+    def _own(st):
+        return rstream.RegStreamState.from_leaves(
+            [t[0] for t in st.leaves()])
+
+    def _pad_one(st):
+        return rstream.RegStreamState(
+            X=F.pad(st.X, (0, 0, 0, 1)), y=F.pad(st.y, (0, 1)),
+            D=F.pad(st.D, (0, 1, 0, 1), value=BIG),
+            nbr_d=F.pad(st.nbr_d, (0, 0, 0, 1), value=BIG),
+            nbr_y=F.pad(st.nbr_y, (0, 0, 0, 1)), n=st.n, head=st.head,
+            aid=F.pad(st.aid, (0, 1)), wrap=st.wrap + 1,
+            nbr_a=F.pad(st.nbr_a, (0, 0, 0, 1)))
+
+    def _shrink_one(st):
+        return rstream.RegStreamState(
+            X=st.X[:-1], y=st.y[:-1], D=st.D[:-1, :-1].contiguous(),
+            nbr_d=st.nbr_d[:-1], nbr_y=st.nbr_y[:-1], n=st.n, head=st.head,
+            aid=st.aid[:-1], wrap=st.wrap - 1, nbr_a=st.nbr_a[:-1])
+
+    def fit(X, y, hp):
+        st = rstream.from_fit(X[None], y.to(torch.float32)[None], k=hp["k"],
+                              capacity=X.shape[0], device=X.device)
+        return _own(st), None
+
+    def observe(state, ctx, x, y, hp):
+        y = _tensor(y, torch.float32, x.device).reshape(1)
+        st, _ = rstream.observe(_one(_pad_one(state)), x[None], y,
+                                k=hp["k"])
+        return _own(st)
+
+    def evict(state, ctx, i, hp):
+        n, i = int(state.n), int(i)
+        if not -n <= i < n:
+            raise IndexError(
+                f"index {i} out of range for {n} training points")
+        return _shrink_one(_own(rstream.evict(_one(state), i % n,
+                                              k=hp["k"])))
+
+    def pvalues(state, ctx, X_test, hp):
+        if hp["t_query"] is None:
+            raise ValueError(
+                "knn_regression p-values need a label grid: pass "
+                "t_query=<array> (or use .intervals(X_test, eps))")
+        t_query = _tensor(hp["t_query"], torch.float32, X_test.device)
+        return rsession.pvalues(_one(state), X_test[None], t_query,
+                                k=hp["k"])[0]
+
+    def intervals(state, ctx, X_test, epsilon, hp):
+        return rsession.intervals(_one(state), X_test[None], k=hp["k"],
+                                  epsilon=float(epsilon))[0]
+
+    return MeasureSpec("knn_regression", fit, observe, evict, pvalues,
+                       defaults={"k": 7, "t_query": None},
+                       intervals=intervals)
+
+
 register(_knn_spec("knn", simplified=False))
 register(_knn_spec("simplified_knn", simplified=True))
 register(_kde_spec())
 register(_lssvm_spec())
+register(_knn_regression_spec())
 register(_bootstrap_spec())
 
 
@@ -209,7 +293,7 @@ class ConformalPredictor:
     def fit(self, X, y) -> "ConformalPredictor":
         self._state, self._ctx = self.spec.fit(
             _tensor(X, torch.float32, self.device),
-            _tensor(y, torch.int32, self.device), self.hp)
+            torch.as_tensor(y, device=self.device), self.hp)
         return self
 
     def observe(self, x, y) -> "ConformalPredictor":
@@ -234,6 +318,16 @@ class ConformalPredictor:
 
     def predict_set(self, X_test, eps: float) -> torch.Tensor:
         return pv.prediction_sets(self.pvalues(X_test), eps)
+
+    def intervals(self, X_test, eps: float) -> torch.Tensor:
+        """Prediction intervals (m, 2) — regression measures only."""
+        if self.spec.intervals is None:
+            raise NotImplementedError(
+                f"measure {self.spec.name!r} has no interval read path "
+                "(classification measures predict sets; see predict_set)")
+        return self.spec.intervals(
+            self._state, self._ctx,
+            _tensor(X_test, torch.float32, self.device), eps, self.hp)
 
     @property
     def n(self) -> int:

@@ -133,13 +133,16 @@ def test_pvalue_helpers_match_jax():
 def test_bootstrap_is_not_ported_yet():
     """Bootstrap, once the one measure missing here, is ported: the
     classifier and the registry build it, and the registry lists every
-    batch measure (its parity is in ``tests/test_torch_bootstrap.py``)."""
+    measure the JAX registry lists (bootstrap's parity is in
+    ``tests/test_torch_bootstrap.py``, knn_regression's in
+    ``tests/test_torch_regression_registry.py``)."""
     clf = predictor.ConformalClassifier("bootstrap", device="cpu")
     assert (clf.B, clf.tree_depth) == (10, 5)
     assert registry.ConformalPredictor("bootstrap", device="cpu").hp == {
         "n_labels": 2, "B": 10, "depth": 5, "seed": 0, "max_bprime": 100000}
-    assert registry.available() == ("bootstrap", "kde", "knn", "lssvm",
-                                    "simplified_knn")
+    assert registry.available() == jreg.available() == (
+        "bootstrap", "kde", "knn", "knn_regression", "lssvm",
+        "simplified_knn")
 
 
 @pytest.mark.parametrize("make", [
