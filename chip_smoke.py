@@ -116,7 +116,32 @@ exits non-zero without a result line:
    Then the figures runner (``launch.figures``) at its smoke grid (n =
    100, 1,000, 10,000; 10 test points; every measure, Table 2 at n =
    1,000) with its optimized == standard checks; its kernel launches
-   count under ``figures``.
+   count under ``figures``;
+11. the serving shell at the main path's width (S tenants, window =
+   capacity W, dim 30, k 15 / 7, the launcher's drift traffic): (a) a
+   plain and an instrumented engine (``MetricsRegistry``, ``Tracer`` on
+   a temporary file) in turns over W + 128 ticks in 32-tick chunks, in
+   both modes: p-values and every leaf bitwise, the drained tick counters
+   == the numpy closed form, the trace valid, an instrumented chunk
+   under sync debug mode "error" with its peak-memory rise below S*w*w
+   bytes, chunk ms of both; (b) a ``TickGuard`` over 4 more chunks of
+   chaos traffic (``FaultPlan.random`` over the lane-ticks, rate 1e-3,
+   value faults, ``corrupt_traffic``) == an unguarded engine on the clean
+   traffic with the hit lane-ticks gated off, bitwise, rejections by kind
+   == the plan's, a chunk off the sweep under sync debug mode "error",
+   chunk ms of both; (c) in each mode, the full state saved by an
+   ``AsyncShardedSaver`` (4 blocks) while 32 ticks run, restored by
+   ``SessionStore.restore_engine()`` on the card, 32 ticks and a read on
+   both bitwise, with the state's bytes and the save and restore seconds
+   and GB/s (free disk and host memory checked first); then, with that
+   store, a poisoned lane quarantined by a guard and restored: the lane
+   == the snapshot's, every other lane unchanged; (d) a ``Fleet`` of 64
+   tenants (pools of 16, buckets 32 to 1024) admitted two ticks apart, 8
+   retired and readmitted: 8 sampled tenants == dedicated one-lane
+   engines bitwise, the migrations counted exactly, ticks/s; (e)
+   ``launch.serve`` with ``--guard --snapshot-dir --faults 0
+   --metrics-out --trace-out`` at 64 tenants over 1,100 ticks in both
+   modes. The kernels of this path count under ``serving_shell``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -131,6 +156,7 @@ import shutil
 from contextlib import nullcontext
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2389,6 +2415,709 @@ def figures_path():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serving shell (telemetry, the tick guard, snapshots, the
+# fleet, the launcher's shell flags)
+# ---------------------------------------------------------------------------
+
+
+def expected_tick_stats(active, W):
+    """The drained tick counters of ticks with the ``(T, S)`` bool mask
+    ``active`` from empty window-``W`` rings, tick by tick in numpy."""
+    from repro_torch.telemetry.device import STAT_KEYS
+
+    S = active.shape[1]
+    n, head = np.zeros(S, np.int64), np.zeros(S, np.int64)
+    tot = dict.fromkeys(STAT_KEYS, 0)
+    for act in active:
+        ev = act & (n >= W)
+        tot["ticks"] += int(act.sum())
+        tot["evictions"] += int(ev.sum())
+        tot["backfills"] += int(ev.sum())
+        tot["ring_wraps"] += int((ev & (head == W - 1)).sum())
+        head = np.where(ev, (head + 1) % W, head)
+        n = np.where(act, np.minimum(n + 1, W), n)
+        tot["occupancy_sum"] += int(n.sum())
+        tot["occupancy_max"] = max(tot["occupancy_max"], int(n.max()))
+    return tot
+
+
+def device_chunks(xs, ys, taus, t0, t1):
+    """Ticks ``[t0, t1)`` of the traffic on the card, in CHUNK pieces."""
+    out = []
+    for c0 in range(t0, t1, CHUNK):
+        sl = slice(c0, min(c0 + CHUNK, t1))
+        out.append([torch.from_numpy(np.ascontiguousarray(v[sl])).cuda()
+                    for v in (xs, ys, taus)])
+    return out
+
+
+def instrumented_run(mode, S, W, xs, ys, taus, T):
+    """Phase 11 (a) in one mode: a plain and an instrumented engine (a
+    ``MetricsRegistry`` and a ``Tracer`` on a temporary file) over the
+    same ``T`` ticks in CHUNK-tick calls, in turns. Returns the
+    instrumented engine, its state and the chunk ms of both."""
+    from repro_torch.regression import RegressionServingEngine
+    from repro_torch.serving import ServingEngine
+    from repro_torch.telemetry import (MetricsRegistry, Tracer,
+                                       validate_trace_file)
+
+    kw = dict(n_sessions=S, capacity=W, window=W, dim=DIM, device="cuda")
+    if mode == "classification":
+        cls, kw = ServingEngine, dict(kw, k=K, n_labels=N_LABELS)
+    else:
+        cls, kw = RegressionServingEngine, dict(kw, k=K_REG)
+    fd, trace = tempfile.mkstemp(suffix=".jsonl")
+    os.close(fd)
+    try:
+        tracer = Tracer(trace)
+        metrics = MetricsRegistry()
+        plain = cls(**kw)
+        inst = cls(**kw, instrument=True, metrics=metrics, tracer=tracer)
+        sp, si = plain.init_state(), inst.init_state()
+        ms = {"plain": [], "instrumented": []}
+        same = True
+        for c, chunk in enumerate(device_chunks(xs, ys, taus, 0, T)):
+            got = {}
+            turns = (("plain", plain, sp), ("instrumented", inst, si))
+            for name, eng, st in turns[::1 if c % 2 == 0 else -1]:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                st, p = eng.observe_many(st, *chunk)
+                e1.record()
+                got[name] = (st, p, e0, e1)
+            sp, pp = got["plain"][:2]
+            si, pi = got["instrumented"][:2]
+            same &= bool(torch.equal(pp, pi))
+            for name, (_, _, e0, e1) in got.items():
+                ms[name].append((e0, e1))
+        torch.cuda.synchronize()
+        ms = {k: np.array([a.elapsed_time(b) for a, b in v])
+              for k, v in ms.items()}
+        check(same and equal_states(sp, si),
+              f"{mode}: instrumented engine == plain (p-values and every "
+              "leaf, bitwise)")
+        got = inst.telemetry.drain()
+        want = expected_tick_stats(np.ones((T, S), bool), W)
+        check(got == want, f"{mode}: drained tick counters {got} == the "
+              f"numpy closed form {want}")
+        tick_ms = one_tick_ms(plain, sp, inst, si, xs, ys, taus, T)
+        del plain, sp
+        torch.cuda.empty_cache()
+        names = {r["op"] for r in validate_trace_file(trace)}
+        tracer.close()
+        check(names == {"observe_many", "observe"},
+              f"{mode}: the trace validates")
+    finally:
+        os.unlink(trace)
+    rise = check_chunk_equals_ticks(inst, si, xs, ys, taus, T)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"[shell-a] {mode} S={S} w={W}: {T} ticks in {len(ms['plain'])} "
+          f"chunks of {CHUNK}, instrumented == plain bitwise; counters "
+          f"{got}; chunk ms median plain {med['plain']:.3f} instrumented "
+          f"{med['instrumented']:.3f}; {overhead(ms['instrumented'], ms['plain'])}"
+          f"; one-tick observe (the launcher's tick) median plain "
+          f"{np.median(tick_ms['plain']):.3f} ms instrumented "
+          f"{np.median(tick_ms['instrumented']):.3f} ms, "
+          f"{overhead(tick_ms['instrumented'], tick_ms['plain'], 'tick')}"
+          f"; the instrumented chunk made no host "
+          f"synchronisation and raised peak memory by {rise / 2**20:.1f} "
+          f"MiB")
+    return inst, si
+
+
+def overhead(a, b, unit="chunk") -> str:
+    """The per-``unit`` ratio ``a / b`` of two engines run in turns (the
+    order swapped every ``unit``) as its median and quartiles, in %."""
+    q = 100 * (np.percentile(np.asarray(a) / np.asarray(b), [25, 50, 75])
+               - 1)
+    clock = "CUDA events" if unit == "chunk" else "host clock"
+    return (f"overhead per {unit} pair {q[1]:+.2f} % (quartiles "
+            f"{q[0]:+.2f} / {q[2]:+.2f} %; {clock}, order swapped every "
+            f"{unit})")
+
+
+def one_tick_ms(plain, sp, inst, si, xs, ys, taus, t0, n=128):
+    """The launcher's tick: ``n`` one-tick ``observe`` calls on copies of
+    both engines' states, in turns (the order swapped every tick), each
+    timed on the host clock up to its p-values' copy to the host, as
+    ``launch.serve`` does every tick. Checks the p-values equal; returns
+    the ms of each engine's ticks."""
+    states = {"plain": sp.clone(), "instrumented": si.clone()}
+    engines = {"plain": plain, "instrumented": inst}
+    ms = {"plain": [], "instrumented": []}
+    same = True
+    torch.cuda.synchronize()
+    for i in range(n):
+        t = t0 + i % CHUNK
+        got = {}
+        for name in ("plain", "instrumented")[::1 if i % 2 == 0 else -1]:
+            h0 = time.perf_counter()
+            states[name], p = engines[name].observe(states[name], xs[t],
+                                                    ys[t], taus[t])
+            got[name] = p.cpu()
+            ms[name].append((time.perf_counter() - h0) * 1e3)
+        same &= bool(torch.equal(got["plain"], got["instrumented"]))
+    check(same, "one-tick observe: instrumented == plain p-values")
+    return {k: np.array(v) for k, v in ms.items()}
+
+
+def lane_plan(T, S):
+    """Each lane-tick of ``T`` ticks faulted with probability
+    ``SHELL_FAULT_RATE``: the
+    keyed plan drawn over the ``T * S`` lane-ticks (as ticks of one
+    tenant, so ``FaultPlan.random``'s one fault a step becomes one a
+    lane-tick)."""
+    from repro_torch.robustness import VALUE_FAULTS, FaultPlan
+
+    return FaultPlan.random(SEED, steps=T * S, tenants=1,
+                            rate=SHELL_FAULT_RATE, kinds=VALUE_FAULTS)
+
+
+def guard_run(eng, state, xs, ys, taus, T, n_chunks):
+    """Phase 11 (b): ``n_chunks`` chunks after tick ``T`` through a
+    ``TickGuard`` on chaos traffic, against an unguarded engine on the
+    clean traffic with the hit lane-ticks gated off; the third guarded
+    chunk (not a sweep point; the first runs the engine's one-time
+    occupancy check) under sync debug mode "error"."""
+    from repro_torch.robustness import REJECT_KINDS, TickGuard, corrupt_traffic
+    from repro_torch.serving import ServingEngine
+
+    S = state.D.shape[0]
+    t1 = T + n_chunks * CHUNK
+    Xc, yc, tc = (np.ascontiguousarray(v[T:t1]) for v in (xs, ys, taus))
+    Xf, yf, tf = Xc.copy(), yc.copy(), tc.copy()
+    plan = lane_plan(t1 - T, S)
+    hits = corrupt_traffic(plan, Xf.reshape(-1, 1, DIM), yf.reshape(-1, 1),
+                           tf.reshape(-1, 1), mode="classification",
+                           n_labels=N_LABELS)
+    check(len(hits) > 0, "the chaos plan hit some lane-ticks")
+    mask = np.ones(yc.shape, bool)
+    kind_of = {"nan_feature": 0, "inf_feature": 0, "label_out_of_range": 1,
+               "tau_out_of_range": 2}
+    want = [0, 0, 0]
+    for f in plan.faults():
+        mask.reshape(-1)[f.step] = False
+        want[kind_of[f.kind]] += 1
+    ref = ServingEngine(n_sessions=S, capacity=eng.capacity,
+                        window=eng.window, dim=DIM, k=K, n_labels=N_LABELS,
+                        device="cuda")
+    guard = TickGuard(ServingEngine(
+        n_sessions=S, capacity=eng.capacity, window=eng.window, dim=DIM,
+        k=K, n_labels=N_LABELS, device="cuda"), check_every=2)
+    sg, sr = state.clone(), state.clone()
+    gch = device_chunks(Xf, yf, tf, 0, t1 - T)
+    rch = device_chunks(Xc, yc, tc, 0, t1 - T)
+    masks = [torch.from_numpy(mask[c * CHUNK:(c + 1) * CHUNK]).cuda()
+             for c in range(n_chunks)]
+    ms = {"guarded": [], "unguarded": []}
+    same = True
+    torch.cuda.synchronize()
+    for c in range(n_chunks):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        if c % 2:  # the order swapped every chunk
+            e[2].record()
+            sr, pr = ref.observe_many(sr, *rch[c], masks[c])
+            e[3].record()
+        e[0].record()
+        if c == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            sg, pg = guard.observe_many(sg, *gch[c])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        e[1].record()
+        if c % 2 == 0:
+            e[2].record()
+            sr, pr = ref.observe_many(sr, *rch[c], masks[c])
+            e[3].record()
+        same &= same_p(pg, pr)
+        ms["guarded"].append((e[0], e[1]))
+        ms["unguarded"].append((e[2], e[3]))
+    sg = guard.finalize(sg)
+    rep = guard.drain()
+    torch.cuda.synchronize()
+    check(same and equal_states(sg, sr), "guarded == the unguarded engine "
+          "with the hit lane-ticks gated off (p-values, every leaf)")
+    check(rep["rejected"] == dict(zip(REJECT_KINDS, want)),
+          f"guard rejections {rep['rejected']} == the plan's {want}")
+    check(rep["quarantines"] == 0, "no lane quarantined on chaos traffic")
+    del ref, sr
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in ms.items()}
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"[shell-b] guard: {len(hits)} lane-ticks hit in {t1 - T} ticks "
+          f"x {S} tenants (rate {SHELL_FAULT_RATE}, seed {SEED}), rejected "
+          f"{rep['rejected']} == the plan's; guarded == gated unguarded "
+          f"bitwise; a guarded chunk off the sweep made no host "
+          f"synchronisation; "
+          f"chunk ms median guarded {med['guarded']:.3f} unguarded "
+          f"{med['unguarded']:.3f}; {overhead(ms['guarded'], ms['unguarded'])}"
+          ", two of the chunks sweep points")
+    return guard, sg
+
+
+def state_bytes(state) -> int:
+    return sum(t.numel() * t.element_size() for t in state.leaves())
+
+
+def room_for(nbytes: int, root: str) -> None:
+    """Raise unless ``root``'s disk and the host's available memory hold
+    a snapshot of ``nbytes`` (memory: the pinned copy and a restore)."""
+    free = shutil.disk_usage(root).free
+    avail = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    check(free >= nbytes * 1.05, f"the disk under {root} has {free} B free; "
+          f"the snapshot needs {int(nbytes * 1.05)} B")
+    check(avail is None or avail >= 2 * nbytes, f"the host has {avail} B "
+          f"available; the snapshot round trip needs {2 * nbytes} B")
+
+
+def saved_while_ticking(saver, eng, state, step, chunk):
+    """``saver.save(step, state)``, then one chunk of ticks while the
+    saver works, then ``close()``. Returns the state, the chunk's
+    p-values, ``save()``'s seconds, the seconds to the commit and the
+    chunk's ms a tick (CUDA events)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saver.save(step, state, meta=eng.meta())
+    t_enq = time.perf_counter() - t0
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    e0.record()
+    state, p = eng.observe_many(state, *chunk)
+    e1.record()
+    saver.close()
+    t_save = time.perf_counter() - t0
+    return state, p, t_enq, t_save, e0.elapsed_time(e1) / CHUNK
+
+
+def snapshot_roundtrip(mode, eng, state, xs, ys, taus, T, root, lane,
+                       keep_restored=False):
+    """Phase 11 (c): the state saved by an ``AsyncShardedSaver`` (4
+    blocks) while the original engine ticks on, ``close()``, restored by
+    ``SessionStore.restore_engine()`` on the card; 32 more ticks and one
+    read on both, bitwise. Then a second save of the ticked state (the
+    saver's pinned host blocks come from PyTorch's cache) while 32 more
+    ticks run, and 32 ticks without a save, for the overlap reading.
+    Returns the ticked state, the store, the second snapshot's copy of
+    lane ``lane`` and, with ``keep_restored``, the restored engine and
+    its state (else ``None``)."""
+    from repro_torch.serving import AsyncShardedSaver, SessionStore
+
+    nbytes = state_bytes(state)
+    os.makedirs(root)
+    room_for(2 * nbytes, root)
+    Xq = torch.from_numpy(np.random.default_rng(SEED + 7).standard_normal(
+        (state.D.shape[0], QUERIES, DIM), dtype=np.float32)).cuda()
+    store = SessionStore(root)
+    chunks = device_chunks(xs, ys, taus, T, T + 3 * CHUNK)
+    state, p1, t_enq, t_save, ms_first = saved_while_ticking(
+        AsyncShardedSaver(store, 4), eng, state, T, chunks[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng2, state2, step = store.restore_engine()
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    check(step == T and type(eng2) is type(eng)
+          and eng2.meta() == eng.meta()
+          and state2.D.device == state.D.device,
+          f"{mode}: restore_engine came back on the card with the meta")
+    state2, p2 = eng2.observe_many(state2, *chunks[0])
+    if mode == "classification":
+        r1, r2 = eng.predict(state, Xq), eng2.predict(state2, Xq)
+    else:
+        r1 = eng.intervals(state, Xq, epsilon=EPS)
+        r2 = eng2.intervals(state2, Xq, epsilon=EPS)
+    check(torch.equal(p1, p2) and equal_states(state, state2)
+          and same_p(r1, r2),
+          f"{mode}: restored engine == original over {CHUNK} ticks and a "
+          "read (bitwise)")
+    restored = (eng2, state2) if keep_restored else None
+    del eng2, state2
+    torch.cuda.empty_cache()
+    snap_lane = [t[lane].clone() for t in state.leaves()]
+    state, _, t_enq2, t_save2, ms_second = saved_while_ticking(
+        AsyncShardedSaver(store, 4), eng, state, T + CHUNK, chunks[1])
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    e0.record()
+    state, _ = eng.observe_many(state, *chunks[2])
+    e1.record()
+    e1.synchronize()
+    ms_alone = e0.elapsed_time(e1) / CHUNK
+    gb = nbytes / 1e9
+    print(f"[shell-c] {mode}: {gb:.3f} GB state "
+          f"({', '.join(f'{t.numel() * t.element_size() / 1e6:.0f}' for t in state.leaves())} MB a leaf); "
+          f"save() returned in {t_enq * 1e3:.1f} ms (device clones), "
+          f"committed in {t_save:.2f} s ({gb / t_save:.3f} GB/s, 4 blocks, "
+          f"pinned copies on the saver's stream); restore_engine "
+          f"{t_restore:.2f} s ({gb / t_restore:.3f} GB/s, host clock); "
+          f"{CHUNK} ticks and a read after restore == the original, "
+          f"bitwise; a second save: save() {t_enq2 * 1e3:.1f} ms, committed "
+          f"in {t_save2:.2f} s ({gb / t_save2:.3f} GB/s); ms a tick during "
+          f"the first save {ms_first:.3f}, during the second "
+          f"{ms_second:.3f}, without a save {ms_alone:.3f} (CUDA events, a "
+          f"{CHUNK}-tick chunk each)")
+    return state, store, snap_lane, restored
+
+
+def quarantine_restore(eng, state, store, snap_lane, lane):
+    """Phase 11 (b), last step: lane ``lane`` poisoned, a guard with the
+    store of (c) quarantines it at its next sweep and restores it from
+    the committed snapshot; that lane == the snapshot's, the others
+    unchanged (bitwise)."""
+    from repro_torch.robustness import TickGuard, poison_state
+
+    ref = state.clone()
+    for t, v in zip(ref.leaves(), snap_lane):
+        t[lane].copy_(v)
+    guard = TickGuard(eng, store=store, check_every=1)
+    state = poison_state(state, lane)
+    t0 = time.perf_counter()
+    state = guard.finalize(state)
+    t_q = time.perf_counter() - t0
+    rep = guard.drain()
+    check(rep["quarantines"] == 1 and rep["restores"] == 1
+          and rep["quarantined_lanes"] == [], f"quarantine + restore {rep}")
+    check(equal_states(state, ref), "the poisoned lane == the snapshot's "
+          "lane and every other lane unchanged (bitwise)")
+    print(f"[shell-b] poisoned lane {lane} quarantined at the next sweep and "
+          f"restored from the committed snapshot in {t_q:.2f} s (host "
+          "clock, the snapshot read included): lane == snapshot, others "
+          "unchanged, bitwise")
+    return state
+
+
+# phase 11 (d): the fleet; (e): the launcher's sessions mode
+FLEET_TENANTS, FLEET_POOL, FLEET_CAPS, FLEET_TICKS = 64, 16, (32, 1024), 832
+FLEET_RETIRE_AT = 300
+LAUNCH_SESSIONS, LAUNCH_STEPS = 64, 1100
+SHELL_FAULT_RATE = 1e-3  # phase 11 (b): per lane-tick
+
+
+def fleet_run():
+    """Phase 11 (d): 64 classification tenants through a ``Fleet``
+    (pools of 16 lanes, buckets 32 to 1024, so a tenant that passes 512
+    points migrates 5 times), admitted two ticks apart; 8 retired and
+    readmitted at tick 300 (a fresh lane). Every tick each admitted
+    tenant observes a point of its own stream. 8 sampled tenants (4 of
+    them readmitted) against dedicated one-lane engines: p-values
+    bitwise, and one ``predict`` each. The migrations are counted
+    exactly: one for each bucket bound a tenant's stint passes."""
+    from repro_torch.serving import Fleet, ServingEngine
+    from repro_torch.serving.fleet import pow2_buckets
+    from repro_torch.telemetry import MetricsRegistry
+
+    n, T = FLEET_TENANTS, FLEET_TICKS
+    rng = np.random.default_rng(SEED + 11)
+    X = rng.standard_normal((n, T, DIM), dtype=np.float32)
+    Y = rng.integers(0, N_LABELS, (n, T), dtype=np.int32)
+    X += Y[..., None]
+    U = rng.random((n, T), dtype=np.float32)
+    metrics = MetricsRegistry()
+    fleet = Fleet(dim=DIM, k=K, n_labels=N_LABELS, cap_min=FLEET_CAPS[0],
+                  cap_max=FLEET_CAPS[1], pool_sessions=FLEET_POOL,
+                  metrics=metrics)
+    sample = list(range(0, n, 4))[:8]
+    retired = list(range(4, n, 8))
+    refs = {i: ServingEngine(n_sessions=1, capacity=FLEET_CAPS[0], dim=DIM,
+                             k=K, n_labels=N_LABELS, device="cuda")
+            for i in sample}
+    ref_st = {i: refs[i].init_state() for i in sample}
+    got = {i: [] for i in sample}
+    want = {i: [] for i in sample}
+    pos = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(T):
+        if t % 2 == 0 and t // 2 < n:
+            fleet.admit(t // 2)
+            pos[t // 2] = 0
+        if t == FLEET_RETIRE_AT:
+            for i in retired:
+                fleet.retire(i)
+                fleet.admit(i)
+                pos[i] = 0
+                if i in got:
+                    got[i] = []
+        items = {i: (X[i, j], Y[i, j], U[i, j]) for i, j in pos.items()}
+        ps = fleet.observe(items)
+        for i in sample:
+            if i in pos:
+                got[i].append(ps[i])
+        for i in pos:
+            pos[i] += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for i in sample:  # each stream from its (re)admission
+        for j in range(pos[i]):
+            ref_st[i], p = refs[i].observe(ref_st[i], X[i, j][None],
+                                           Y[i, j][None], U[i, j][None])
+            want[i].append(p[0])
+    same = all(torch.equal(torch.stack(got[i]), torch.stack(want[i]))
+               for i in sample)
+    Xq = torch.from_numpy(rng.standard_normal((QUERIES, DIM),
+                                              dtype=np.float32)).cuda()
+    reads = all(torch.equal(fleet.predict(i, Xq),
+                            refs[i].predict(ref_st[i], Xq)[0])
+                for i in sample)
+    check(same and reads, "fleet tenants == dedicated one-lane engines "
+          "(p-values and predict, bitwise)")
+    mig = int(metrics.counter("fleet_migrations_total",
+                              mode="classification").value)
+    st = fleet.stats()
+    bounds = pow2_buckets(*FLEET_CAPS)
+    stints = [T - 2 * i for i in range(n) if i not in retired]
+    stints += [T - FLEET_RETIRE_AT for _ in retired]
+    stints += [FLEET_RETIRE_AT - 2 * i for i in retired]
+    want_mig = sum(p > b for p in stints for b in bounds[:-1])
+    check(st["buckets"] == bounds and mig == want_mig,
+          f"migrations {mig} == {want_mig}, one a bound passed")
+    served = sum(stints)
+    print(f"[shell-d] fleet: {n} tenants ({len(retired)} retired and "
+          f"readmitted at tick "
+          f"{FLEET_RETIRE_AT}), pools of {FLEET_POOL}, buckets "
+          f"{st['buckets']}, {len(st['pools'])} pools; {T} fleet ticks in "
+          f"{wall:.2f} s ({T / wall:.1f} ticks/s, about {served / wall:.0f} "
+          f"tenant-steps/s, host clock, synchronised at the ends), "
+          f"{mig} migrations; {len(sample)} sampled tenants == dedicated "
+          f"one-lane engines, bitwise")
+    return fleet
+
+
+def launcher_runs(root, W):
+    """Phase 11 (e): the launcher's sessions mode with the shell's flags,
+    both modes, at 64 tenants over 1,100 ticks, window = capacity W.
+    Returns the launches of both runs, each read from the counters after
+    its run (the launcher resets them after its warm-up tick)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.telemetry import validate_trace_file
+
+    counts = {}
+    for mode, k in (("classification", K), ("regression", K_REG)):
+        d = os.path.join(root, mode)
+        m, tr = d + "-metrics.json", d + "-trace.jsonl"
+        argv = ["--sessions", str(LAUNCH_SESSIONS), "--steps",
+                str(LAUNCH_STEPS), "--window", str(W), "--capacity", str(W),
+                "--dim", str(DIM), "--k", str(k),
+                "--guard", "--snapshot-dir", d, "--faults", str(SEED),
+                "--metrics-out", m, "--trace-out", tr]
+        if mode == "regression":
+            argv.append("--regression")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv)
+        for name, c in ops.launch_counts().items():
+            counts[name] = counts.get(name, 0) + c
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        check(rc == 0 and "restore bit-exact" in text,
+              f"launcher {mode} returned {rc}")
+        metrics = {}
+        for e in json.load(open(m))["metrics"]:
+            metrics.setdefault(e["name"], []).append(e)
+        rate = metrics["serve_session_steps_per_s"][0]["value"]
+        ev = metrics["engine_evictions_total"][0]["value"]
+        rej = sum(e["value"] for e in
+                  metrics.get("guard_rejected_inputs_total", []))
+        check(ev > 0 and rej > 0, f"launcher {mode}: evictions {ev}, "
+              f"guard rejections {rej}")
+        n_rec = len(validate_trace_file(tr))
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("[serve]") and "telemetry" not in ln
+                 and "->" not in ln]
+        print(f"[shell-e] launch.serve {mode}: rc 0 in {wall:.1f} s, "
+              f"{rate:.0f} session-steps/s (its own gauge), evictions "
+              f"{int(ev)}, guard rejections {int(rej)}, trace of {n_rec} "
+              f"valid records; " + " | ".join(lines[-4:]))
+    return counts
+
+
+def same_bits(u, v) -> bool:
+    """``torch.equal``, with NaN equal to NaN at the same places (a
+    rejected lane's NaN features reach the tick kernel)."""
+    if not u.is_floating_point():
+        return torch.equal(u, v)
+    nu, nv = u.isnan(), v.isnan()
+    return torch.equal(nu, nv) and torch.equal(u.masked_fill(nu, 0),
+                                               v.masked_fill(nv, 0))
+
+
+def tick_equals_plain(rec, what, iters):
+    """The ``stream_update`` launch recorded in ``rec`` against
+    ``ref.stream_tick`` on copies of its own arguments: every output and
+    every argument it updates in place, bitwise (NaN where NaN). Returns
+    the kernel's ms there (CUDA events)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stream_update import stream_update
+
+    a, kw = rec.args, rec.kw
+    runs = []
+    for fn in (stream_update, ref.stream_tick):
+        args, kws = cloned(a), cloned(kw)
+        runs.append([t for t in (*fn(*args, **kws), *args, *kws.values())
+                     if torch.is_tensor(t)])
+        del args, kws
+    torch.cuda.synchronize()
+    check(len(runs[0]) == len(runs[1]) and all(
+        same_bits(u, v) for u, v in zip(*runs)),
+        f"{what}: stream_update == ref.stream_tick bitwise on the tick's "
+        "own arguments")
+    del runs
+    torch.cuda.empty_cache()
+    return cuda_ms(lambda: stream_update(*cloned(a), **cloned(kw)), iters)
+
+
+def rejected_tick(xs, ys, taus, t, lanes):
+    """Tick ``t`` of the classification traffic with four lanes made
+    inadmissible, one of each fault: a NaN feature, an Inf feature, an
+    out-of-range label, an out-of-range tau. Returns the one-tick chunk
+    on the card."""
+    x, y, tau = (np.array(v[t:t + 1]) for v in (xs, ys, taus))
+    x[0, lanes[0], 3] = np.nan
+    x[0, lanes[1], 0] = np.inf
+    y[0, lanes[2]] = N_LABELS
+    tau[0, lanes[3]] = 1.5
+    return [torch.from_numpy(v).cuda() for v in (x, y, tau)]
+
+
+def check_serving_shell_kernels(fleet, guard, gstate, bad, lanes, reg,
+                                iters):
+    """Phase 11's kernels against their plain versions on the path's own
+    arguments (its launch counts already read): one more ``Fleet``
+    observe of tenant 0, which migrated 5 times (its pool's tick: S 16,
+    cap 1024, the non-evicting class form, wrap = cap); one more guarded
+    one-tick chunk on the guard's S 1024 state with the four lanes of
+    ``bad`` rejected (the evicting form; ``ev`` off on those lanes);
+    each ``stream_update`` launch == ``ref.stream_tick`` bitwise. Then
+    ``Fleet.predict``'s ``pairwise_sq_dists`` and ``cp_knn_counts``, and
+    the restored regression engine's ``intervals``' ``pairwise_sq_dists``
+    and ``interval_sweep``, each == plain, bitwise. Returns a note."""
+    from repro_torch.robustness import REJECT_KINDS
+
+    rng = np.random.default_rng(SEED + 13)
+    x = rng.standard_normal(DIM, dtype=np.float32)
+    with recorded("_stream_update") as rec:
+        fleet.observe({0: (x, np.int32(1), np.float32(0.5))})
+    a, kw = rec.args, rec.kw
+    check(kw["mode"] == "class" and kw["ev"] is None
+          and a[0].shape[:2] == (FLEET_POOL, FLEET_CAPS[1])
+          and int(kw["wrap"].min()) == FLEET_CAPS[1],
+          "fleet: a migrated tenant's pool launches the non-evicting class "
+          f"form at S {FLEET_POOL}, cap {FLEET_CAPS[1]}, wrap = cap")
+    ms = tick_equals_plain(rec, "fleet pool tick", iters)
+    mig = sum(fleet.occupancy(0) > b for b in fleet.buckets[:-1])
+    notes = [f"stream_update_class (fleet pool after {mig} migrations, "
+             f"non-evicting, S={FLEET_POOL} cap={FLEET_CAPS[1]}) == "
+             f"ref.stream_tick bitwise, {ms:.4f} ms there"]
+    del rec, a, kw
+
+    with recorded("_stream_update") as rec:
+        gstate, _ = guard.observe_many(gstate, *bad)
+    a, kw = rec.args, rec.kw
+    rej = guard.drain()["rejected"]
+    ev = kw["ev"]
+    check(kw["mode"] == "class" and ev is not None
+          and not bool(ev[lanes].any()) and int(ev.sum()) > 0
+          and rej == dict(zip(REJECT_KINDS, [2, 1, 1])),
+          f"guard: the one-tick chunk rejected {rej}, and its tick launched "
+          "the evicting form with ev off on the rejected lanes")
+    ms = tick_equals_plain(rec, "guarded tick", iters)
+    notes.append(
+        f"stream_update_class (guarded, evicting, lanes {lanes} rejected, "
+        f"S={a[0].shape[0]} cap={a[0].shape[1]}) == ref.stream_tick "
+        f"bitwise (NaN where NaN), {ms:.4f} ms there")
+    del rec, a, kw, ev, gstate, guard
+    torch.cuda.empty_cache()
+
+    Xq = torch.from_numpy(rng.standard_normal((QUERIES, DIM),
+                                              dtype=np.float32)).cuda()
+    for name in ("sq_dists", "cp_knn_counts"):
+        notes.append("Fleet.predict: " + check_read_kernel(
+            name, lambda: fleet.predict(0, Xq), iters))
+    eng, state = reg
+    Xr = torch.from_numpy(rng.standard_normal(
+        (state.D.shape[0], QUERIES, DIM), dtype=np.float32)).cuda()
+    for name in ("sq_dists", "interval_sweep"):
+        notes.append("restored regression intervals: " + check_read_kernel(
+            name, lambda: eng.intervals(state, Xr, epsilon=EPS), iters))
+    return "; ".join(notes)
+
+
+def serving_shell_path(S, W, iters):
+    """Phase 11: the serving shell at the main path's width (S tenants,
+    window = capacity W, dim 30, k 15 / 7, the launcher's drift traffic).
+    (a) instrumented == plain engines over W + 4 CHUNK ticks, the drained
+    counters == the numpy closed form, an instrumented chunk without a
+    host synchronisation; (b) the guard on chaos traffic (each lane-tick
+    faulted with probability 1e-3) == the gated unguarded engine; (c) a
+    snapshot round trip of each engine's full state through the
+    ``AsyncShardedSaver`` and ``restore_engine`` on the card, and, with
+    that store, a poisoned lane quarantined and restored; (d) the fleet;
+    (e) the launcher with ``--guard --snapshot-dir --faults
+    --metrics-out --trace-out``. The counts read, the path's kernels ==
+    plain on its own arguments (``check_serving_shell_kernels``).
+    Returns the phase's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import class_drift_traffic, reg_drift_traffic
+
+    T = W + 4 * CHUNK
+    t_phase = time.perf_counter()
+    lane = S // 3
+    bad_lanes = [1, S // 2, S - 2, S - 1]
+    root = tempfile.mkdtemp()
+    ops.reset_launch_counts()
+    try:
+        xs, ys, taus, _ = class_drift_traffic(SEED, S, T + 4 * CHUNK, DIM,
+                                              2.0)
+        eng, state = instrumented_run("classification", S, W, xs, ys, taus,
+                                      T)
+        guard, gstate = guard_run(eng, state, xs, ys, taus, T, 4)
+        bad = rejected_tick(xs, ys, taus, T, bad_lanes)
+        torch.cuda.empty_cache()
+        state, store, snap_lane, _ = snapshot_roundtrip(
+            "classification", eng, state, xs, ys, taus, T,
+            os.path.join(root, "class"), lane)
+        quarantine_restore(eng, state, store, snap_lane, lane)
+        del eng, state, store
+        shutil.rmtree(os.path.join(root, "class"))
+        torch.cuda.empty_cache()
+
+        xs, ys, taus, _, _ = reg_drift_traffic(SEED, S, T + 3 * CHUNK, DIM,
+                                               2.0)
+        eng, state = instrumented_run("regression", S, W, xs, ys, taus, T)
+        _, _, _, restored = snapshot_roundtrip(
+            "regression", eng, state, xs, ys, taus, T,
+            os.path.join(root, "reg"), lane, keep_restored=True)
+        del eng, state
+        shutil.rmtree(os.path.join(root, "reg"))
+        torch.cuda.empty_cache()
+
+        fleet = fleet_run()
+        counts = ops.launch_counts()
+        for name, c in launcher_runs(root, W).items():
+            counts[name] += c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("stream_update_class", "stream_update_reg",
+                 "pairwise_sq_dists", "cp_knn_counts", "interval_sweep"):
+        check(counts[name] > 0, f"{name} launched on the serving shell's "
+              "path")
+    print(f"[shell] phase 11 in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {counts}")
+    note = check_serving_shell_kernels(fleet, guard, gstate, bad, bad_lanes,
+                                       restored, iters)
+    print(f"[shell-k] {note}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -2454,6 +3183,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["regression_registry"] = regression_registry_path(args.iters)
     by_path["figures"] = figures_path()
+    torch.cuda.empty_cache()
+    by_path["serving_shell"] = serving_shell_path(S, W, args.iters)
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

@@ -1,10 +1,60 @@
 """Host-side bookkeeping of the serving engines, counterpart of
-``repro/core/engine_utils.py``: grow-mode capacity provisioning and the
-sliding-window occupancy invariant, for any state with ``n``, ``wrap``
-and ``capacity`` (classification ``Session`` and regression
-``RegStreamState``). (The JAX ``scan_chunk`` becomes the engines' plain
-Python loop over ticks.)"""
+``repro/core/engine_utils.py``: grow-mode capacity provisioning, the
+sliding-window occupancy invariant and the shared observe body with its
+telemetry, for any state with ``n``, ``wrap`` and ``capacity``
+(classification ``Session`` and regression ``RegStreamState``). (The JAX
+``scan_chunk`` becomes ``dispatch``'s plain Python loop over ticks.)"""
 from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+class _Untimed:
+    """The handle ``timed`` yields for an engine without telemetry."""
+
+    @staticmethod
+    def sync(value):
+        return value
+
+
+@contextlib.contextmanager
+def timed(eng, op: str, **fields):
+    """``eng.telemetry.timed(op, **fields)``, or nothing to time when the
+    engine is not instrumented."""
+    if eng.telemetry is None:
+        yield _Untimed
+        return
+    with eng.telemetry.timed(op, **fields) as tm:
+        yield tm
+
+
+def dispatch(eng, state, xs, ys, taus, active, *, op: str):
+    """The observe / observe_many body shared by both engines: ``T``
+    ticks of ``eng._step`` over ``xs (T, S, dim)`` and the rest, after
+    the grow-mode provisioning and the occupancy check. Returns ``(state,
+    p (T, S))``. An instrumented engine times the ticks under ``op`` and
+    records the chunk for its tick stats before the first tick, because
+    the ticks update ``n`` and ``head`` in place."""
+    if not eng.donate:
+        state = state.clone()
+    state = ensure_room(eng, state, xs.shape[0])
+    check_window_occupancy(eng, state)
+    window = state.capacity + 1 if eng.window is None else eng.window
+    T, S = xs.shape[:2]
+    if eng.telemetry is not None:
+        eng.telemetry.record_chunk(state, window, active)
+    with timed(eng, op, signature=(tuple(xs.shape), eng.capacity), ticks=T,
+               tenants=S, capacity=eng.capacity) as tm:
+        ps = []
+        for t in range(T):
+            state, p = eng._step(
+                state, xs[t], ys[t], taus[t], window, active[t], k=eng.k,
+                evictable=eng.window is not None, wmax=eng._wmax)
+            ps.append(p)
+        p = tm.sync(torch.stack(ps))
+    return state, p
 
 
 def ensure_room(eng, state, ticks: int):
@@ -54,4 +104,4 @@ def check_window_occupancy(eng, state) -> None:
     eng._w_checked = True
 
 
-__all__ = ["ensure_room", "check_window_occupancy"]
+__all__ = ["dispatch", "timed", "ensure_room", "check_window_occupancy"]

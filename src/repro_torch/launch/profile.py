@@ -7,6 +7,7 @@
     python -m repro_torch.launch.profile --kde-layouts
     python src/repro_torch/launch/profile.py --kernel-times
     python -m repro_torch.launch.profile --arch qwen2-1.5b
+    python -m repro_torch.launch.profile --telemetry
 
 At a serving cell's shapes (1024 tenants, window 1024, dim 30; k 15 for
 classification, k 7 for ``--regression``), fills every tenant's window
@@ -42,6 +43,15 @@ reads' kernels at that shape: ``interval_sweep`` (k 7) and
 draws for them. It calls only the wrappers' public signatures, so that
 run as a file with another tree's ``src`` first on ``PYTHONPATH`` it
 times that tree's kernels.
+``--telemetry`` prices the engines' instrumentation on the launcher's
+tick (one ``observe`` a tick, up to its p-values' copy to the host) at
+the classification cell's shapes, windows full: the host-clock median
+of 256 ticks of a plain engine, an instrumented one (metrics) and one
+with a tracer too, in turns; then each piece alone, 256 calls
+synchronised: ``record_chunk`` (the tick stats' copies), the ``timed``
+wrapper around an empty body, and ``TickStats.flush`` of 64 recorded
+one-tick chunks; and the CUDA launches (``cudaLaunchKernel`` calls) of
+8 ticks of each engine, from ``torch.profiler``.
 ``--arch NAME`` traces the LM conformal-OOD serving path at full width
 (bf16, random weights from the seed): one calibration embedding pass over
 256 sequences of 512 tokens (one untraced pass first) and one decode step
@@ -303,6 +313,95 @@ def kernel_times() -> int:
     return 0
 
 
+def telemetry_costs() -> int:
+    """``--telemetry`` (module doc)."""
+    import io
+
+    from repro_torch.telemetry import MetricsRegistry, Tracer
+
+    T = W + 2 * TICKS
+    xs, ys, taus, _ = class_drift_traffic(SEED, S, T + 256, P, 2.0)
+    kw = dict(n_sessions=S, capacity=W, dim=P, k=K_CLASS, window=W,
+              device="cuda")
+    engs = {"plain": ServingEngine(**kw),
+            "metrics": ServingEngine(**kw, instrument=True,
+                                     metrics=MetricsRegistry()),
+            "tracer": ServingEngine(**kw, instrument=True,
+                                    metrics=MetricsRegistry(),
+                                    tracer=Tracer(io.StringIO()))}
+    state = engs["plain"].init_state()
+    for c0 in range(0, T, CHUNK):
+        state, _ = engs["plain"].observe_many(state, xs[c0:c0 + CHUNK],
+                                              ys[c0:c0 + CHUNK],
+                                              taus[c0:c0 + CHUNK])
+    states = {name: state.clone() for name in engs}
+    ms = {name: [] for name in engs}
+    order = list(engs)
+    for i in range(256):
+        t = T + i
+        for name in order[i % 3:] + order[:i % 3]:
+            h0 = time.perf_counter()
+            states[name], p = engs[name].observe(states[name], xs[t], ys[t],
+                                                 taus[t])
+            p.cpu()
+            ms[name].append((time.perf_counter() - h0) * 1e3)
+    med = {name: float(np.median(v)) for name, v in ms.items()}
+    print(f"[telemetry] {torch.cuda.get_device_name(0)}: S={S} window={W} "
+          f"dim={P} k={K_CLASS}, one-tick observe up to p.cpu(), median of "
+          f"256 in turns (host clock): " + ", ".join(
+              f"{n} {v:.3f} ms" for n, v in med.items()))
+
+    tele = engs["metrics"].telemetry
+    st = states["metrics"]
+    act = torch.ones((1, S), dtype=torch.bool, device=st.D.device)
+
+    def alone(fn, n=256):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - h0) * 1e3 / n
+
+    def empty_timed():
+        with tele.timed("observe", signature="probe", ticks=1, tenants=S,
+                        capacity=W):
+            pass
+
+    def record_then_flush():
+        for _ in range(64):
+            tele.record_chunk(st, W, act)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        tele.ticks.flush()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - h0) * 1e3
+
+    tele.ticks.flush_every = 10**9  # no flush inside the record timing
+    rec = alone(lambda: tele.record_chunk(st, W, act))
+    tele.ticks.flush()
+    flush = float(np.median([record_then_flush() for _ in range(16)]))
+    tele.ticks.flush_every = 64
+    timed = alone(empty_timed)
+    print(f"[telemetry] alone, synchronised: record_chunk {rec:.4f} ms, "
+          f"timed (empty body) {timed:.4f} ms, flush of 64 recorded "
+          f"chunks {flush:.4f} ms ({flush / 64:.4f} ms a tick)")
+
+    for name, eng in engs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for i in range(TICKS):
+                t = T + 256 + i - TICKS
+                states[name], p = eng.observe(states[name], xs[t], ys[t],
+                                              taus[t])
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+        print(f"[telemetry] {name}: {n / TICKS:.1f} cudaLaunchKernel calls "
+              f"a tick over {TICKS} ticks")
+    tele.drain()
+    return 0
+
+
 def profile_lm(arch: str, trace: str | None) -> int:
     """One calibration embedding pass and one decode step, traced."""
     cfg, params = serve.lm_model(arch, False, SEED, "cuda")
@@ -334,6 +433,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel-times", action="store_true",
                     help="time kde_rowsums, pairwise_sq_dists, "
                     "interval_sweep and cp_knn_counts at the paths' shapes")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="price the engines' instrumentation on the "
+                    "launcher's one-tick observe")
     ap.add_argument("--arch", default=None,
                     help="trace the LM serving path of this architecture "
                     "(e.g. qwen2-1.5b)")
@@ -344,6 +446,8 @@ def main(argv=None) -> int:
         return kde_layouts()
     if args.kernel_times:
         return kernel_times()
+    if args.telemetry:
+        return telemetry_costs()
     if args.arch:
         return profile_lm(args.arch, args.trace or None)
     if args.measure:

@@ -21,6 +21,24 @@ simple-mixture martingale; then one read over ``--queries`` points per
 tenant: ``predict`` p-values, or ``--regression`` prediction intervals at
 ``--eps`` with their coverage and median width on fresh labelled points.
 
+The engines run instrumented (``repro_torch.telemetry``), and every
+serving mode reports through one metrics registry: op latency
+histograms, the device tick counters and the validity monitors (rolling
+coverage, p-value uniformity, drift martingales), printed by
+``metrics.to_text()``; ``--metrics-out`` writes the same snapshot as JSON
+and ``--trace-out`` one JSONL record per engine operation (``--annotate``
+adds ``torch.profiler`` ranges). ``--faults SEED`` corrupts the traffic
+with a keyed ``FaultPlan.random`` at ``--fault-rate``; ``--guard`` serves
+through a ``TickGuard`` (admission, poison-lane quarantine);
+``--snapshot-dir`` ends with a snapshot round trip that exits 1 unless
+bit-exact (and, with ``--guard``, holds the guard's restore source).
+``--shards`` other than 1 is refused: tenant sharding is not ported.
+
+    python -m repro_torch.launch.serve --sessions 64 --steps 1100 \\
+        --window 1024 --capacity 1024 --dim 30 --k 15 --guard \\
+        --snapshot-dir /tmp/snap --faults 0 --metrics-out m.json \\
+        --trace-out t.jsonl
+
 ``--measure NAME`` (knn, simplified_knn, kde, lssvm, bootstrap) serves
 each tenant through its own registry ``ConformalPredictor`` instead, on
 the same classification traffic: ``fit`` on a warm-up prefix, then per
@@ -58,12 +76,17 @@ import torch
 from repro_torch import configs
 from repro_torch.core.lm_conformal import (ConformalOodDetector,
                                           sequence_embedding)
-from repro_torch.core.online import simple_mixture_log_martingale
 from repro_torch.data.lm_pipeline import TokenStream
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.regression import RegressionServingEngine
-from repro_torch.serving import ServingEngine, registry
+from repro_torch.robustness import (VALUE_FAULTS, Fault, FaultInjector,
+                                    FaultPlan, TickGuard, corrupt_traffic)
+from repro_torch.serving import (AsyncShardedSaver, ServingEngine,
+                                 SessionStore, registry)
+from repro_torch.telemetry import (CoverageMonitor, DriftMonitor,
+                                   EngineTelemetry, MetricsRegistry, Tracer,
+                                   UniformityMonitor)
 
 
 def class_drift_traffic(seed: int, S: int, T: int, dim: int, drift: float):
@@ -121,29 +144,175 @@ def interval_coverage(iv, yq):
     return hit.mean(-1), iv[..., 1] - iv[..., 0]
 
 
+def _telemetry(args):
+    """One metrics registry and an optional JSONL tracer per run."""
+    metrics = MetricsRegistry()
+    tracer = (Tracer(args.trace_out, annotate=args.annotate)
+              if args.trace_out else None)
+    return metrics, tracer
+
+
+def _check_shards(shards: int, sessions: int) -> None:
+    """``--shards`` against ``--sessions`` and the one card the port
+    serves on (tenant sharding across devices is not ported)."""
+    if shards < 1:
+        raise SystemExit("--shards must be >= 1")
+    if shards == 1:
+        return
+    if sessions % shards:
+        raise SystemExit(
+            f"--sessions {sessions} is not divisible by --shards "
+            f"{shards}; pad the session count")
+    raise SystemExit(
+        f"--shards {shards} exceeds the 1 visible device(s): tenant "
+        "sharding across devices is not ported; serve with --shards 1")
+
+
+def _chaos_traffic(args, xs, ys, taus, *, mode):
+    """``--faults SEED``: the ``(T, S)`` traffic corrupted in place by a
+    keyed ``FaultPlan.random`` (NaN / Inf features, out-of-range labels
+    and taus)."""
+    if args.faults < 0:
+        return
+    T, S = ys.shape
+    plan = FaultPlan.random(args.faults, steps=T, tenants=S,
+                            rate=args.fault_rate, kinds=VALUE_FAULTS)
+    hits = corrupt_traffic(plan, xs, ys, taus, mode=mode, n_labels=2)
+    print(f"[serve] chaos: {len(plan)} traffic fault(s) over {T} steps "
+          f"(seed {args.faults}, rate {args.fault_rate}, "
+          f"{len({h[1] for h in hits})} tenant(s) hit)")
+
+
+def _maybe_guard(args, eng, state, metrics, tracer):
+    """``--guard``: the engine wrapped in a ``TickGuard``; with
+    ``--snapshot-dir`` a first committed snapshot is its lane-restore
+    source. Returns ``(engine or guard to tick, guard or None)``."""
+    if not args.guard:
+        return eng, None
+    store = None
+    if args.snapshot_dir:
+        store = SessionStore(args.snapshot_dir, metrics=metrics,
+                             tracer=tracer)
+        store.save(0, state, meta=eng.meta(), blocking=True)
+    guard = TickGuard(eng, store=store, metrics=metrics)
+    src = ("snapshot" if store is not None
+           else "none (tripped lanes stay frozen)")
+    print(f"[serve] guard: admission + quarantine on (restore source: "
+          f"{src})")
+    return guard, guard
+
+
+def _drain_guard(guard, state):
+    if guard is None:
+        return state
+    state = guard.finalize(state)  # flush the deferred poison sweep
+    rep = guard.drain()
+    print(f"[serve] guard: rejected {sum(rep['rejected'].values())} "
+          f"input(s) {dict(rep['rejected'])}, "
+          f"{rep['quarantines']} quarantine(s), "
+          f"{rep['restores']} restore(s), "
+          f"{len(rep['quarantined_lanes'])} lane(s) still frozen")
+    return state
+
+
+def _validity_metrics(pvals, drifted, args, *, engine, metrics,
+                      use_max=False):
+    """The ``(S, T)`` p-value stream (NaN where a tenant had no tick)
+    through the online validity monitors, published as metrics: rolling
+    coverage against 1 - eps, the uniformity KS distance, the drift
+    martingales (``drift_log_m`` of the first 8 tenants). ``use_max``
+    flags drift on the running maximum of log M. Returns the flags."""
+    p = np.asarray(pvals, float)
+    S, T = p.shape
+    cov = CoverageMonitor(args.eps, S, window=T)
+    uni = UniformityMonitor(S, window=T)
+    drift = DriftMonitor(S, threshold=args.log_threshold)
+    for t in range(T):
+        col = p[:, t]
+        cov.update(col)
+        uni.update(col)
+        drift.update(col)
+    cov.export(metrics, engine=engine)
+    uni.export(metrics, engine=engine)
+    drift.export(metrics, engine=engine, use_max=use_max)
+    stat = drift.max_log_m if use_max else drift.log_m()
+    for s in range(min(S, 8)):
+        metrics.gauge("drift_log_m", engine=engine, tenant=s,
+                      injected=bool(drifted[s])).set(float(stat[s]))
+    metrics.gauge("drift_tenants_injected", engine=engine).set(
+        int(np.asarray(drifted).sum()))
+    return drift.flagged(use_max=use_max)
+
+
+def _emit_report(args, metrics, tracer, *, mode) -> None:
+    """The one report path of every serving mode: the metrics' text
+    export, ``--metrics-out`` (JSON) and ``--trace-out`` (JSONL)."""
+    print(f"[serve] telemetry ({mode}):")
+    for line in metrics.to_text().splitlines():
+        print("  " + line)
+    if args.metrics_out:
+        metrics.dump(args.metrics_out)
+        print(f"[serve] metrics -> {args.metrics_out}")
+    if tracer is not None:
+        tracer.close()
+        print(f"[serve] trace -> {tracer.path}")
+
+
+def _snapshot_roundtrip(args, state, eng, metrics, tracer) -> int:
+    """Save the final state, restore it with its engine and compare every
+    leaf bitwise (exit code 1 on a mismatch). With ``--faults`` the save
+    goes through the ``AsyncShardedSaver`` with one injected transient
+    write failure, which its retry absorbs."""
+    injector = None
+    if args.faults >= 0:
+        injector = FaultInjector(FaultPlan(args.faults, (
+            Fault("store.write", args.steps, "write_fail", times=1),)),
+            metrics=metrics)
+    store = SessionStore(args.snapshot_dir, metrics=metrics, tracer=tracer,
+                         injector=injector)
+    if injector is not None:
+        saver = AsyncShardedSaver(store, 1, metrics=metrics, seed=args.seed)
+        saver.save(args.steps, state, meta=eng.meta())
+        saver.close()
+    else:
+        store.save(args.steps, state, meta=eng.meta(), blocking=True)
+    eng2, state2, step = store.restore_engine(device=eng.device)
+    same = (type(eng2) is type(eng) and all(
+        torch.equal(a, b) for a, b in zip(state.leaves(), state2.leaves())))
+    print(f"[serve] snapshot@step {step} -> restore "
+          f"{'bit-exact' if same else 'MISMATCH'}")
+    return 0 if same else 1
+
+
 def serve_sessions(args) -> int:
     S, T, dim = args.sessions, args.steps, args.dim
     if T < 2:
         raise SystemExit("--steps must be >= 2 (tick 0 is the warm-up)")
+    _check_shards(args.shards, S)
     kind = "regression" if args.regression else "classification"
+    metrics, tracer = _telemetry(args)
+    tele = dict(instrument=True, metrics=metrics, tracer=tracer,
+                device=args.device)
     if args.regression:
         eng = RegressionServingEngine(
             n_sessions=S, capacity=args.capacity, dim=dim, k=args.k,
-            window=args.window, device=args.device)
+            window=args.window, **tele)
         xs, ys, taus, drifted, w = reg_drift_traffic(args.seed, S, T, dim,
                                                      args.drift)
     else:
         eng = ServingEngine(n_sessions=S, capacity=args.capacity, dim=dim,
                             k=args.k, n_labels=2, window=args.window,
-                            device=args.device)
+                            **tele)
         xs, ys, taus, drifted = class_drift_traffic(args.seed, S, T, dim,
                                                     args.drift)
     on_card = eng.device.type == "cuda"
     print(f"[serve] {kind} engine: {S} sessions x cap {args.capacity} "
           f"(window={args.window}, k={args.k}, dim={dim}) on {eng.device}")
+    _chaos_traffic(args, xs, ys, taus, mode=kind)
     state = eng.init_state()
+    drv, guard = _maybe_guard(args, eng, state, metrics, tracer)
     pvals = np.full((T, S), np.nan, np.float32)
-    state, p = eng.observe(state, xs[0], ys[0], taus[0])  # warm-up tick
+    state, p = drv.observe(state, xs[0], ys[0], taus[0])  # warm-up tick
     ops.reset_launch_counts()
     ticks_ms = []
     t0 = time.perf_counter()
@@ -153,7 +322,7 @@ def serve_sessions(args) -> int:
             e0.record()
         else:
             h0 = time.perf_counter()
-        state, p = eng.observe(state, xs[t], ys[t], taus[t])
+        state, p = drv.observe(state, xs[t], ys[t], taus[t])
         if on_card:
             e1.record()
             e1.synchronize()
@@ -162,13 +331,20 @@ def serve_sessions(args) -> int:
             ticks_ms.append((time.perf_counter() - h0) * 1e3)
         pvals[t] = p.cpu().numpy()
     dt = time.perf_counter() - t0
+    metrics.gauge("serve_wall_s", mode=kind).set(dt)
+    metrics.gauge("serve_session_steps_per_s", mode=kind).set(
+        S * (T - 1) / dt)
     clock = "CUDA events" if on_card else "host clock, CPU"
     print(f"[serve] {S * (T - 1) / dt:.1f} session-steps/s over {T - 1} "
           f"ticks; tick p50 {np.percentile(ticks_ms, 50):.3f} ms, p99 "
           f"{np.percentile(ticks_ms, 99):.3f} ms ({clock})")
+    eng.telemetry.drain()
+    state = _drain_guard(guard, state)
 
-    logm = simple_mixture_log_martingale(torch.from_numpy(pvals[1:].T))
-    flagged = (logm[:, -1] > args.log_threshold).numpy()
+    # the earliest regression p-values are degenerate (k-NN warm-up)
+    warm = 2 * args.k if args.regression else 1
+    flagged = _validity_metrics(pvals[warm:].T, drifted, args, engine=kind,
+                                metrics=metrics)
     print(f"[serve] drift flags: {int(flagged[drifted].sum())}/"
           f"{int(drifted.sum())} drifted tenants, "
           f"{int(flagged[~drifted].sum())}/{int((~drifted).sum())} others")
@@ -179,6 +355,10 @@ def serve_sessions(args) -> int:
                              np.where(drifted, args.drift, 0.0))
         iv = eng.intervals(state, Xq, epsilon=args.eps)
         cov, width = interval_coverage(iv, yq)
+        metrics.gauge("intervals_finite_frac", engine=kind).set(
+            float(torch.isfinite(iv).float().mean()))
+        metrics.gauge("intervals_median_width", engine=kind).set(
+            float(np.nanmedian(width)))
         print(f"[serve] intervals at eps={args.eps}: {tuple(iv.shape)}, "
               f"coverage {cov.mean():.4f} (non-drifted "
               f"{cov[~drifted].mean():.4f}; target >= {1 - args.eps:g}), "
@@ -191,15 +371,20 @@ def serve_sessions(args) -> int:
         print(f"[serve] predict: p-values {tuple(pv.shape)}, finite "
               f"{bool(torch.isfinite(pv).all())}")
     print(f"[serve] kernel launches: {ops.kernel_launches()}")
-    return 0
+    rc = 0
+    if args.snapshot_dir:
+        rc = _snapshot_roundtrip(args, state, eng, metrics, tracer)
+    _emit_report(args, metrics, tracer, mode=kind)
+    return rc
 
 
 def serve_registry(args) -> int:
     """Multi-tenant sliding-window serving through the measure registry
     (the counterpart of the JAX launcher's registry mode): a Python loop
-    over tenants, one exact-shape ``ConformalPredictor`` each. Drift is
-    flagged on the running maximum of the log martingale, since a measure
-    that retrains on its window re-conforms within a few ticks."""
+    over tenants, one exact-shape ``ConformalPredictor`` each, timed
+    through ``EngineTelemetry`` without state accessors. Drift is flagged
+    on the running maximum of the log martingale, since a measure that
+    retrains on its window re-conforms within a few ticks."""
     spec = registry.get(args.measure)
     if spec.intervals is not None:
         raise SystemExit(
@@ -215,15 +400,19 @@ def serve_registry(args) -> int:
     xs, ys, _, drifted = class_drift_traffic(args.seed, S, T, dim,
                                              args.drift)
     xs, ys = xs.swapaxes(0, 1), ys.T  # (S, T, dim), (S, T)
+    metrics, tracer = _telemetry(args)
+    tele = EngineTelemetry(engine="registry", metrics=metrics,
+                           tracer=tracer)
     ms = {"fit": [], "pvalues": [], "observe": [], "evict": []}
     on_card = torch.device(args.device).type == "cuda"
 
     def timed(op, fn):
-        h0 = time.perf_counter()
-        out = fn()
-        if on_card:
-            torch.cuda.synchronize()
-        ms[op].append((time.perf_counter() - h0) * 1e3)
+        with tele.timed(op, signature=args.measure, tenants=1):
+            h0 = time.perf_counter()
+            out = fn()
+            if on_card:
+                torch.cuda.synchronize()
+            ms[op].append((time.perf_counter() - h0) * 1e3)
         return out
 
     ops.reset_launch_counts()
@@ -240,6 +429,10 @@ def serve_registry(args) -> int:
             if cp.n > w:
                 timed("evict", lambda: cp.evict(0))
     dt = time.perf_counter() - t0
+    metrics.gauge("serve_wall_s", mode="registry",
+                  measure=args.measure).set(dt)
+    metrics.gauge("serve_session_steps_per_s", mode="registry",
+                  measure=args.measure).set(S * (T - warm) / dt)
     print(f"[serve] registry {args.measure}: {S} sessions, window {w}, "
           f"dim {dim}, warm-up {warm} on {args.device}: "
           f"{S * (T - warm) / dt:.1f} session-steps/s; per-operation ms "
@@ -247,8 +440,8 @@ def serve_registry(args) -> int:
                       for op, v in ms.items() if v)
           + (" (host clock, synchronised)" if on_card else
              " (host clock, CPU)"))
-    logm = simple_mixture_log_martingale(torch.from_numpy(pvals))
-    flagged = (logm.max(-1).values > args.log_threshold).numpy()
+    flagged = _validity_metrics(pvals, drifted, args, engine="registry",
+                                metrics=metrics, use_max=True)
     print(f"[serve] drift flags (running max): "
           f"{int(flagged[drifted].sum())}/{int(drifted.sum())} drifted "
           f"tenants, {int(flagged[~drifted].sum())}/"
@@ -256,6 +449,7 @@ def serve_registry(args) -> int:
     print(f"[serve] kernel launches: {ops.kernel_launches()}")
     print(f"[serve] forest calls on the card (plain PyTorch, many CUDA "
           f"kernels each): {ops.forest_calls()}")
+    _emit_report(args, metrics, tracer, mode=f"registry:{args.measure}")
     return 0
 
 
@@ -402,9 +596,42 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="sessions mode: end with a snapshot round trip "
+                    "here (exit 1 unless bit-exact); with --guard, a first "
+                    "snapshot is the quarantine's restore source")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="tenant sharding across devices: not ported, only "
+                    "1 is served")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the end-of-run metrics snapshot (the one "
+                    "the report prints) to this JSON file")
+    ap.add_argument("--trace-out", default="",
+                    help="record one JSONL trace record per engine "
+                    "operation to this file (repro_torch.telemetry.tracer "
+                    "schema)")
+    ap.add_argument("--annotate", action="store_true",
+                    help="with --trace-out: wrap traced operations in "
+                    "torch.profiler.record_function ranges")
+    ap.add_argument("--faults", type=int, default=-1, metavar="SEED",
+                    help="sessions mode: corrupt the traffic with a keyed "
+                    "FaultPlan.random of this seed (and, with "
+                    "--snapshot-dir, fail the final save once); -1 (the "
+                    "default) disables")
+    ap.add_argument("--fault-rate", type=float, default=0.02,
+                    help="per-step fault probability for --faults")
+    ap.add_argument("--guard", action="store_true",
+                    help="sessions mode: serve through a TickGuard "
+                    "(admission + poison-lane quarantine; restore from "
+                    "--snapshot-dir when set)")
     args = ap.parse_args(argv)
     if args.sessions > 0:
-        return serve_registry(args) if args.measure else serve_sessions(args)
+        if args.measure:
+            if args.guard or args.faults >= 0:
+                raise SystemExit("--guard/--faults cover the engine "
+                                 "modes, not --measure")
+            return serve_registry(args)
+        return serve_sessions(args)
     if args.regression or args.measure:
         raise SystemExit("--regression and --measure need --sessions N")
     return serve_lm(args)

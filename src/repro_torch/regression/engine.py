@@ -21,6 +21,11 @@ return it; ``donate=False`` clones the state first. Tenants with no
 traffic on a tick are masked by ``active`` (state bitwise unchanged, NaN
 p-value). Without a ``window`` the engine grows: once a chunk could
 overflow, every tenant's capacity doubles.
+
+``instrument=True`` attaches ``telemetry.EngineTelemetry`` as on the
+classification engine (``engine="regression"``; ``intervals`` and
+``pvalues`` are the timed reads). An instrumented engine is bitwise the
+plain one.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch._device import resolve
 from repro_torch.core import engine_utils
 from repro_torch.regression import session as sess_m
 from repro_torch.regression.stream import RegStreamState
+from repro_torch.telemetry.hooks import EngineTelemetry
 
 
 class RegressionServingEngine:
@@ -45,14 +51,17 @@ class RegressionServingEngine:
     head advance that never shifts or copies the ``(cap, cap)`` distance
     matrices; "compact" — the historic positional layout, whose eviction
     compacts every leaf (O(cap^2) bytes a tick): the ring's bit-oracle
-    and its baseline, bit-identical to "ring"; device: ``cuda`` by
-    default (raises without a GPU; ``"cpu"`` runs the plain PyTorch
-    path).
+    and its baseline, bit-identical to "ring"; instrument, metrics,
+    tracer, sync_timing: telemetry, as on ``serving.ServingEngine``;
+    device: ``cuda`` by default (raises without a GPU; ``"cpu"`` runs
+    the plain PyTorch path).
     """
 
     def __init__(self, *, n_sessions: int, capacity: int, dim: int, k: int,
                  window: int | None = None, dtype=torch.float32,
-                 donate: bool = True, layout: str = "ring", device=None):
+                 donate: bool = True, layout: str = "ring",
+                 instrument: bool = False, metrics=None, tracer=None,
+                 sync_timing: bool = False, device=None):
         if window is not None and window > capacity:
             raise ValueError(f"window {window} exceeds capacity {capacity}")
         if window is not None and window < 1:
@@ -78,6 +87,12 @@ class RegressionServingEngine:
                                                      k)
         self._w_checked = False
         self._n_bound: int | None = None
+        self.telemetry = None
+        if instrument:
+            self.telemetry = EngineTelemetry(
+                engine="regression", metrics=metrics, tracer=tracer,
+                sync=sync_timing, n_of=lambda s: s.n,
+                head_of=lambda s: s.head, wrap_of=lambda s: s.wrap)
 
     # -- state --------------------------------------------------------------
 
@@ -104,8 +119,9 @@ class RegressionServingEngine:
         """One tick: learn ``(x[s], y[s])`` in every active slot. Returns
         ``(state, p (S,))`` — the T=1 case of ``observe_many``."""
         x, y, tau, active = self._cast(x, y, tau, active)
-        state, p = self.observe_many(state, x[None], y[None], tau[None],
-                                     active[None])
+        state, p = engine_utils.dispatch(self, state, x[None], y[None],
+                                         tau[None], active[None],
+                                         op="observe")
         return state, p[0]
 
     def observe_many(self, state: RegStreamState, xs, ys, taus,
@@ -115,23 +131,24 @@ class RegressionServingEngine:
         equals what the t-th of T ``observe`` calls returns. In grow mode
         the whole chunk's occupancy is provisioned first."""
         xs, ys, taus, active = self._cast(xs, ys, taus, active)
-        if not self.donate:
-            state = state.clone()
-        state = engine_utils.ensure_room(self, state, xs.shape[0])
-        engine_utils.check_window_occupancy(self, state)
-        window = state.capacity + 1 if self.window is None else self.window
-        ps = []
-        for t in range(xs.shape[0]):
-            state, p = self._step(
-                state, xs[t], ys[t], taus[t], window, active[t], k=self.k,
-                evictable=self.window is not None, wmax=self._wmax)
-            ps.append(p)
-        return state, torch.stack(ps)
+        return engine_utils.dispatch(self, state, xs, ys, taus, active,
+                                     op="observe_many")
+
+    def reset_occupancy(self) -> None:
+        """Forget the grow-mode occupancy bound and the window-invariant
+        check, so the next ``observe`` reads and checks them again. Call
+        after substituting a state this engine did not produce (a
+        restore, a lane repair)."""
+        self._n_bound = None
+        self._w_checked = False
 
     def grow(self, state: RegStreamState, factor: int = 2) -> RegStreamState:
         """Multiply every tenant's capacity (a new state). A sliding
         engine pins the ring modulus back to its window block."""
-        out = sess_m.grow(state, factor)
+        with engine_utils.timed(self, "grow", tenants=self.n_sessions,
+                                capacity=self.capacity * factor,
+                                signature=self.capacity):
+            out = sess_m.grow(state, factor)
         self.capacity = out.capacity
         if self._wmax is not None:
             out.wrap = torch.full_like(out.wrap, self._wmax)
@@ -149,8 +166,10 @@ class RegressionServingEngine:
                   epsilon: float) -> torch.Tensor:
         """Prediction intervals ``(S, m, 2)``; ``X_test`` is ``(S, m,
         dim)`` per tenant or ``(m, dim)`` shared by all."""
-        return sess_m.intervals(state, self._queries(X_test), k=self.k,
-                                epsilon=epsilon)
+        X_test = self._queries(X_test)
+        with self._timed_read("intervals", X_test) as tm:
+            return tm.sync(sess_m.intervals(state, X_test, k=self.k,
+                                            epsilon=epsilon))
 
     def pvalues(self, state: RegStreamState, X_test,
                 t_query) -> torch.Tensor:
@@ -158,8 +177,14 @@ class RegressionServingEngine:
         nq)``."""
         t_query = torch.as_tensor(t_query, dtype=self.dtype,
                                   device=self.device)
-        return sess_m.pvalues(state, self._queries(X_test), t_query,
-                              k=self.k)
+        X_test = self._queries(X_test)
+        with self._timed_read("pvalues", X_test) as tm:
+            return tm.sync(sess_m.pvalues(state, X_test, t_query, k=self.k))
+
+    def _timed_read(self, op: str, X_test):
+        return engine_utils.timed(
+            self, op, signature=(tuple(X_test.shape), self.capacity),
+            tenants=self.n_sessions, capacity=self.capacity)
 
     # -- snapshot metadata --------------------------------------------------
 

@@ -213,8 +213,14 @@ def _observe(st: RegStreamState, x_new, y_new, tau, *, k):
 def grow(st: RegStreamState, factor: int = 2) -> RegStreamState:
     """Multiply every tenant's capacity by ``factor`` (a new state),
     normalizing the ring to linear order first."""
-    cap = st.capacity
-    extra = cap * (factor - 1)
+    return repad(st, st.capacity * factor)
+
+
+def repad(st: RegStreamState, new_cap: int) -> RegStreamState:
+    """Every tenant's capacity raised to ``new_cap`` (a new state): the
+    ring normalised to linear order, every leaf padded with its inert
+    fill. The fleet migrates a lane with it."""
+    extra = new_cap - st.capacity
     s = stream.to_linear(st)
     return RegStreamState(
         X=F.pad(s.X, (0, 0, 0, extra)),
@@ -224,7 +230,7 @@ def grow(st: RegStreamState, factor: int = 2) -> RegStreamState:
         nbr_y=F.pad(s.nbr_y, (0, 0, 0, extra)),
         n=s.n, head=s.head,
         aid=F.pad(s.aid, (0, extra)),
-        wrap=torch.full_like(s.wrap, cap * factor),
+        wrap=torch.full_like(s.wrap, new_cap),
         nbr_a=F.pad(s.nbr_a, (0, 0, 0, extra)),
     )
 

@@ -24,6 +24,12 @@ clones the state first and leaves the caller's untouched. Tenants with no
 traffic on a tick are masked by ``active`` (state bitwise unchanged, NaN
 p-value). Without a ``window`` the engine grows: once a chunk could
 overflow, every tenant's capacity doubles.
+
+``instrument=True`` attaches ``telemetry.EngineTelemetry`` under the JAX
+engine's metric names: each observe / observe_many / grow / predict is
+timed and traced, and a chunk's tick counters (evictions, ring wraps,
+occupancy) accumulate on the device until ``engine.telemetry.drain()``.
+An instrumented engine is bitwise the plain one.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch._device import resolve
 from repro_torch.core import engine_utils
 from repro_torch.serving import session as sess_m
 from repro_torch.serving.session import Session
+from repro_torch.telemetry.hooks import EngineTelemetry
 
 
 class ServingEngine:
@@ -51,6 +58,11 @@ class ServingEngine:
     historic positional layout, whose eviction compacts every leaf
     (O(cap^2) bytes a tick): the ring's bit-oracle and its baseline,
     bit-identical to "ring";
+    instrument: attach telemetry (module doc); metrics: the
+    ``MetricsRegistry`` it publishes into (default: the process-wide
+    one); tracer: an optional ``Tracer``, one record an operation;
+    sync_timing: synchronise inside each timed operation, so the times
+    are device-true instead of enqueue times (off on the serving path);
     device: where the state lives, ``cuda`` by default (raises without a
     GPU; ``"cpu"`` runs the plain PyTorch path).
     """
@@ -58,7 +70,9 @@ class ServingEngine:
     def __init__(self, *, n_sessions: int, capacity: int, dim: int, k: int,
                  n_labels: int = 2, window: int | None = None,
                  dtype=torch.float32, donate: bool = True,
-                 layout: str = "ring", device=None):
+                 layout: str = "ring", instrument: bool = False,
+                 metrics=None, tracer=None, sync_timing: bool = False,
+                 device=None):
         if window is not None and window > capacity:
             raise ValueError(f"window {window} exceeds capacity {capacity}")
         if window is not None and window < 1:
@@ -85,6 +99,12 @@ class ServingEngine:
                                                      k)
         self._w_checked = False
         self._n_bound: int | None = None
+        self.telemetry = None
+        if instrument:
+            self.telemetry = EngineTelemetry(
+                engine="classification", metrics=metrics, tracer=tracer,
+                sync=sync_timing, n_of=lambda s: s.knn.n,
+                head_of=lambda s: s.head, wrap_of=lambda s: s.wrap)
 
     # -- state --------------------------------------------------------------
 
@@ -117,8 +137,9 @@ class ServingEngine:
         """One tick: learn ``(x[s], y[s])`` in every active slot. Returns
         ``(state, p (S,))`` — the T=1 case of ``observe_many``."""
         x, y, tau, active = self._cast(x, y, tau, active)
-        state, p = self.observe_many(state, x[None], y[None], tau[None],
-                                     active[None])
+        state, p = engine_utils.dispatch(self, state, x[None], y[None],
+                                         tau[None], active[None],
+                                         op="observe")
         return state, p[0]
 
     def observe_many(self, state: Session, xs, ys, taus, active=None):
@@ -127,23 +148,24 @@ class ServingEngine:
         equals what the t-th of T ``observe`` calls returns. In grow mode
         the whole chunk's occupancy is provisioned first."""
         xs, ys, taus, active = self._cast(xs, ys, taus, active)
-        if not self.donate:
-            state = state.clone()
-        state = engine_utils.ensure_room(self, state, xs.shape[0])
-        engine_utils.check_window_occupancy(self, state)
-        window = state.capacity + 1 if self.window is None else self.window
-        ps = []
-        for t in range(xs.shape[0]):
-            state, p = self._step(
-                state, xs[t], ys[t], taus[t], window, active[t], k=self.k,
-                evictable=self.window is not None, wmax=self._wmax)
-            ps.append(p)
-        return state, torch.stack(ps)
+        return engine_utils.dispatch(self, state, xs, ys, taus, active,
+                                     op="observe_many")
+
+    def reset_occupancy(self) -> None:
+        """Forget the grow-mode occupancy bound and the window-invariant
+        check, so the next ``observe`` reads and checks them again. Call
+        after substituting a state this engine did not produce (a
+        restore, a lane repair)."""
+        self._n_bound = None
+        self._w_checked = False
 
     def grow(self, state: Session, factor: int = 2) -> Session:
         """Multiply every tenant's capacity (a new state). A sliding
         engine pins the ring modulus back to its window block."""
-        out = sess_m.grow(state, factor)
+        with engine_utils.timed(self, "grow", tenants=self.n_sessions,
+                                capacity=self.capacity * factor,
+                                signature=self.capacity):
+            out = sess_m.grow(state, factor)
         self.capacity = out.capacity
         if self._wmax is not None:
             out.wrap = torch.full_like(out.wrap, self._wmax)
@@ -157,8 +179,13 @@ class ServingEngine:
         if X_test.dim() == 2:
             X_test = X_test.contiguous().expand(
                 (self.n_sessions,) + tuple(X_test.shape))
-        return sess_m.predict_pvalues(state, X_test, k=self.k,
-                                      n_labels=self.n_labels)
+        with engine_utils.timed(self, "predict",
+                                signature=(tuple(X_test.shape),
+                                           self.capacity),
+                                tenants=self.n_sessions,
+                                capacity=self.capacity) as tm:
+            return tm.sync(sess_m.predict_pvalues(
+                state, X_test, k=self.k, n_labels=self.n_labels))
 
     # -- snapshot metadata --------------------------------------------------
 

@@ -279,8 +279,14 @@ def to_linear(sess: Session) -> Session:
 def grow(sess: Session, factor: int = 2) -> Session:
     """Multiply every tenant's capacity by ``factor`` (a new state),
     normalizing the ring to linear order first."""
-    cap = sess.capacity
-    extra = cap * (factor - 1)
+    return repad(sess, sess.capacity * factor)
+
+
+def repad(sess: Session, new_cap: int) -> Session:
+    """Every tenant's capacity raised to ``new_cap`` (a new state): the
+    ring normalised to linear order, every leaf padded with its inert
+    fill. The fleet migrates a lane with it."""
+    extra = new_cap - sess.capacity
     s = to_linear(sess)
     knn = s.knn
     return Session(
@@ -293,7 +299,7 @@ def grow(sess: Session, factor: int = 2) -> Session:
         D=F.pad(s.D, (0, extra, 0, extra), value=BIG),
         head=s.head,
         aid=F.pad(s.aid, (0, extra)),
-        wrap=torch.full_like(s.wrap, cap * factor),
+        wrap=torch.full_like(s.wrap, new_cap),
     )
 
 
