@@ -70,7 +70,9 @@ exits non-zero without a result line:
    same stream scored (validity: share with p <= 0.1 at most 0.18, mean p
    in [0.40, 0.60]), 16 requests (8 of another seed's stream, 8 uniform
    tokens) prefilled by teacher-forced decode steps, 32 tokens generated
-   and scored; every embedding pass launches the kernel once per layer.
+   and scored; every embedding pass launches the kernel once per layer;
+   one more decode step at full width runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation).
    Then, in f32 at full width and 2 layers, the kernel route's embeddings
    == the plain route's (1e-5 of their RMS) and their OOD p-values equal
    outside flagged near-ties; decode == forward (1e-3); the bf16
@@ -141,7 +143,31 @@ exits non-zero without a result line:
    engines bitwise, the migrations counted exactly, ticks/s; (e)
    ``launch.serve`` with ``--guard --snapshot-dir --faults 0
    --metrics-out --trace-out`` at 64 tenants over 1,100 ticks in both
-   modes. The kernels of this path count under ``serving_shell``.
+   modes. The kernels of this path count under ``serving_shell``;
+12. trace replay and load generation (``telemetry.{loadgen,replay}``) at
+   the main path's width (S tenants, window = capacity W, dim 30, k 15 /
+   7): (a) a steady trace of 2,176 ops (2,048 observes, 1,024 of them
+   evicting; 128 reads of 4 points) in both modes at speedup inf: chunk
+   None == chunk 32 == the engine driven directly with ``observe_many``
+   on the same ticks, bitwise, with steps/s and the observe and read p50
+   / p99, and the reads' kernels == plain on their own arguments (m 4);
+   (b) the four workloads (steady, bursty, diurnal, zipf; 272 ops) on
+   classification at speedup 1 and half (a)'s unchunked ops/s, SLO 25 ms:
+   service and sojourn p50 / p99, queue depth, SLO-violation share
+   (readings); bursty shed at depth 64, and at depth 8 (where it must shed
+   or defer), == unshed at speedup inf, bitwise;
+   (c) ``calibrate_engine`` at full width -> ``CostModel.fit`` ->
+   ``suggest_chunk``, the trace at that chunk == (a), and its steps/s
+   against chunk 32; (d) duplicate and delay stamps (rate 1e-3): dedup ==
+   the never-duplicated trace, bitwise; with value faults under
+   ``guard=True``: rejections by kind == the stamps, no NaN in the state;
+   (e) 4 per-shard engines on the card: concatenated state == (a) bitwise,
+   merged counters == the unsharded, a shard's tick kernel == plain;
+   (f) ``launch.serve --replay loadgen:bursty --auto-tune --shed-depth 64``
+   at 64 tenants over 1,100 ops in a subprocess, its trace valid; (g)
+   ``python -m repro_torch.analysis.audit --device cuda`` in a
+   subprocess started beside (d), which times nothing, exit 0. The kernels
+   of (a)-(e) count under ``replay``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -1775,6 +1801,21 @@ def lm_path(dev="cuda"):
     check(share <= 0.18, f"held-out share with p <= {EPS}: {share}")
     check(0.40 <= mean_p <= 0.60, f"held-out mean p {mean_p}")
 
+    # ---- one full-width decode step without a host synchronisation --------
+    cache = lm.init_cache(cfg, LM_REQUESTS, 2, dev)
+    lm.decode_step(params, cfg, req[:, :1], cache, 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_logits, _ = lm.decode_step(params, cfg, req[:, 1:2], cache, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(step_logits).all()), "finite decode logits")
+    print(f"[lm-sync] one decode step of {cfg.name} at full width "
+          f"({LM_REQUESTS} sequences) under set_sync_debug_mode(\"error\"): "
+          "no host synchronisation")
+    del cache, step_logits
+
     # ---- bf16 full depth: the plain route's gap (a reading) ----------------
     with plain_attention():
         emb_plain = serve.embed(params, cfg, calib)
@@ -3118,6 +3159,469 @@ def serving_shell_path(S, W, iters):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: trace replay and load generation; the invariant audit
+# ---------------------------------------------------------------------------
+
+REPLAY_OPS = 2176  # steady, predict_every 16: 2,048 observes, 128 reads
+# each workload of step (b): 1,024 observes and 64 reads, so that each
+# observe p99 rests on ~1,000 samples. diurnal's ramp ends at ops / rate
+# while its mean rate is half of rate, so about half its ops arrive at the
+# 5 % floor after the ramp (~10 ops / rate seconds): (b) replays its day
+LOAD_OPS = 1088
+GATE_OPS = 272  # the bursty shed gates' prefix: 256 observes, 16 reads
+# (e)'s prefix of the steady trace: 2 * CHUNK observes and 4 reads
+PREFIX_OPS = 2 * CHUNK * 17 // 16
+SLO_MS = 25.0  # benchmarks/replay_bench.py's default
+SHED_DEPTH = 64
+SHED_DEPTH_TIGHT = 8  # a depth bursts at 4x the service rate must exceed
+REPLAY_FAULT_RATE = 1e-3
+# at rate 1e-3 over REPLAY_OPS steps a plan stamps ~2 faults; seed 7 is
+# the first that stamps duplicates, delays and value faults (seed 0
+# stamps none), so every check of step (d) reads something
+REPLAY_FAULT_SEED = 7
+REPLAY_SHARDS = 4
+# the launches of phase 12's replays (and its calibration), summed by
+# ``counted``; the checks' own launches are not in it
+REPLAY_LAUNCHES: dict = {}
+
+
+def counted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the launch counts set to 0 just before and
+    read just after, added to REPLAY_LAUNCHES."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn(*args, **kw)
+    for name, c in ops.launch_counts().items():
+        REPLAY_LAUNCHES[name] = REPLAY_LAUNCHES.get(name, 0) + c
+    return out
+
+
+def trace_ticks(records, S, kind):
+    """The ticks of ``records``' observes as a replay synthesises them
+    (``default_rng((SEED, seq, tick))``), made here anew: ``xs (T, S,
+    DIM)``, ``ys``, ``taus``, ``active (T, S)`` numpy."""
+    cols = []
+    for r in records:
+        if r["op"] != "observe":
+            continue
+        act = np.ones(S, bool)
+        if "active" in r:
+            act[:] = False
+            act[r["active"]] = True
+        for j in range(r.get("ticks", 1)):
+            rng = np.random.default_rng((SEED, r["seq"], j))
+            x = rng.standard_normal((S, DIM)).astype(np.float32)
+            y = (rng.standard_normal(S).astype(np.float32)
+                 if kind == "regression"
+                 else (rng.random(S) < 0.5).astype(np.int32))
+            cols.append((x, y, rng.random(S).astype(np.float32), act))
+    return [np.stack(c) for c in zip(*cols)]
+
+
+def direct_state(kind, S, W, records):
+    """A plain engine driven with ``observe_many`` in CHUNK pieces on the
+    records' ticks (reads leave the state as it is)."""
+    from repro_torch.regression import RegressionServingEngine
+    from repro_torch.serving import ServingEngine
+
+    kw = dict(n_sessions=S, capacity=W, window=W, dim=DIM, device="cuda")
+    eng = (RegressionServingEngine(k=K_REG, **kw) if kind == "regression"
+           else ServingEngine(k=K, n_labels=N_LABELS, **kw))
+    state = eng.init_state()
+    ticks = trace_ticks(records, S, kind)
+    for c0 in range(0, ticks[0].shape[0], CHUNK):
+        state, _ = eng.observe_many(state, *(
+            torch.from_numpy(np.ascontiguousarray(v[c0:c0 + CHUNK])).cuda()
+            for v in ticks))
+    return state
+
+
+def replay_at(records, kind, W, **kw):
+    """``telemetry.replay`` of ``records`` on the card at the main path's
+    width (window = capacity W), its launches counted."""
+    from repro_torch.telemetry import replay
+
+    return counted(replay, records, engine=kind, dim=DIM,
+                   k=K_REG if kind == "regression" else K,
+                   n_labels=N_LABELS, capacity=W, window=W, seed=SEED,
+                   device="cuda", **kw)
+
+
+def ms_pair(d, what="") -> str:
+    return (f"{what}p50 {d['p50_s'] * 1e3:.3f} / p99 {d['p99_s'] * 1e3:.3f} "
+            "ms")
+
+
+def on_host(state):
+    return [leaf.cpu() for leaf in state.leaves()]
+
+
+def equal_host(state, host) -> bool:
+    return all(torch.equal(a.cpu(), b) for a, b in zip(state.leaves(), host))
+
+
+def replay_exactness(kind, S, W, iters):
+    """Phase 12 (a) in one mode: the steady trace at speedup inf, chunk
+    None == chunk CHUNK == the engine driven directly, bitwise. Returns
+    the trace, the unchunked replay and the chunked one's report."""
+    from repro_torch.telemetry import loadgen
+
+    recs = loadgen.generate("steady", ops=REPLAY_OPS, tenants=S, capacity=W,
+                            engine=kind, seed=SEED)
+    n_obs = sum(r["op"] == "observe" for r in recs)
+    read = "intervals" if kind == "regression" else "predict"
+    a = replay_at(recs, kind, W)
+    b = replay_at(recs, kind, W, chunk=CHUNK)
+    check(equal_states(a.state, b.state), f"replay {kind}: chunk None == "
+          f"chunk {CHUNK}, every leaf bitwise")
+    rb = b.report
+    del b
+    torch.cuda.empty_cache()
+    c = direct_state(kind, S, W, recs)
+    check(equal_states(a.state, c), f"replay {kind} == the engine driven "
+          "directly with observe_many on the same ticks, bitwise")
+    del c
+    torch.cuda.empty_cache()
+    for rep in (a.report, rb):
+        check(rep["ops_replayed"] == REPLAY_OPS and rep["ticks"] == n_obs
+              and rep["session_steps"] == n_obs * S,
+              f"replay {kind}: ops, ticks and session steps counted")
+    xq = torch.from_numpy(np.random.default_rng((SEED, 1)).standard_normal(
+        (4, DIM)).astype(np.float32)).cuda()
+    if kind == "regression":
+        notes = [check_read_kernel(n, lambda: a.engine.intervals(
+            a.state, xq, EPS), iters) for n in ("sq_dists", "interval_sweep")]
+    else:
+        notes = [check_read_kernel(n, lambda: a.engine.predict(a.state, xq),
+                                   iters)
+                 for n in ("sq_dists", "cp_knn_counts")]
+    ra = a.report
+    print(f"[replay-a] {kind} S={S} w={W}: steady trace of {REPLAY_OPS} ops "
+          f"({n_obs} observes, {REPLAY_OPS - n_obs} reads) at speedup inf: "
+          f"chunk None == chunk {CHUNK} == direct observe_many, bitwise; "
+          f"chunk None {ra['steps_per_s']:.0f} session-steps/s "
+          f"({REPLAY_OPS / ra['wall_s']:.1f} ops/s), observe_many "
+          f"{ms_pair(ra['per_op']['observe'])}, {read} "
+          f"{ms_pair(ra['per_op'][read])}; chunk {CHUNK} "
+          f"{rb['steps_per_s']:.0f} session-steps/s, observe_many "
+          f"{ms_pair(rb['per_op']['observe'])}, {read} "
+          f"{ms_pair(rb['per_op'][read])} (device-true: the engines "
+          f"synchronise each timed operation); the read's kernels at its "
+          f"shape: " + "; ".join(notes))
+    return recs, a, rb
+
+
+def workload_trace(w, S, W, rate):
+    """Step (b)'s trace of workload ``w``: LOAD_OPS ops; diurnal's is its
+    day, the records that arrive within its ramp's horizon, out of twice
+    as many generated (the rest arrive at the 5 % floor after the ramp)."""
+    from repro_torch.telemetry import loadgen
+
+    ops = 2 * LOAD_OPS if w == "diurnal" else LOAD_OPS
+    recs = loadgen.generate(w, ops=ops, tenants=S, capacity=W, rate=rate,
+                            seed=SEED, slo_s=SLO_MS / 1e3)
+    if w == "diurnal":
+        recs = [r for r in recs if r["t"] <= ops / rate]
+    return recs
+
+
+def load_readings(S, W, rate):
+    """Phase 12 (b): the four workloads on classification at speedup 1
+    (readings), then the bursty gates: the first GATE_OPS ops shed at
+    SHED_DEPTH and at SHED_DEPTH_TIGHT == unshed at speedup inf,
+    bitwise."""
+    from repro_torch.telemetry import loadgen
+
+    bursty = None
+    for w in loadgen.WORKLOADS:
+        recs = workload_trace(w, S, W, rate)
+        rep = replay_at(recs, "classification", W, speedup=1.0).report
+        ob, rd = rep["per_op"]["observe"], rep["per_op"]["predict"]
+        print(f"[replay-b] {w}{' (its day)' if w == 'diurnal' else ''}: "
+              f"{len(recs)} ops ({ob['count']} observes, {rd['count']} "
+              f"reads) at {rate:.1f} ops/s, "
+              f"speedup 1: {rep['steps_per_s']:.0f} session-steps/s; "
+              f"observe service p50 {ob['p50_s'] * 1e3:.3f} / p99 "
+              f"{ob['p99_s'] * 1e3:.3f} ms, sojourn p50 "
+              f"{ob['sojourn_p50_s'] * 1e3:.3f} / p99 "
+              f"{ob['sojourn_p99_s'] * 1e3:.3f} ms; predict service p50 "
+              f"{rd['p50_s'] * 1e3:.3f} / p99 {rd['p99_s'] * 1e3:.3f} ms, "
+              f"sojourn p50 {rd['sojourn_p50_s'] * 1e3:.3f} / p99 "
+              f"{rd['sojourn_p99_s'] * 1e3:.3f} ms; queue depth max "
+              f"{rep['queue_depth_max']:.0f}; SLO {SLO_MS:g} ms violated by "
+              f"{rep['slo_violation_frac']:.4f} of ops (readings)")
+        if w == "bursty":
+            bursty = recs[:GATE_OPS]
+        torch.cuda.empty_cache()
+    fast = replay_at(bursty, "classification", W).state
+    for depth in (SHED_DEPTH, SHED_DEPTH_TIGHT):
+        shed = replay_at(bursty, "classification", W, speedup=1.0,
+                         shed_depth=depth)
+        check(equal_states(fast, shed.state), f"bursty shed at depth "
+              f"{depth} (speedup 1) == unshed at speedup inf, bitwise")
+        rep = shed.report
+        del shed
+        torch.cuda.empty_cache()
+        print(f"[replay-b] bursty's first {GATE_OPS} ops shed at depth "
+              f"{depth}, speedup 1: "
+              f"{rep['shed_ops']} read(s) shed, {rep['deferred_observes']} "
+              f"observe(s) deferred, queue depth max "
+              f"{rep['queue_depth_max']:.0f}, SLO violated by "
+              f"{rep['slo_violation_frac']:.4f}; state == unshed at "
+              f"speedup inf, bitwise")
+    check(rep["shed_ops"] + rep["deferred_observes"] > 0,
+          f"depth {SHED_DEPTH_TIGHT}: the bursts shed or defer")
+    del fast
+    torch.cuda.empty_cache()
+
+
+def fault_schedule(S, W):
+    """Phase 12 (d): duplicate and delay stamps on the steady trace:
+    dedup == the never-duplicated trace, bitwise; then value faults under
+    the guard: rejections by kind == the stamps, no NaN in the state."""
+    from repro_torch.robustness import VALUE_FAULTS, FaultPlan
+    from repro_torch.telemetry import loadgen
+
+    kinds = ("duplicate_arrival", "delay")
+    plan = FaultPlan.random(REPLAY_FAULT_SEED, steps=REPLAY_OPS, tenants=S,
+                            rate=REPLAY_FAULT_RATE, kinds=kinds, param=1e-3)
+    stamped = loadgen.generate("steady", ops=REPLAY_OPS, tenants=S,
+                               capacity=W, seed=SEED, faults=plan)
+
+    def is_dup(r):
+        return r.get("fault", {}).get("kind") == "duplicate_arrival"
+
+    n_dup = sum(map(is_dup, stamped))
+    n_delay = sum("delay_s" in r for r in stamped)
+    check(n_dup > 0 and n_delay > 0, "the plan stamps duplicates and delays")
+    dd = replay_at(stamped, "classification", W, chunk=CHUNK)
+    check(dd.report["duplicates_dropped"] == n_dup,
+          f"duplicates dropped {dd.report['duplicates_dropped']} == the "
+          f"{n_dup} stamped")
+    never = replay_at([r for r in stamped if not is_dup(r)],
+                      "classification", W, chunk=CHUNK).state
+    check(equal_states(dd.state, never), "deduplicated replay == the "
+          "never-duplicated trace's, bitwise")
+    del dd, never
+    torch.cuda.empty_cache()
+    plan = FaultPlan.random(REPLAY_FAULT_SEED, steps=REPLAY_OPS, tenants=S,
+                            rate=REPLAY_FAULT_RATE,
+                            kinds=VALUE_FAULTS + kinds, param=1e-3)
+    stamped = loadgen.generate("steady", ops=REPLAY_OPS, tenants=S,
+                               capacity=W, seed=SEED, faults=plan)
+    faults = [r["fault"]["kind"] for r in stamped
+              if r.get("fault", {}).get("kind") in VALUE_FAULTS]
+    check(faults, "the plan stamps value faults")
+    gd = replay_at(stamped, "classification", W, chunk=CHUNK, guard=True)
+    want = {"nonfinite_feature": sum(f in ("nan_feature", "inf_feature")
+                                     for f in faults),
+            "label_out_of_range": faults.count("label_out_of_range"),
+            "tau_out_of_range": faults.count("tau_out_of_range")}
+    g = gd.report["guard"]
+    check(g["rejected"] == want, f"guard rejections {g['rejected']} == the "
+          f"stamped value faults {want}")
+    check(not any(bool(leaf.isnan().any()) for leaf in gd.state.leaves()
+                  if leaf.is_floating_point()), "no state leaf holds a NaN")
+    print(f"[replay-d] FaultPlan seed {REPLAY_FAULT_SEED} at rate "
+          f"{REPLAY_FAULT_RATE:g}: {n_dup} duplicate(s) and {n_delay} "
+          f"delay(s) stamped; dropped {n_dup}, state == the "
+          f"never-duplicated trace's, bitwise; with value faults "
+          f"{sorted(faults)} under the guard: rejected {g['rejected']}, "
+          f"{g['quarantines']} quarantine(s), no NaN in the state")
+    del gd
+    torch.cuda.empty_cache()
+
+
+def sharded(recs, S, W, iters):
+    """Phase 12 (e): REPLAY_SHARDS per-shard engines on the one card over
+    the first PREFIX_OPS ops of (a)'s trace (2 * CHUNK ticks): the
+    concatenated state == the unsharded replay's of the same ops, bitwise,
+    the merged counters == the unsharded, and a shard's tick kernel ==
+    plain on its own arguments."""
+    pre = recs[:PREFIX_OPS]
+    one = replay_at(pre, "classification", W, chunk=CHUNK)
+    sh = replay_at(pre, "classification", W, chunk=CHUNK,
+                   shards=REPLAY_SHARDS)
+    check(equal_states(sh.state, one.state), f"{REPLAY_SHARDS} shards: the "
+          "concatenated state == the unsharded replay's, bitwise")
+    for op in ("observe", "predict"):
+        got = sh.metrics.counter("replay_ops_total", op=op).value
+        want = one.metrics.counter("replay_ops_total", op=op).value
+        check(got == want == sum(r["op"] == op for r in pre),
+              f"merged replay_ops_total{{op={op}}} {got} == the unsharded "
+              f"{want}")
+    got, want = (r.metrics.counter("engine_ticks_total",
+                                   engine="classification").value
+                 for r in (sh, one))
+    check(got == want, f"merged engine_ticks_total {got} == the unsharded "
+          f"{want}")
+    del one
+    st0 = type(sh.state).from_leaves(
+        [leaf[:S // REPLAY_SHARDS].clone() for leaf in sh.state.leaves()])
+    x, y, tau, _ = trace_ticks(pre[-2:], S, "classification")
+    with recorded("_stream_update") as rec:
+        sh.engine[0].observe_many(st0, *(torch.from_numpy(
+            v[:1, :S // REPLAY_SHARDS]).cuda() for v in (x, y, tau)))
+    tick_ms = tick_equals_plain(rec, "a shard's tick", iters)
+    print(f"[replay-e] {REPLAY_SHARDS} shards x {S // REPLAY_SHARDS} "
+          f"tenants over the trace's first {PREFIX_OPS} ops: concatenated "
+          f"state == the unsharded replay's, bitwise; merged "
+          f"replay_ops_total and engine_ticks_total == the unsharded; a "
+          f"shard's stream_update (S={S // REPLAY_SHARDS}) == "
+          f"ref.stream_tick bitwise, {tick_ms:.4f} ms there (beside (f) "
+          f"and (g))")
+    del sh, st0, rec
+    torch.cuda.empty_cache()
+
+
+def launcher_argv(root, W, rate):
+    """Phase 12 (f)'s ``launch.serve --replay loadgen:bursty --auto-tune
+    --shed-depth`` at LAUNCH_SESSIONS tenants over LAUNCH_STEPS ops, and
+    its trace's path."""
+    tpath = os.path.join(root, "trace.jsonl")
+    argv = ["--replay", "loadgen:bursty", "--sessions", str(LAUNCH_SESSIONS),
+            "--steps", str(LAUNCH_STEPS), "--capacity", str(W), "--window",
+            str(W), "--dim", str(DIM), "--k", str(K), "--speedup", "1",
+            "--rate", f"{rate:.3f}", "--slo-ms", f"{SLO_MS:g}",
+            "--auto-tune", "--shed-depth", str(SHED_DEPTH), "--metrics-out",
+            os.path.join(root, "metrics.json"), "--trace-out", tpath]
+    return argv, tpath
+
+
+def launcher_checked(proc, argv, tpath):
+    """Phase 12 (f): the launcher exited 0 and its trace is valid."""
+    from repro_torch.telemetry import validate_trace_file
+
+    out, err = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"launch.serve --replay exited "
+          f"{proc.returncode}: {err[-2000:]}")
+    n_rec = len(validate_trace_file(tpath))
+    lines = [ln.strip() for ln in out.splitlines()
+             if ln.startswith(("[serve]", "  observe", "  predict", "  SLO",
+                               "  queue", "  shed"))
+             and not ln.startswith(("[serve] metrics ->", "[serve] trace ->",
+                                    "[serve] telemetry"))]
+    print(f"[replay-f] launch.serve {' '.join(argv[:-4])}: rc 0, its trace "
+          f"of {n_rec} records valid (beside (d), (e) and (g), so its times "
+          "are no readings); " + " | ".join(lines))
+
+
+def replay_path(S, W, iters):
+    """Phase 12: trace replay and load generation at the main path's
+    width (S tenants, window = capacity W, dim 30, k 15 / 7). (a) steady
+    trace, both modes: chunk None == chunk CHUNK == direct, bitwise; (b)
+    the four workloads at speedup 1 and half (a)'s classification rate,
+    and the bursty shed gates; (c) ``calibrate_engine`` -> ``CostModel``
+    -> ``suggest_chunk``, that chunk's replay == (a)'s; (d) duplicate and
+    delay stamps: dedup == never-duplicated, and value faults under the
+    guard: rejections == stamps, no NaN; (e) REPLAY_SHARDS per-shard
+    engines: concatenated == unsharded, merged counters == unsharded;
+    (f) the launcher's replay mode and (g) the audit on the card, each in
+    a subprocess beside (d) and (e), which take no readings. Returns the
+    launches of the replays and the calibration, no check's."""
+    from repro_torch.telemetry import (CostModel, calibrate_engine,
+                                       capacity_bucket)
+
+    t_phase = time.perf_counter()
+    laps, last = {}, [t_phase]
+
+    def lap(step):
+        now = time.perf_counter()
+        laps[step], last[0] = round(now - last[0], 1), now
+
+    REPLAY_LAUNCHES.clear()
+    for kind in ("regression", "classification"):
+        recs, a, rb = replay_exactness(kind, S, W, iters)
+        if kind == "regression":
+            del recs, a
+            torch.cuda.empty_cache()
+    ops_s = REPLAY_OPS / a.report["wall_s"]
+    ref_host = on_host(a.state)
+    del a
+    torch.cuda.empty_cache()
+
+    lap("a")
+    rate = ops_s / 2
+    load_readings(S, W, rate)
+    lap("b")
+
+    # (c) the cost model's chunk
+    t0 = time.perf_counter()
+    cal = counted(calibrate_engine, "classification", tenants=S,
+                  capacity=W, window=W, dim=DIM, k=K, seed=SEED,
+                  device="cuda")
+    model = CostModel.fit(cal, source="calibrate")
+    chunk = model.suggest_chunk(cap_bucket=capacity_bucket(W),
+                                engine="classification")
+    e = model.entries[("classification", "observe_many",
+                       capacity_bucket(W))]
+    cal_s = time.perf_counter() - t0
+    auto = replay_at(recs, "classification", W, chunk=chunk)
+    check(equal_host(auto.state, ref_host), f"replay at the suggested chunk "
+          f"{chunk} == (a), bitwise")
+    ra = auto.report
+    print(f"[replay-c] calibrate_engine ({len(cal)} records, {cal_s:.1f} "
+          f"s) -> CostModel a {e['a'] * 1e3:.4f} ms + b {e['b'] * 1e3:.4f} "
+          f"ms a tick -> suggest_chunk {chunk}; the steady trace at that "
+          f"chunk == (a) bitwise (runs are at most 16 observes between "
+          f"reads); session-steps/s hand chunk {CHUNK}: "
+          f"{rb['steps_per_s']:.0f}, auto chunk {chunk}: "
+          f"{ra['steps_per_s']:.0f}, auto / hand "
+          f"{ra['steps_per_s'] / rb['steps_per_s']:.4f}")
+    del auto, ref_host
+    torch.cuda.empty_cache()
+    lap("c")
+
+    # (d) and (e), while (f) the launcher and (g) the audit run in their
+    # own processes
+    root = tempfile.mkdtemp()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    apath = os.path.join(root, "audit.json")
+    argv, tpath = launcher_argv(root, W, rate)
+    t_sub = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", module, *args],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                              env=env)
+             for module, args in (
+                 ("repro_torch.analysis.audit",
+                  ["--device", "cuda", "--out", apath]),
+                 ("repro_torch.launch.serve", argv))]
+    audit, launcher = procs
+    try:
+        fault_schedule(S, W)
+        lap("d")
+        sharded(recs, S, W, iters)
+        lap("e")
+        launcher_checked(launcher, argv, tpath)
+        a_out, a_err = audit.communicate(timeout=300)
+        check(audit.returncode == 0, f"the audit on the card exited "
+              f"{audit.returncode}: {a_out[-3000:]} {a_err[-2000:]}")
+        report = json.load(open(apath))
+        check(report["ok"] and report["summary"]["fail"] == 0,
+              "the audit passes")
+        print(f"[replay-g] python -m repro_torch.analysis.audit --device "
+              f"cuda (beside (d), (e) and (f)): rc 0, done "
+              f"{time.perf_counter() - t_sub:.1f} s after (d) began; "
+              f"{a_out.splitlines()[0]}")
+        lap("f, g")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    counts = dict(REPLAY_LAUNCHES)
+    print(f"[replay] phase 12 in {time.perf_counter() - t_phase:.1f} s "
+          f"(by step, s: {laps}); the replays' launches {counts}")
+    for name in ("stream_update_class", "stream_update_reg",
+                 "pairwise_sq_dists", "cp_knn_counts", "interval_sweep"):
+        check(counts[name] > 0, f"{name} launched on the replay path")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -3185,6 +3689,8 @@ def main(argv=None) -> int:
     by_path["figures"] = figures_path()
     torch.cuda.empty_cache()
     by_path["serving_shell"] = serving_shell_path(S, W, args.iters)
+    torch.cuda.empty_cache()
+    by_path["replay"] = replay_path(S, W, args.iters)
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

@@ -1,0 +1,533 @@
+"""Invariant audit of the port's serving engines, counterpart of
+``repro/analysis/audit.py`` restated for eager PyTorch.
+
+``python -m repro_torch.analysis.audit [--device cuda|cpu] [--quick]
+[--out F]`` builds every engine configuration of the serving matrix
+(classification / regression x sliding / grow x ring / compact, one
+card: shards 1) plus the registry measures (knn, simplified_knn, kde,
+lssvm, bootstrap, knn_regression), runs the checkers below on each, and
+writes a JSON report in the JAX audit's layout (``checks``, ``summary``,
+``ok``, ``targets``; ``torch`` and ``device`` in place of ``jax`` and
+``backend``). It exits nonzero on any violation. The JAX audit reads
+compiled HLO; eager PyTorch has none, so each invariant is checked where
+it shows at run time instead, on a small engine (``_S, _CAP, _DIM, _K,
+_CHUNK``, the JAX audit's shape).
+
+Checkers (name -> invariant -> the JAX checker it restates):
+
+* ``in-place`` (``donation-alias``) — across an ``observe`` tick and an
+  ``observe_many`` chunk every state leaf keeps its storage
+  (``untyped_storage().data_ptr()``), ``D`` (the ``(S, cap, cap)``
+  distance carry) first: the state is updated in place, as the JAX
+  engines' donated buffers are.
+* ``dense-budget`` — a ``TorchDispatchMode`` records one chunk; on ring
+  targets no op may *allocate* a fresh tensor of at least ``S * cap *
+  cap`` elements (an in-place write into ``D`` or a view of it aliases an
+  input and does not count). On the CPU a hand kernel runs its plain
+  version, whose temporaries stand in for the kernel's registers: ops
+  dispatched inside a kernel's wrapper there are attributed to the kernel
+  (reported, not counted). The compact sliding layout carries the JAX
+  waiver: it IS the O(cap^2) compaction baseline.
+* ``steady-state`` (``retrace``) — a scripted lifecycle (3 ``observe``,
+  1 ``observe_many``, one read) runs three times on a fresh engine. The
+  first run is the warm-up: the kernel build and the engine's one-time
+  occupancy check, the counterpart of JAX's compilations. The second and
+  third must dispatch the same op sequence (name, shapes, dtypes), launch
+  the same hand kernels the same number of times, and build no kernel.
+  This is the precondition of a CUDA-graph capture.
+* ``host-sync`` — on the card, the steady lifecycle runs under
+  ``torch.cuda.set_sync_debug_mode("error")``: a synchronisation with the
+  host raises. On the CPU it reports ``skipped``.
+* ``collective-freedom`` — ``skipped``: one card, no sharded tick.
+* ``source-lint`` — ``repro_torch.analysis.lint`` over ``src/repro_torch``.
+
+The registry measures are exact-shape host-driven predictors with no
+fixed-shape tick: ``source-lint`` covers them and their other checks
+report ``skipped`` with the reason, as the JAX audit does for bootstrap.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import sys
+import time
+import traceback
+from dataclasses import dataclass
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from repro_torch._device import resolve
+from repro_torch.analysis import lint as lint_m
+
+#: engine-matrix shape, the JAX audit's
+_S, _CAP, _DIM, _K, _CHUNK = 16, 32, 4, 3, 4
+
+MEASURES = ("knn", "simplified_knn", "kde", "lssvm", "bootstrap",
+            "knn_regression")
+
+#: the JAX audit's waiver, for the compact sliding layout
+COMPACT_WAIVER = ("compact positional layout IS the O(cap^2) compaction "
+                  "baseline (the ring's bit-oracle)")
+#: the compact tick rebuilds its lists and counts by design
+COMPACT_INPLACE_WAIVER = ("compact positional layout rebuilds its leaves "
+                          "each tick by design: the ring's bit-oracle, "
+                          "not a serving path")
+
+@dataclass
+class AuditTarget:
+    """One audited configuration with its waivers."""
+
+    name: str
+    kind: str                    # "engine" | "measure"
+    family: str = ""             # classification | regression
+    mode: str = ""               # sliding | grow
+    layout: str = "ring"
+    measure: str = ""
+    n_sessions: int = _S
+    capacity: int = _CAP
+    dim: int = _DIM
+    k: int = _K
+    window: int | None = _CAP
+    chunk: int = _CHUNK
+    dense_waiver: str = ""
+    inplace_waiver: str = ""
+
+    def describe(self) -> dict:
+        d = {"name": self.name, "kind": self.kind, "shards": 1}
+        if self.kind == "engine":
+            d.update(family=self.family, mode=self.mode,
+                     layout=self.layout, n_sessions=self.n_sessions,
+                     capacity=self.capacity)
+        else:
+            d["measure"] = self.measure
+        return d
+
+
+def engine_matrix(quick: bool = False) -> list:
+    """Engine targets: family x mode x layout (``quick`` drops grow +
+    compact, as the JAX audit's does)."""
+    targets = []
+    for family in ("classification", "regression"):
+        for mode in ("sliding", "grow"):
+            for layout in ("ring", "compact"):
+                if quick and (mode, layout) == ("grow", "compact"):
+                    continue
+                t = AuditTarget(name=f"{family}-{mode}-{layout}",
+                                kind="engine", family=family, mode=mode,
+                                layout=layout)
+                if layout == "compact":
+                    t.inplace_waiver = COMPACT_INPLACE_WAIVER
+                    if mode == "sliding":
+                        t.dense_waiver = COMPACT_WAIVER
+                targets.append(t)
+    return targets
+
+
+def measure_matrix(quick: bool = False) -> list:
+    names = ("knn", "lssvm", "bootstrap") if quick else MEASURES
+    return [AuditTarget(name=f"measure-{m}", kind="measure", measure=m)
+            for m in names]
+
+
+# ---------------------------------------------------------------------------
+# recording what runs
+# ---------------------------------------------------------------------------
+
+
+def _kernel_wrapper_files() -> frozenset:
+    """Source files of the hand kernels' wrappers (on the CPU each runs
+    its plain version)."""
+    from repro_torch.kernels import ops
+    return frozenset(inspect.getsourcefile(fn)
+                     for fn in ops.KERNELS.values())
+
+
+def _inside(files: frozenset) -> bool:
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename in files:
+            return True
+        f = f.f_back
+    return False
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+class OpRecorder(TorchDispatchMode):
+    """Records every aten op dispatched inside it: ``ops`` holds (name,
+    argument shapes and dtypes); ``fresh`` the outputs of at least
+    ``min_numel`` elements whose storage aliases no input (fresh
+    allocations), as (name, shape, attributed to a kernel's plain
+    version)."""
+
+    def __init__(self, min_numel: int | None = None):
+        super().__init__()
+        self.min_numel = min_numel
+        self.ops: list = []
+        self.fresh: list = []
+        self._kernels = _kernel_wrapper_files()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        flat_in, _ = tree_flatten((args, kwargs))
+        ins = [a for a in flat_in if isinstance(a, torch.Tensor)]
+        self.ops.append((str(func), tuple((tuple(a.shape), str(a.dtype))
+                                          for a in ins)))
+        out = func(*args, **kwargs)
+        if self.min_numel is not None:
+            seen = {_storage(a) for a in ins}
+            flat_out, _ = tree_flatten(out)
+            for o in flat_out:
+                if isinstance(o, torch.Tensor) \
+                        and o.numel() >= self.min_numel \
+                        and _storage(o) not in seen:
+                    self.fresh.append({
+                        "op": str(func), "shape": list(o.shape),
+                        "kernel_plain": (o.device.type == "cpu"
+                                         and _inside(self._kernels))})
+        return out
+
+
+# ---------------------------------------------------------------------------
+# the engine under audit
+# ---------------------------------------------------------------------------
+
+
+def _leaf_names(family: str) -> list:
+    return (["X", "y", "best", "n", "D", "head", "aid", "wrap"]
+            if family == "classification" else
+            ["X", "y", "D", "nbr_d", "nbr_y", "n", "head", "aid", "wrap",
+             "nbr_a"])
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import ops
+    return ops.kernel_launches()
+
+
+def _built() -> bool:
+    from repro_torch.kernels import _build
+    return _build._lib is not None
+
+
+class Artifact:
+    """One target's engine and its recorded runs (built lazily, shared
+    across checkers). ``engine_hook(engine)`` may replace the engine's
+    tick (the planted faults of the tests)."""
+
+    def __init__(self, target: AuditTarget, device, engine_hook=None):
+        self.target = target
+        self.device = torch.device(device)
+        self.engine_hook = engine_hook
+        self._passes = None
+
+    def build_engine(self):
+        t = self.target
+        kw = dict(n_sessions=t.n_sessions, capacity=t.capacity, dim=t.dim,
+                  k=t.k, window=t.window if t.mode == "sliding" else None,
+                  layout=t.layout, device=self.device)
+        if t.family == "classification":
+            from repro_torch.serving.engine import ServingEngine
+            eng = ServingEngine(n_labels=2, **kw)
+        else:
+            from repro_torch.regression.engine import \
+                RegressionServingEngine
+            eng = RegressionServingEngine(**kw)
+        if self.engine_hook is not None:
+            self.engine_hook(eng)
+        return eng
+
+    def traffic(self, T: int, i: int):
+        """``T`` ticks of fixed traffic, ``i`` varying the features."""
+        t, dev = self.target, self.device
+        xs = torch.full((T, t.n_sessions, t.dim), 0.1 * (i + 1),
+                        device=dev)
+        xs += torch.arange(t.n_sessions, device=dev)[None, :, None] * 0.01
+        ydt = torch.int32 if t.family == "classification" else torch.float32
+        ys = (torch.arange(T * t.n_sessions, device=dev) % 2).to(ydt)
+        taus = torch.full((T, t.n_sessions), 0.5, device=dev)
+        return xs, ys.view(T, t.n_sessions), taus
+
+    def lifecycle(self, eng, state):
+        """3 ``observe``, 1 ``observe_many`` of ``chunk`` ticks, one
+        read."""
+        t = self.target
+        for i in range(3):
+            x, y, tau = self.traffic(1, i)
+            state, _ = eng.observe(state, x[0], y[0], tau[0])
+        state, _ = eng.observe_many(state, *self.traffic(t.chunk, 3))
+        xq = torch.zeros((2, t.dim), device=self.device)
+        if t.family == "classification":
+            eng.predict(state, xq)
+        else:
+            eng.intervals(state, xq, 0.1)
+        return state
+
+    def passes(self) -> list:
+        """The lifecycle three times on a fresh engine: per pass its op
+        sequence, the hand kernels it launched and whether it built the
+        kernel library."""
+        if self._passes is None:
+            eng = self.build_engine()
+            state = eng.init_state()
+            self._passes = []
+            for _ in range(3):
+                built, before = _built(), _launches()
+                with OpRecorder() as rec:
+                    state = self.lifecycle(eng, state)
+                after = _launches()
+                self._passes.append({
+                    "ops": rec.ops,
+                    "launches": {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]},
+                    "built": _built() and not built})
+            self.engine, self.state = eng, state
+        return self._passes
+
+
+# ---------------------------------------------------------------------------
+# checkers
+# ---------------------------------------------------------------------------
+
+CHECKERS: dict = {}
+
+
+def checker(name: str):
+    def deco(fn):
+        CHECKERS[name] = fn
+        return fn
+    return deco
+
+
+def _result(name, target, status, violations=None, info=None) -> dict:
+    return {"check": name, "target": target.name,
+            "status": status, "violations": violations or [],
+            "info": info or {}}
+
+
+@checker("in-place")
+def check_in_place(target: AuditTarget, art: Artifact) -> dict:
+    eng = art.build_engine()
+    state = eng.init_state()
+    names = _leaf_names(target.family)
+    order = sorted(range(len(names)), key=lambda i: names[i] != "D")
+
+    def ptrs(st):
+        return [_storage(leaf) for leaf in st.leaves()]
+
+    base = ptrs(state)
+    x, y, tau = art.traffic(1, 0)
+    state, _ = eng.observe(state, x[0], y[0], tau[0])
+    after_tick = ptrs(state)
+    state, _ = eng.observe_many(state, *art.traffic(target.chunk, 1))
+    after_chunk = ptrs(state)
+    moved = []
+    for i in order:
+        for when, now in (("observe", after_tick),
+                          ("observe_many", after_chunk)):
+            if now[i] != base[i]:
+                moved.append({"kind": "leaf-reallocated", "leaf": names[i],
+                              "after": when,
+                              "line": f"state leaf {names[i]} changed "
+                                      f"storage across {when}"})
+                break
+    info = {"leaves": [names[i] for i in order]}
+    if target.inplace_waiver:
+        info.update(waiver=target.inplace_waiver,
+                    measured=[m["leaf"] for m in moved])
+        return _result("in-place", target, "waived", [], info)
+    return _result("in-place", target, "fail" if moved else "pass", moved,
+                   info)
+
+
+@checker("dense-budget")
+def check_dense(target: AuditTarget, art: Artifact) -> dict:
+    t = target
+    min_numel = t.n_sessions * t.capacity * t.capacity
+    eng = art.build_engine()
+    state = eng.init_state()
+    state, _ = eng.observe_many(state, *art.traffic(t.chunk, 0))  # warm-up
+    with OpRecorder(min_numel) as rec:
+        eng.observe_many(state, *art.traffic(t.chunk, 1))
+    vs = [dict(f, kind="dense-allocation",
+               line=f"{f['op']} allocates {f['shape']} "
+                    f"(>= S*cap*cap = {min_numel} elements) in a chunk")
+          for f in rec.fresh if not f["kernel_plain"]]
+    info = {"min_numel": min_numel, "ops_recorded": len(rec.ops),
+            "kernel_plain_allocations": sum(f["kernel_plain"]
+                                            for f in rec.fresh)}
+    if t.dense_waiver:
+        info.update(waiver=t.dense_waiver, measured=len(vs))
+        return _result("dense-budget", t, "waived", [], info)
+    return _result("dense-budget", t, "fail" if vs else "pass", vs, info)
+
+
+@checker("steady-state")
+def check_steady(target: AuditTarget, art: Artifact) -> dict:
+    warm, first, second = art.passes()
+    vs = []
+    if first["ops"] != second["ops"]:
+        at = next((i for i, (a, b) in enumerate(zip(first["ops"],
+                                                   second["ops"]))
+                   if a != b), min(len(first["ops"]), len(second["ops"])))
+        vs.append({"kind": "op-sequence",
+                   "line": f"repeat lifecycle dispatched "
+                           f"{len(second['ops'])} ops against "
+                           f"{len(first['ops'])}; first difference at op "
+                           f"{at}: "
+                           f"{(first['ops'] + [None])[at]} -> "
+                           f"{(second['ops'] + [None])[at]}"})
+    if first["launches"] != second["launches"]:
+        vs.append({"kind": "kernel-launches",
+                   "line": f"repeat lifecycle launched "
+                           f"{second['launches']} against "
+                           f"{first['launches']}"})
+    if first["built"] or second["built"]:
+        vs.append({"kind": "kernel-build",
+                   "line": "a kernel was built after the warm-up "
+                           "lifecycle"})
+    info = {"ops_per_pass": [len(p["ops"]) for p in (warm, first, second)],
+            "launches_per_pass": second["launches"],
+            "warm_up_built": warm["built"]}
+    return _result("steady-state", target, "fail" if vs else "pass", vs,
+                   info)
+
+
+def _where(e: BaseException) -> str:
+    """The innermost frames of the port in ``e``'s traceback."""
+    frames = [f for f in traceback.extract_tb(e.__traceback__)
+              if f"{os.sep}repro_torch{os.sep}" in f.filename]
+    return " <- ".join(
+        f"{f.filename.split(os.sep + 'repro_torch' + os.sep)[-1]}:"
+        f"{f.lineno} {f.name}" for f in frames[::-1][:3])
+
+
+@checker("host-sync")
+def check_host_sync(target: AuditTarget, art: Artifact) -> dict:
+    if art.device.type != "cuda":
+        return _result("host-sync", target, "skipped",
+                       info={"reason": "no card: set_sync_debug_mode sees "
+                                       "CUDA synchronisations only"})
+    art.passes()  # the warm-up (one-time checks) has run
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        art.state = art.lifecycle(art.engine, art.state)
+        vs = []
+    except RuntimeError as e:
+        vs = [{"kind": "host-sync", "where": _where(e),
+               "line": f"{str(e).splitlines()[0]} at {_where(e)}"}]
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    return _result("host-sync", target, "fail" if vs else "pass", vs,
+                   {"mode": "error"})
+
+
+@checker("collective-freedom")
+def check_collectives(target: AuditTarget, art: Artifact) -> dict:
+    return _result("collective-freedom", target, "skipped",
+                   info={"reason": "one card, no sharded tick"})
+
+
+def check_source_lint(src_root: str) -> dict:
+    vs = [v.as_dict() for v in lint_m.lint_tree(src_root)]
+    return {"check": "source-lint", "target": "src",
+            "status": "fail" if vs else "pass", "violations": vs,
+            "info": {"rules": list(lint_m.RULE_NAMES),
+                     "not_ported": lint_m.NOT_PORTED, "root": src_root}}
+
+
+# ---------------------------------------------------------------------------
+# the audit
+# ---------------------------------------------------------------------------
+
+
+def run_audit(device=None, quick: bool = False) -> dict:
+    """Run the checkers over the matrix; returns the JSON report.
+    ``device``: ``cuda`` by default (raises without a GPU)."""
+    dev = resolve(device)
+    t0 = time.perf_counter()
+    src_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    targets = engine_matrix(quick) + measure_matrix(quick)
+
+    results = [check_source_lint(src_root)]
+    for t in targets:
+        if t.kind == "measure":
+            results += [_result(name, t, "skipped", info={
+                "reason": "registry predictor: exact-shape host-driven API "
+                          "without a fixed-shape tick (sources gated by "
+                          "source-lint)"}) for name in CHECKERS]
+            continue
+        art = Artifact(t, dev)
+        results += [fn(t, art) for fn in CHECKERS.values()]
+
+    summary = {"pass": 0, "fail": 0, "waived": 0, "skipped": 0}
+    for r in results:
+        summary[r["status"]] += 1
+    return {
+        "torch": torch.__version__,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "matrix": {"engine_targets": sum(
+                       1 for t in targets if t.kind == "engine"),
+                   "measure_targets": sum(
+                       1 for t in targets if t.kind == "measure"),
+                   "quick": quick},
+        "targets": [t.describe() for t in targets],
+        "checks": results,
+        "summary": summary,
+        "elapsed_s": round(time.perf_counter() - t0, 3),
+        "ok": summary["fail"] == 0,
+    }
+
+
+def format_summary(report: dict) -> str:
+    s = report["summary"]
+    lines = [f"audit: {s['pass']} pass, {s['fail']} fail, "
+             f"{s['waived']} waived, {s['skipped']} skipped "
+             f"({report['matrix']['engine_targets']} engine + "
+             f"{report['matrix']['measure_targets']} measure targets on "
+             f"{report['device']}, {report['elapsed_s']:.1f}s)"]
+    for r in report["checks"]:
+        if r["status"] != "fail":
+            continue
+        lines.append(f"  FAIL {r['check']} @ {r['target']}")
+        for v in r["violations"][:4]:
+            lines.append(f"    {v.get('line', v)}")
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.analysis.audit",
+        description="invariant audit over the port's engine matrix (see "
+                    "the module docstring)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--out", default="audit_report.json",
+                    help="JSON report path")
+    ap.add_argument("--quick", action="store_true",
+                    help="reduced matrix (grow + compact and half the "
+                    "measures left out)")
+    args = ap.parse_args(argv)
+    report = run_audit(device=args.device, quick=args.quick)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1, sort_keys=True)
+    print(format_summary(report))
+    print(f"report -> {args.out}")
+    return 0 if report["ok"] else 1
+
+
+__all__ = ["AuditTarget", "Artifact", "CHECKERS", "MEASURES",
+           "OpRecorder", "engine_matrix", "measure_matrix", "run_audit",
+           "format_summary", "main"]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -112,9 +112,12 @@ def _threshold(epsilon, n, like: torch.Tensor) -> torch.Tensor:
     """``epsilon * (n + 1) - 1`` in the state's float type, as the served
     read computes it (the sweep admits ``t`` where the count exceeds
     it)."""
-    eps = torch.as_tensor(epsilon, dtype=like.dtype, device=like.device)
-    n = torch.as_tensor(n, device=like.device)
-    return eps * (n + 1.0).to(like.dtype) - 1.0
+    # Python numbers are filled on the device: no copy from the host
+    eps = (epsilon.to(like) if isinstance(epsilon, torch.Tensor)
+           else like.new_full((), epsilon))
+    if not isinstance(n, torch.Tensor):
+        n = torch.full((), n, dtype=torch.int64, device=like.device)
+    return eps * (n.to(like.device) + 1.0).to(like.dtype) - 1.0
 
 
 def prediction_interval(a_vec, b_vec, a, epsilon):

@@ -103,8 +103,7 @@ def kde_rowsums(A, B, y_A, y_B, h: float, exclude_diag: bool = False,
 
 
 def _scalars(v, S: int, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.int32, device=device).expand(
-        S).contiguous()
+    return _ref.on_device(v, device).expand(S).contiguous()
 
 
 def stream_update(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
@@ -141,8 +140,7 @@ def stream_tick(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
     wrap = _scalars(cap if wrap is None else wrap, S, dev)
     # class labels are int32; the regression state's labels are floats
     y_new = (_scalars(y_new, S, dev) if mode == "class" else
-             torch.as_tensor(y_new, dtype=y.dtype, device=dev).expand(
-                 S).contiguous())
+             _ref.on_device(y_new, dev, y.dtype).expand(S).contiguous())
     return _stream_update(X, y, nbr_d, nbr_y, x_new, y_new,
                           _scalars(n, S, dev), mode=mode, head=head,
                           wrap=wrap, D=D, ev=ev, aid=aid, nbr_a=nbr_a,

@@ -184,13 +184,23 @@ def reg_interval_endpoints(X, a_prime, kth_dist, kth_label, live, X_test,
     return torch.where(lv, lo, inf), torch.where(lv, hi, -inf)
 
 
+def on_device(v, device, dtype=torch.int32) -> torch.Tensor:
+    """``v`` (a Python number or a tensor) as ``dtype`` on ``device``; a
+    number is filled there, so no copy from the host waits for the card."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=dtype, device=device)
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
 def ring_age(cap: int, head: torch.Tensor, wrap) -> torch.Tensor:
     """``(..., cap)`` arrival age of each slot (0 = oldest) of rings at
     ``head`` with modulus ``wrap``; slots ``>= wrap`` get the sentinel age
     ``cap`` (never live)."""
     idx = torch.arange(cap, dtype=torch.int32, device=head.device)
     h = head[..., None]
-    m = torch.as_tensor(wrap, dtype=torch.int32, device=head.device)[..., None]
+    m = on_device(wrap, head.device)[..., None]
     raw = torch.where(idx >= h, idx - h, idx - h + m)
     return torch.where(idx < m, raw, cap)
 
@@ -198,7 +208,7 @@ def ring_age(cap: int, head: torch.Tensor, wrap) -> torch.Tensor:
 def ring_slots(cap: int, head, wrap) -> torch.Tensor:
     """``(..., cap)`` slot of each arrival rank, ``(head + i) % wrap``."""
     s = torch.arange(cap, dtype=torch.int32, device=head.device) + head[..., None]
-    m = torch.as_tensor(wrap, dtype=torch.int32, device=head.device)[..., None]
+    m = on_device(wrap, head.device)[..., None]
     return torch.where(s >= m, s - m, s)
 
 
@@ -411,7 +421,7 @@ def stream_tick(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode: str, head,
     if ev is not None:
         S, w, k = nbr_d.shape
         ar = torch.arange(S, device=nbr_d.device)
-        wrap_ = torch.as_tensor(wrap, dtype=torch.int32, device=head.device)
+        wrap_ = on_device(wrap, head.device)
         hd = torch.where(head == 0, wrap_ - 1, head - 1).long()
         es = D[ar, :, hd]  # (S, w): distances to the evicted point
         live = _ring_live(w, head, n, wrap_)

@@ -32,12 +32,37 @@ with a keyed ``FaultPlan.random`` at ``--fault-rate``; ``--guard`` serves
 through a ``TickGuard`` (admission, poison-lane quarantine);
 ``--snapshot-dir`` ends with a snapshot round trip that exits 1 unless
 bit-exact (and, with ``--guard``, holds the guard's restore source).
-``--shards`` other than 1 is refused: tenant sharding is not ported.
+``--shards`` other than 1 is refused in these modes: tenant sharding
+across devices is not ported.
 
     python -m repro_torch.launch.serve --sessions 64 --steps 1100 \\
         --window 1024 --capacity 1024 --dim 30 --k 15 --guard \\
         --snapshot-dir /tmp/snap --faults 0 --metrics-out m.json \\
         --trace-out t.jsonl
+
+``--replay TRACE`` (a JSONL trace file) or ``--replay loadgen:WORKLOAD``
+(steady, bursty, diurnal, zipf: ``--steps`` ops over ``--sessions``
+tenants at ``--rate`` ops/s) drives one engine from the trace through
+``telemetry.replay``, as the JAX launcher's replay mode does: the arrival
+clock compressed by ``--speedup`` (``inf``, the default, replays
+back-to-back), sojourns held to ``--slo-ms``, reads shed past
+``--shed-depth`` and observes deferred past twice it, ``--faults SEED``
+stamping value, duplicate and delay faults onto a generated trace at
+``--fault-rate``, ``--guard`` a ``TickGuard`` a shard. ``--auto-tune``
+chunks the observes by the cost model's ``suggest_chunk``: a model loaded
+from ``--cost-model``, else fitted on the trace's timing, else on
+``calibrate_engine``'s (``--cost-model-out`` saves it). ``--shards N``
+replays N tenant groups on per-shard engines on the one device, merged
+into one report. Prints service and sojourn p50/p99 per op, steps/s,
+queue depth and the SLO-violation fraction.
+
+    python -m repro_torch.launch.serve --replay loadgen:bursty \\
+        --sessions 64 --steps 1100 --capacity 1024 --window 1024 --dim 30 \\
+        --k 15 --speedup 1 --rate 2000 --slo-ms 25 --auto-tune \\
+        --shed-depth 64
+
+``--audit`` runs the port's invariant audit (``repro_torch.analysis.
+audit``) on ``--device`` and writes its report to ``--audit-out``.
 
 ``--measure NAME`` (knn, simplified_knn, kde, lssvm, bootstrap) serves
 each tenant through its own registry ``ConformalPredictor`` instead, on
@@ -453,6 +478,117 @@ def serve_registry(args) -> int:
     return 0
 
 
+def serve_replay(args) -> int:
+    """Trace replay / load-test mode (``--replay``): drive one engine from
+    a trace file or a ``loadgen:<workload>`` spec, report p50/p99 under
+    load, and (``--auto-tune``) chunk the observes by the cost model's
+    ``suggest_chunk``."""
+    from repro_torch.telemetry import (CostModel, calibrate_engine,
+                                       capacity_bucket, iter_trace, loadgen,
+                                       replay)
+
+    kind = "regression" if args.regression else "classification"
+    slo_s = args.slo_ms / 1000.0 if args.slo_ms > 0 else None
+    speedup = float(args.speedup)  # accepts "inf"
+
+    if args.replay.startswith("loadgen:"):
+        plan = None
+        if args.faults >= 0:
+            plan = FaultPlan.random(
+                args.faults, steps=args.steps, tenants=args.sessions or 8,
+                rate=args.fault_rate,
+                kinds=VALUE_FAULTS + ("duplicate_arrival", "delay"),
+                param=0.001)
+            print(f"[serve] chaos: stamping {len(plan)} fault(s) onto "
+                  f"the generated trace (seed {args.faults})")
+        records = loadgen.generate(
+            args.replay.split(":", 1)[1], ops=args.steps,
+            tenants=args.sessions or 8, capacity=args.capacity, engine=kind,
+            rate=args.rate, seed=args.seed, slo_s=slo_s, faults=plan)
+    else:
+        records = list(iter_trace(args.replay))
+    src = args.replay
+    if not records:
+        raise SystemExit(f"--replay {src}: the trace has no records")
+    tenants = max(int(r.get("tenants", 1)) for r in records)
+    cap = max((int(r.get("capacity", 0)) for r in records),
+              default=0) or args.capacity
+    if not 1 <= args.shards <= tenants:
+        raise SystemExit(f"--shards {args.shards} outside [1, the trace's "
+                         f"{tenants} tenants]")
+
+    # cost model: load one > fit from the trace's steady timing > probe
+    # the engine (loadgen traces record arrivals, not costs)
+    model = None
+    chunk = None
+    if args.cost_model:
+        model = CostModel.load(args.cost_model)
+        print(f"[serve] cost model <- {args.cost_model}")
+    elif args.auto_tune or args.cost_model_out:
+        model = CostModel.fit(records, source=src)
+        if not model.entries:
+            print("[serve] trace carries no steady timing; "
+                  "calibrating the engine")
+            model = CostModel.fit(
+                calibrate_engine(kind, tenants=tenants, capacity=cap,
+                                 dim=args.dim, k=args.k, seed=args.seed,
+                                 device=args.device),
+                source="calibrate")
+    if args.auto_tune and model is not None and model.entries:
+        chunk = model.suggest_chunk(cap_bucket=capacity_bucket(cap),
+                                    engine=kind)
+        print(f"[serve] auto-tune: observe_many chunk <- {chunk}")
+    if args.cost_model_out and model is not None:
+        model.save(args.cost_model_out)
+        print(f"[serve] cost model -> {args.cost_model_out}")
+
+    metrics, tracer = _telemetry(args)
+    metrics.gauge("serve_shards", mode="replay").set(args.shards)
+    res = replay(records, engine=kind, dim=args.dim, k=args.k,
+                 window=min(args.window, cap),  # the trace may be smaller
+                 speedup=speedup, seed=args.seed, slo_s=slo_s, chunk=chunk,
+                 eps=args.eps, metrics=metrics, tracer=tracer,
+                 shards=args.shards,
+                 shed_depth=args.shed_depth if args.shed_depth > 0 else None,
+                 guard=args.guard, device=args.device)
+    rep = res.report
+    print(f"[serve] replay {src} -> {kind} engine "
+          f"({rep['tenants']} tenants x cap {rep['capacity']}, "
+          f"{rep['shards']} shard(s)) on {args.device}: "
+          f"{rep['ops_replayed']} ops ({rep['ops_skipped']} skipped), "
+          f"{rep['ticks']} ticks in {rep['wall_s']:.3f}s "
+          f"({rep['steps_per_s']:.0f} session steps/s)")
+    if rep["shards"] > 1:
+        for sh in rep["per_shard"]:
+            print(f"  shard {sh['shard']}: {sh['tenants']} tenants, "
+                  f"{sh['session_steps']} steps, occupancy mean "
+                  f"{sh['occupancy_mean']:.1f} max {sh['occupancy_max']}")
+    for op, d in rep["per_op"].items():
+        print(f"  {op:12s} p50={d['p50_s'] * 1e3:8.3f}ms "
+              f"p99={d['p99_s'] * 1e3:8.3f}ms "
+              f"sojourn_p99={d['sojourn_p99_s'] * 1e3:8.3f}ms "
+              f"n={d['count']:.0f}")
+    if slo_s is not None:
+        print(f"  SLO {args.slo_ms:g}ms: violation fraction "
+              f"{rep['slo_violation_frac']:.4f}")
+    print(f"  queue depth max {rep['queue_depth_max']:.0f}")
+    if rep.get("duplicates_dropped"):
+        print(f"  chaos: {rep['duplicates_dropped']} duplicate "
+              f"arrival(s) dropped")
+    if rep.get("shed_depth") is not None:
+        print(f"  shed(depth {rep['shed_depth']}): "
+              f"{rep['shed_ops']} read(s) shed, "
+              f"{rep['deferred_observes']} observe(s) deferred")
+    if "guard" in rep:
+        g = rep["guard"]
+        print(f"  guard: rejected {sum(g['rejected'].values())} input(s) "
+              f"{dict(g['rejected'])}, {g['quarantines']} quarantine(s), "
+              f"{g['restores']} restore(s)")
+    print(f"[serve] kernel launches: {ops.kernel_launches()}")
+    _emit_report(args, metrics, tracer, mode=f"replay:{kind}")
+    return 0
+
+
 OOD_K = 7  # the JAX launcher's ConformalOodDetector(k=7)
 
 
@@ -601,8 +737,9 @@ def main(argv=None) -> int:
                     "here (exit 1 unless bit-exact); with --guard, a first "
                     "snapshot is the quarantine's restore source")
     ap.add_argument("--shards", type=int, default=1,
-                    help="tenant sharding across devices: not ported, only "
-                    "1 is served")
+                    help="--replay: N per-shard engines on the one device "
+                    "with merged metrics; other modes: tenant sharding "
+                    "across devices, not ported (only 1 is served)")
     ap.add_argument("--metrics-out", default="",
                     help="write the end-of-run metrics snapshot (the one "
                     "the report prints) to this JSON file")
@@ -616,15 +753,55 @@ def main(argv=None) -> int:
     ap.add_argument("--faults", type=int, default=-1, metavar="SEED",
                     help="sessions mode: corrupt the traffic with a keyed "
                     "FaultPlan.random of this seed (and, with "
-                    "--snapshot-dir, fail the final save once); -1 (the "
-                    "default) disables")
+                    "--snapshot-dir, fail the final save once); --replay "
+                    "loadgen: stamp value, duplicate and delay faults onto "
+                    "the generated trace; -1 (the default) disables")
     ap.add_argument("--fault-rate", type=float, default=0.02,
                     help="per-step fault probability for --faults")
     ap.add_argument("--guard", action="store_true",
-                    help="sessions mode: serve through a TickGuard "
-                    "(admission + poison-lane quarantine; restore from "
-                    "--snapshot-dir when set)")
+                    help="sessions and replay modes: serve through a "
+                    "TickGuard (admission + poison-lane quarantine; restore "
+                    "from --snapshot-dir when set)")
+    ap.add_argument("--replay", default="",
+                    help="replay a JSONL trace file, or synthesise one with "
+                    "loadgen:<workload> (steady|bursty|diurnal|zipf; --steps "
+                    "ops, --sessions tenants)")
+    ap.add_argument("--speedup", default="inf",
+                    help="--replay: compress the trace's inter-arrival times "
+                    "by this factor; 'inf' (the default) replays "
+                    "back-to-back")
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="--replay: latency SLO in ms; report the share of "
+                    "ops whose sojourn exceeds it (0: no SLO)")
+    ap.add_argument("--rate", type=float, default=2000.0,
+                    help="--replay loadgen: mean arrival rate, ops/s of the "
+                    "trace clock (rescaled by --speedup)")
+    ap.add_argument("--auto-tune", action="store_true",
+                    help="--replay: chunk the observes by the fitted cost "
+                    "model's suggest_chunk")
+    ap.add_argument("--cost-model", default="",
+                    help="--replay: load a fitted cost model JSON instead of "
+                    "fitting or calibrating one")
+    ap.add_argument("--cost-model-out", default="",
+                    help="--replay: save the fitted cost model JSON here")
+    ap.add_argument("--shed-depth", type=int, default=0,
+                    help="--replay: shed reads once the backlog exceeds this "
+                    "depth and defer observes past twice it (0: no "
+                    "shedding)")
+    ap.add_argument("--audit", action="store_true",
+                    help="run the invariant audit (repro_torch.analysis."
+                    "audit) on --device and exit; nonzero on a violation")
+    ap.add_argument("--audit-out", default="audit_report.json",
+                    help="--audit: the JSON report's path")
     args = ap.parse_args(argv)
+    if args.audit:
+        from repro_torch.analysis import audit as audit_m
+        return audit_m.main(["--out", args.audit_out, "--device",
+                             args.device])
+    if args.replay:
+        if args.measure:
+            raise SystemExit("--replay and --measure are exclusive")
+        return serve_replay(args)
     if args.sessions > 0:
         if args.measure:
             if args.guard or args.faults >= 0:

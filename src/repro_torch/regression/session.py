@@ -109,8 +109,8 @@ def _sliding_step(st: RegStreamState, x_new, y_new, tau, window, active, *,
     st.nbr_d[:, :w] = torch.where(a3, Lm, Lw)
     st.nbr_y[:, :w] = torch.where(a3, Lym, Lyw)
     st.nbr_a[:, :w] = torch.where(a3, Lam, Law)
-    st.n = torch.where(act, n1 + 1, n1)
-    st.head = head1
+    st.n.copy_(torch.where(act, n1 + 1, n1))  # every leaf in place
+    st.head.copy_(head1)
     return st, torch.where(act, p, torch.full_like(p, float("nan")))
 
 

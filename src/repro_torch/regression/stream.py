@@ -25,7 +25,7 @@ from repro_torch.core.online import (drop_backfill, fsum, next_aid,
                                      ring_slots)
 from repro_torch.core.regression import KnnRegState, topk_lowest
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import div_k
+from repro_torch.kernels.ref import div_k, on_device
 
 
 @dataclass
@@ -201,7 +201,7 @@ def observe(st: RegStreamState, x_new, y_new, *, k):
     d_row)``, the live-masked distance row. Precondition: ``n < wrap``."""
     ar = torch.arange(st.y.shape[0], device=st.y.device)
     idx = ring_mod(st.head + st.n, st.wrap).long()
-    y_new = torch.as_tensor(y_new, dtype=st.y.dtype, device=st.y.device)
+    y_new = on_device(y_new, st.y.device, st.y.dtype)
     new_aid = next_aid(st.aid, st.head, st.n, st.wrap)
     d_row, nbr_d, nbr_y, nbr_a, _ = kops.stream_tick(
         st.X, st.y, st.nbr_d, st.nbr_y, x_new, y_new, st.n, mode="reg",

@@ -133,8 +133,8 @@ def _sliding_step(sess: Session, x_new, y_new, tau, window, active, *, k,
     knn.best[:, :w] = torch.where(act[:, None, None], merged, bw)
     new_aid = next_aid(sess.aid[:, :w], head1, n1, wrap)
     sess.aid[ar, il] = torch.where(act, new_aid, sess.aid[ar, il])
-    knn.n = torch.where(act, n1 + 1, n1)
-    sess.head = head1
+    knn.n.copy_(torch.where(act, n1 + 1, n1))  # every leaf in place
+    sess.head.copy_(head1)
     p = torch.where(act, p, torch.full_like(p, float("nan")))
     return sess, p
 

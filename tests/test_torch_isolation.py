@@ -62,11 +62,13 @@ def test_default_device_is_cuda():
     import numpy as np
 
     from repro_torch import configs
+    from repro_torch.analysis import audit
     from repro_torch.core.lm_conformal import (ConformalLmClassifier,
                                               ConformalOodDetector)
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.serving import ServingEngine, convert
+    from repro_torch.telemetry import calibrate_engine, loadgen, replay
 
     cfg = configs.get("qwen2-1.5b").reduced()
     tree = convert.lm_params_to_numpy(lm.init_lm(0, cfg, device="cpu"))
@@ -80,6 +82,9 @@ def test_default_device_is_cuda():
         "ood_detector": lambda: ConformalOodDetector(k=2).fit(emb)._emb.device,
         "lm_classifier": lambda: ConformalLmClassifier(2, k=2).fit(
             emb, np.arange(8) % 2)._state.X.device,
+        "replay": lambda: replay(loadgen.generate(
+            "steady", ops=4, tenants=1, capacity=8), dim=2,
+            k=2).engine.device,
     }
     for name, make in entry_points.items():
         if torch.cuda.is_available():
@@ -90,3 +95,8 @@ def test_default_device_is_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", "qwen2-1.5b", "--reduced"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            calibrate_engine(tenants=1, capacity=8, dim=2, k=2, chunks=(1,),
+                             reps=1)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            audit.main(["--out", os.devnull])
