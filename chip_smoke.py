@@ -61,10 +61,13 @@ exits non-zero without a result line:
    embedding pass's shape (B 256, S 512, H 12, Hkv 2, D 128, causal), at
    gemma3's local layer (D 256, window 512), in f32 with softcap 50
    non-causal, in f32 with Sq 16 < Skv 80, at small odd head dims, in
-   bf16 with Sq 48 < Skv 300 (MHA, ragged tiles), and in bf16 on the
-   path without TMA (head dim 60; bases 2 bytes off 16); the useful TFLOP/s at
-   (a), the f32 body's time at (c), and the count of tensor-core
-   instructions (``HGMMA``) in the bf16 kernel's SASS; then the
+   bf16 with Sq 48 < Skv 300 (MHA, ragged tiles), in bf16 on the
+   path without TMA (head dim 60; bases 2 bytes off 16), and at phase
+   13's shapes: deepseek-v2's MLA prefill (B 8, S 512, H = Hkv = 128, D
+   192, the scale passed), granite's MQA 48:1 and mixtral's window 4096
+   at S 4608; the useful TFLOP/s at (a) and at the MLA prefill, the f32
+   body's time at (c), and the count of tensor-core instructions
+   (``HGMMA``) in the bf16 kernel's SASS at D 128 and 192; then the
    launcher's functions: 256 calibration sequences of 512 tokens
    embedded and the OOD head fitted (k 7), 256 held-out sequences of the
    same stream scored (validity: share with p <= 0.1 at most 0.18, mean p
@@ -167,7 +170,27 @@ exits non-zero without a result line:
    at 64 tenants over 1,100 ops in a subprocess, its trace valid; (g)
    ``python -m repro_torch.analysis.audit --device cuda`` in a
    subprocess started beside (d), which times nothing, exit 0. The kernels
-   of (a)-(e) count under ``replay``.
+   of (a)-(e) count under ``replay``;
+13. the MoE and MLA families at full width in bf16, the depth cut so the
+   weights fit: deepseek-v2-236b (4 of 60 layers: the dense first layer
+   and 3 MoE layers; MLA), mixtral-8x22b (6 of 56; top-2 of 8 experts,
+   window 4096), granite-34b (24 of 88; MQA 48:1), each freed before the
+   next, through the launcher's functions: 128 calibration sequences of
+   512 tokens embedded in one pass and the OOD head fitted (k 7), 128
+   held-out sequences of the same stream embedded in one pass of the same
+   size (MoE capacity makes a token's output depend on its batch) and
+   scored (share with p <= 0.1 at most 0.18, mean p in [0.40, 0.60]), 8
+   requests of 512 tokens embedded and scored, then ``generate`` over
+   their first 64 tokens and 8 more; ``flash_attention`` launches once
+   per layer per pass and no other kernel does; three calibration passes
+   bitwise equal (the MoE combine adds in a fixed order, no atomics); one
+   decode step under ``set_sync_debug_mode("error")``. Then, in f32 at
+   full width and 2 layers (the MoE lossless, capacity E/K), the kernel
+   route's embeddings == the plain route's (1e-5 of their RMS) and decode
+   == forward (1e-3) over (2, 64), on the sequences both runs route
+   alike, each routing difference required to sit at a router near-tie
+   (K-th and (K+1)-th probabilities within 1e-5). The kernel's launches
+   count under ``families``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -229,8 +252,16 @@ FLASH_CASES = [  # name, dtype, B, Sq, Skv, H, Hkv, D, causal, window, softcap
     # of 8, and (FLASH_OFF16) operands whose base is 2 bytes off 16
     ("h", torch.bfloat16, 2, 100, 100, 4, 2, 60, True, None, None),
     ("i", torch.bfloat16, 2, 130, 130, 6, 3, 64, True, None, 30.0),
+    # the families of phase 13: deepseek-v2's MLA prefill (head dim 128 +
+    # 64, v padded to it, MHA, the scale passed explicitly; NC = 3), then
+    # granite-34b's MQA 48:1, then mixtral's 4096 window where it masks
+    ("j", torch.bfloat16, 8, 512, 512, 128, 128, 192, True, None, None),
+    ("k", torch.bfloat16, 4, 512, 512, 48, 1, 128, True, None, None),
+    ("l", torch.bfloat16, 1, 4608, 4608, 48, 8, 128, True, 4096, None),
 ]
 FLASH_OFF16 = ("i",)
+FLASH_SCALE = {"j": 192 ** -0.5}  # passed as MLA passes it
+FLASH_MLA = "j"  # timed beside (a)
 BIG = 1e30
 
 
@@ -1625,7 +1656,8 @@ def sass_mix() -> str:
     """Instruction mix of the attention kernels in the built library, by
     ``cuobjdump -sass``: tensor-core products (``HGMMA`` for wgmma, ``HMMA``
     for mma.sync) and f32 FMAs per kernel. The bf16 kernel at D 128
-    (``fa_bf16_kernel<2>``, shape (a)'s) must hold ``HGMMA``."""
+    (``fa_bf16_kernel<2>``, shape (a)'s) and at D 192
+    (``fa_bf16_kernel<3>``, the MLA prefill's) must hold ``HGMMA``."""
     funcs = sass_functions()
     if not funcs:
         return "cuobjdump absent: not measured"
@@ -1634,10 +1666,39 @@ def sass_mix() -> str:
         if "fa_bf16_kernel" in fn or "flash_attention_kernel" in fn:
             ops = [op for _, op, _ in ins]
             mix[fn] = {k: ops.count(k) for k in ("HGMMA", "HMMA", "FFMA")}
-    key = next((f for f in mix if "fa_bf16_kernelILi2E" in f), None)
-    check(key is not None and mix[key]["HGMMA"] > 0,
-          f"HGMMA in the bf16 attention kernel at D 128: {mix.get(key)}")
+    for nc, d in ((2, 128), (3, 192)):
+        key = next((f for f in mix if f"fa_bf16_kernelILi{nc}E" in f), None)
+        check(key is not None and mix[key]["HGMMA"] > 0,
+              f"HGMMA in the bf16 attention kernel at D {d}: "
+              f"{mix.get(key)}")
     return "; ".join(f"{f}: {c}" for f, c in sorted(mix.items()))
+
+
+def time_flash(q, k, v, kw, iters):
+    """``(ms, plain_ms, SDPA ms, bound ms, bound by, line)`` of a causal
+    bf16 call: the kernel, its plain version and SDPA (the yardstick
+    only) on the same operands, the bound from this call's live pairs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
+    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), 3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                  scale=kw["scale"], enable_gqa=True), iters)
+    nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D)
+    pairs = live_pairs(Sq, Skv, True, kw["window"])
+    flops = 4 * B * H * D * pairs
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    line = (f"B={B} S={Sq} H={H} Hkv={Hkv} D={D} causal bf16: {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} useful TFLOP/s), plain {plain_ms:.4f} "
+            f"ms, SDPA {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} "
+            f"TFLOP/s), bound {b_ms:.4f} ms ({b_by}; {pairs} live pairs per "
+            "head)")
+    return ms, plain_ms, lib_ms, b_ms, b_by, line
 
 
 def check_flash_attention(g, iters, dev="cuda"):
@@ -1648,7 +1709,7 @@ def check_flash_attention(g, iters, dev="cuda"):
     from repro_torch.kernels.flash_attention import flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    err, notes, timed, f32_ms = 0.0, [], None, float("nan")
+    err, notes, timed, f32_ms = 0.0, [], {}, float("nan")
     for name, dt, B, Sq, Skv, H, Hkv, D, causal, window, cap in FLASH_CASES:
         q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dt)
         k = torch.randn((B, Skv, Hkv, D), generator=g, device=dev).to(dt)
@@ -1658,7 +1719,8 @@ def check_flash_attention(g, iters, dev="cuda"):
                        .view(t.shape).copy_(t) for t in (q, k, v))
             check(all(t.data_ptr() % 16 == 2 for t in (q, k, v)),
                   f"flash ({name}) bases 2 bytes off 16")
-        kw = dict(causal=causal, window=window, softcap=cap)
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  scale=FLASH_SCALE.get(name))
         got = flash_attention(q, k, v, **kw)
         want = ref.flash_attention(q, k, v, **kw)
         check(got.shape == want.shape and got.dtype == dt
@@ -1681,32 +1743,18 @@ def check_flash_attention(g, iters, dev="cuda"):
                          f"ulp, the largest by {excess / 1e-5:.3f} of the "
                          "1e-5")
         err = max(err, diff)
-        if name == "a":
-            timed = (q, k, v, kw, B, Sq, Skv, H, Hkv, D)
+        if name in ("a", FLASH_MLA):
+            timed[name] = time_flash(q, k, v, kw, iters)
         if name == "c":  # the f32 body, a reading
             f32_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
         del q, k, v, got, want
-    q, k, v, kw, B, Sq, Skv, H, Hkv, D = timed
-    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
-    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), 3)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                  enable_gqa=True), iters)
-    nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D)
-    pairs = live_pairs(Sq, Skv, True, None)
-    flops = 4 * B * H * D * pairs
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    print(f"[kernel] flash_attention: " + "; ".join(notes)
-          + f"; (a) B={B} S={Sq} H={H} Hkv={Hkv} D={D} causal bf16: "
-          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} useful TFLOP/s), plain "
-          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
-          f"({flops / lib_ms / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ms "
-          f"({b_by}; {pairs} live pairs per head)")
+    ms, plain_ms, lib_ms, b_ms, b_by, line = timed["a"]
+    print(f"[kernel] flash_attention: " + "; ".join(notes) + f"; (a) {line}")
+    print(f"[kernel] flash_attention at the MLA prefill ({FLASH_MLA}): "
+          f"{timed[FLASH_MLA][-1]}")
     print(f"[kernel] flash_attention f32 body at (c): {f32_ms:.4f} ms (a "
           "reading)")
     print(f"[sass] flash_attention: {sass_mix()}")
-    del q, k, v, qt, kt, vt
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:83",
@@ -3622,6 +3670,284 @@ def replay_path(S, W, iters):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the MoE and MLA families at full width, the depth cut
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept): full width in bf16, the depth cut so that the
+# weights and an embedding pass of FAM_CALIB x FAM_SEQ tokens fit the card
+FAMILY_CUTS = (("deepseek-v2-236b", 4), ("mixtral-8x22b", 6),
+               ("granite-34b", 24))
+FAM_CALIB, FAM_SEQ, FAM_REQUESTS, FAM_PROMPT, FAM_GEN = 128, 512, 8, 64, 8
+FAM_CHECK_LAYERS, FAM_DECODE_CHECK = 2, (2, 64)  # f32 checks: depth, (B, S)
+# f32 sequences for the route check; deepseek's lossless expert inputs are
+# (160, T, 5120), 6.7 GB at T = 4 x 512
+FAM_CHECK_BATCH = {"deepseek-v2-236b": 4}
+ROUTER_TIE = 1e-5  # K-th and (K+1)-th router probabilities this close
+FAM_REDUCED = False  # a CPU rehearsal cuts the reduced configs instead
+
+
+class routing:
+    """Inside the block, each ``mlp.route`` call (``models/mlp.py``'s MoE
+    looks it up at call time) records its top-K experts ``(T, K)`` and
+    each token's gap between its K-th and (K+1)-th router probabilities
+    ``(T,)``, in ``calls``."""
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+
+        self._mod, self._kept, self.calls = mlp, mlp.route, []
+
+        def recorded(p, xt, K):
+            probs, top_p, top_e = self._kept(p, xt, K)
+            top = torch.topk(probs, K + 1, dim=-1).values
+            self.calls.append((top_e, top[:, K - 1] - top[:, K]))
+            return probs, top_p, top_e
+
+        mlp.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._kept
+
+
+def decode_routing(calls, n_moe: int, B: int, S: int) -> list:
+    """A decode run's routing (S steps of ``n_moe`` calls on ``B`` tokens)
+    as one ``(top_e (B * S, K), gap (B * S,))`` a MoE layer, tokens
+    sequence-major as a full pass holds them."""
+    out = []
+    for j in range(n_moe):
+        steps = calls[j::n_moe]
+        check(len(steps) == S, f"decode routing: {len(steps)} steps of {S}")
+        out.append((torch.stack([c[0] for c in steps], 1).reshape(B * S, -1),
+                    torch.stack([c[1] for c in steps], 1).reshape(B * S)))
+    return out
+
+
+def routing_flips(a, b, B: int, dev):
+    """Two runs' routing, one ``(top_e, gap)`` a MoE layer, tokens
+    sequence-major. Returns ``(flipped (B,), near (B,), unexplained)``:
+    the sequences holding a token the runs route to another set of
+    experts (the order inside the top K does not matter at lossless
+    capacity: the combine adds in expert order), those holding a near-tie
+    token (``gap <= ROUTER_TIE`` in either run), and the count of tokens
+    routed differently that are no near-tie."""
+    check(len(a) == len(b), f"routing: {len(a)} MoE calls against {len(b)}")
+    flipped = torch.zeros(B, dtype=torch.bool, device=dev)
+    near = torch.zeros(B, dtype=torch.bool, device=dev)
+    unexplained = 0
+    for (ea, ga), (eb, gb) in zip(a, b):
+        diff = (ea.sort(1).values != eb.sort(1).values).any(1)
+        tie = (ga <= ROUTER_TIE) | (gb <= ROUTER_TIE)
+        unexplained += int((diff & ~tie).sum())
+        flipped |= diff.view(B, -1).any(1)
+        near |= tie.view(B, -1).any(1)
+    return flipped, near, unexplained
+
+
+def family_kinds(cfg) -> str:
+    """``deepseek-v2-236b``'s ``dense_ffn_attn + 3 attn (MLA, MoE 160
+    top-6 + 2 shared)``-style summary of a cut."""
+    runs = {}
+    for kind in cfg.pattern:
+        runs[kind] = runs.get(kind, 0) + 1
+    parts = [" + ".join(f"{n} {k}" for k, n in runs.items())]
+    if cfg.mla is not None:
+        m = cfg.mla
+        parts.append(f"MLA q {m.qk_nope_head_dim} + {m.qk_rope_head_dim}, "
+                     f"v {m.v_head_dim}, kv_lora {m.kv_lora_rank}")
+    else:
+        parts.append(f"GQA {cfg.n_heads}/{cfg.n_kv_heads} x "
+                     f"{cfg.resolved_head_dim}"
+                     + (f", window {cfg.window}" if cfg.window else ""))
+    mo = cfg.moe
+    if mo.n_experts:
+        parts.append(f"MoE {mo.n_experts} x {mo.d_ff} top-"
+                     f"{mo.n_experts_per_token}"
+                     + (f" + {mo.n_shared_experts} shared"
+                        if mo.n_shared_experts else "")
+                     + f", capacity {mo.capacity_factor}")
+    else:
+        parts.append(f"SwiGLU {cfg.d_ff}")
+    return "; ".join(parts)
+
+
+def family_run(arch: str, layers: int, dev="cuda"):
+    """Phase 13 for one arch. Returns the main path's launch counts."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.lm_conformal import (ConformalOodDetector,
+                                              hidden_states)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    t_arch = time.perf_counter()
+    full = configs.get(arch)
+    cut = dict(n_layers=layers, layer_pattern=full.pattern[:layers])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (cfg, params), init_ms = timed_ms(
+        lambda: serve.lm_model(arch, FAM_REDUCED, SEED, dev, **cut))
+    n_par = sum(t.numel() for t in params.parameters())
+    calib = serve.stream_tokens(cfg, FAM_CALIB, FAM_SEQ, SEED, 0, dev)
+    held = serve.stream_tokens(cfg, FAM_CALIB, FAM_SEQ, SEED, 1, dev)
+    req = serve.request_tokens(cfg, FAM_REQUESTS, FAM_SEQ, SEED, dev)
+
+    # ---- the main path (counted) ------------------------------------------
+    ops.reset_launch_counts()
+    emb, emb_ms = timed_ms(lambda: serve.embed(params, cfg, calib))
+    ood, fit_ms = timed_ms(
+        lambda: ConformalOodDetector(k=LM_K, device=dev).fit(emb))
+    held_emb, held_ms = timed_ms(lambda: serve.embed(params, cfg, held))
+    p_held, pv_ms = timed_ms(lambda: ood.pvalues(held_emb))
+    req_emb, req_ms = timed_ms(lambda: serve.embed(params, cfg, req))
+    p_req = ood.pvalues(req_emb)
+    gen, dec_ms = timed_ms(lambda: serve.generate(
+        params, cfg, req[:, :FAM_PROMPT], FAM_GEN))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm] {cfg.name}: {layers} of {full.n_layers} layers ("
+          f"{family_kinds(cfg)}), d {cfg.d_model}, {cfg.n_heads} heads ("
+          f"{cfg.n_kv_heads} kv) x {cfg.resolved_head_dim}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, {n_par / 1e9:.3f} B parameters "
+          f"({n_par * 2 / 2**30:.1f} GiB; the whole model "
+          f"{full.n_params() / 1e9:.1f} B), init {init_ms / 1e3:.2f} s, "
+          f"peak {peak / 2**30:.2f} GiB")
+    steps = FAM_PROMPT + FAM_GEN
+    print(f"[fam-main] {cfg.name}: embedding pass {FAM_CALIB} x {FAM_SEQ}: "
+          f"calibration {emb_ms:.1f} ms, held-out {held_ms:.1f} ms "
+          f"({FAM_CALIB * FAM_SEQ / held_ms * 1e3:.0f} tok/s); OOD fit "
+          f"{fit_ms:.3f} ms, p-values of {FAM_CALIB} {pv_ms:.3f} ms; "
+          f"{FAM_REQUESTS} requests x {FAM_SEQ} embedded in {req_ms:.1f} ms; "
+          f"{FAM_REQUESTS} x ({FAM_PROMPT} prompt + {FAM_GEN} generated) by "
+          f"decode steps in {dec_ms:.1f} ms ({steps / dec_ms * 1e3:.1f} "
+          f"steps/s) (host clock, synchronised); launches {counts}")
+    check(counts["flash_attention"] == 3 * cfg.n_layers,
+          f"{arch}: flash_attention once per attention layer per pass")
+    check(sum(counts.values()) == counts["flash_attention"],
+          f"{arch}: no other kernel on the LM path")
+    check(emb.shape == (FAM_CALIB, cfg.d_model)
+          and emb.dtype == lm.dtype_of(cfg.dtype)
+          and bool(torch.isfinite(emb).all()), f"{arch}: finite embeddings")
+    check(gen.shape == (FAM_REQUESTS, FAM_GEN) and bool(
+        ((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          f"{arch}: generated tokens")
+    for p in (p_held, p_req):
+        check(bool(((p > 0) & (p <= 1)).all()), f"{arch}: p-values in (0, 1]")
+
+    # ---- validity (binding) and power (a reading) --------------------------
+    ph, pr = p_held.cpu().numpy(), p_req.cpu().numpy()
+    share, mean_p = float((ph <= EPS).mean()), float(ph.mean())
+    half = FAM_REQUESTS // 2
+    print(f"[fam-valid] {cfg.name}: held-out ({FAM_CALIB}, same batch size "
+          f"as the calibration): share p <= {EPS} {share:.4f} (<= 0.18), "
+          f"mean p {mean_p:.4f} (in [0.40, 0.60]); requests of another "
+          f"seed's stream: mean p {pr[:half].mean():.4f}; uniform-token "
+          f"requests: mean p {pr[half:].mean():.4f} (power, a reading)")
+    check(share <= 0.18, f"{arch}: held-out share with p <= {EPS}: {share}")
+    check(0.40 <= mean_p <= 0.60, f"{arch}: held-out mean p {mean_p}")
+
+    # ---- determinism: two more calibration passes, bitwise ----------------
+    h1 = hidden_states(params, cfg, {"tokens": calib})
+    h2 = hidden_states(params, cfg, {"tokens": calib})
+    same = torch.equal(h1, h2) and torch.equal(
+        torch.mean(h1, dim=1, dtype=torch.float32).to(h1.dtype), emb)
+    check(same, f"{arch}: calibration passes bitwise equal")
+    del h1, h2
+
+    # ---- one decode step without a host synchronisation --------------------
+    cache = lm.init_cache(cfg, FAM_REQUESTS, 2, dev)
+    lm.decode_step(params, cfg, req[:, :1], cache, 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_logits, _ = lm.decode_step(params, cfg, req[:, 1:2], cache, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(step_logits).all()),
+          f"{arch}: finite decode logits")
+    print(f"[fam-det] {cfg.name}: three calibration passes bitwise equal "
+          f"(hidden states {FAM_CALIB} x {FAM_SEQ} x {cfg.d_model}); one "
+          f"decode step ({FAM_REQUESTS} sequences) under "
+          "set_sync_debug_mode(\"error\"): no host synchronisation")
+    del params, cache, step_logits, emb, held_emb, req_emb, ood
+    torch.cuda.empty_cache()
+
+    # ---- f32, full width, FAM_CHECK_LAYERS layers (binding) ----------------
+    kw32 = dict(n_layers=FAM_CHECK_LAYERS,
+                layer_pattern=full.pattern[:FAM_CHECK_LAYERS],
+                dtype="float32", param_dtype="float32")
+    mo = cfg.moe
+    if mo.n_experts:  # lossless: cap = T, no token drops
+        kw32["moe"] = dataclasses.replace(
+            mo, capacity_factor=mo.n_experts / mo.n_experts_per_token)
+    cfg32, p32 = serve.lm_model(arch, FAM_REDUCED, SEED, dev, **kw32)
+    B = FAM_CHECK_BATCH.get(arch, 8)
+    toks = calib[:B]
+    runs = {}
+    for route in ("kernel", "plain"):
+        with (plain_attention() if route == "plain" else nullcontext()), \
+                routing() as r:
+            runs[route] = (serve.embed(p32, cfg32, toks), r.calls)
+    flipped, near, unexplained = routing_flips(runs["kernel"][1],
+                                               runs["plain"][1], B, dev)
+    check(unexplained == 0, f"{arch}: {unexplained} tokens routed apart by "
+          "the two attention routes without a router near-tie")
+    keep = ~flipped
+    check(bool(keep.any()), f"{arch}: every sequence routed apart")
+    gap = rel_gap(runs["kernel"][0][keep], runs["plain"][0][keep])
+    check(gap <= 1e-5, f"{arch}: f32 kernel route == plain route within "
+          f"1e-5 of the RMS: {gap}")
+    del runs
+    Bd, Sd = FAM_DECODE_CHECK
+    td = calib[:Bd, :Sd]
+    with routing() as rf:
+        fwd = lm.forward(p32, cfg32, {"tokens": td})
+    cache = lm.init_cache(cfg32, Bd, Sd, dev)
+    with routing() as rd:
+        dec = torch.stack([lm.decode_step(p32, cfg32, td[:, i:i + 1], cache,
+                                          i)[0][:, 0] for i in range(Sd)], 1)
+    d_flip, d_near, d_unexpl = routing_flips(
+        rf.calls, decode_routing(rd.calls, len(rf.calls), Bd, Sd), Bd, dev)
+    check(d_unexpl == 0, f"{arch}: {d_unexpl} tokens routed apart by decode "
+          "and forward without a router near-tie")
+    kd = ~d_flip
+    check(bool(kd.any()), f"{arch}: every decode sequence routed apart")
+    dec_err = float((dec[kd] - fwd[kd]).abs().max())
+    check(torch.allclose(dec[kd], fwd[kd], atol=1e-3, rtol=1e-3),
+          f"{arch}: decode == forward within 1e-3: {dec_err}")
+    print(f"[fam-exact] {cfg.name} f32, {FAM_CHECK_LAYERS} layers at full "
+          f"width{' (MoE lossless, capacity E/K)' if mo.n_experts else ''}: "
+          f"kernel route == plain route "
+          f"over {B} x {FAM_SEQ} tokens, embeddings within {gap:.3g} of "
+          f"their RMS (<= 1e-5) on {int(keep.sum())} of {B} sequences "
+          f"({int(flipped.sum())} routed apart, each flip at a near-tie; "
+          f"{int(near.sum())} hold a near-tie token, gap <= {ROUTER_TIE}); "
+          f"teacher-forced decode == forward over {Bd} x {Sd} tokens, max "
+          f"abs err {dec_err:.3g} (1e-3) on {int(kd.sum())} of {Bd} "
+          f"sequences ({int(d_flip.sum())} routed apart, "
+          f"{int(d_near.sum())} with a near-tie); "
+          f"{time.perf_counter() - t_arch:.1f} s for {cfg.name}")
+    del p32, cache, fwd, dec
+    torch.cuda.empty_cache()
+    return counts
+
+
+def families_path(dev="cuda"):
+    """Phase 13: each of ``FAMILY_CUTS`` in turn, each model freed before
+    the next loads. Returns the main paths' launch counts, summed."""
+    t_phase = time.perf_counter()
+    total = {}
+    for arch, layers in FAMILY_CUTS:
+        for name, n in family_run(arch, layers, dev).items():
+            total[name] = total.get(name, 0) + n
+    print(f"[fam] phase 13 in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -3691,6 +4017,8 @@ def main(argv=None) -> int:
     by_path["serving_shell"] = serving_shell_path(S, W, args.iters)
     torch.cuda.empty_cache()
     by_path["replay"] = replay_path(S, W, args.iters)
+    torch.cuda.empty_cache()
+    by_path["families"] = families_path()
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

@@ -1,10 +1,11 @@
 """Architecture registry: ``get(name)`` -> ArchConfig.
 
-The same names and aliases as ``repro.configs``. The port runs the dense
-decoder-only families whose blocks are ``attn``/``attn_local``: qwen2-1.5b,
-qwen3-1.7b and gemma3-1b. The other architectures need modules the port
-does not have yet (MoE, MLA, recurrent blocks, encoder-decoder, the vision
-stub); ``get`` raises for them.
+The same names and aliases as ``repro.configs``. The port runs the
+decoder-only attention families: the dense qwen2-1.5b, qwen3-1.7b,
+gemma3-1b and granite-34b, the mixture-of-experts mixtral-8x22b and
+deepseek-v2-236b (MLA, a dense first layer). The other architectures need
+modules the port does not have yet (recurrent blocks, encoder-decoder, the
+vision stub); ``get`` raises for them.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ ARCH_NAMES = (
     "whisper_base",
     "xlstm_125m",
 )
-PORTED = ("gemma3_1b", "qwen3_1_7b", "qwen2_1_5b")
+PORTED = ("gemma3_1b", "granite_34b", "qwen3_1_7b", "qwen2_1_5b",
+          "mixtral_8x22b", "deepseek_v2_236b")
 
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 _ALIASES.update({"qwen3-1.7b": "qwen3_1_7b", "qwen2-1.5b": "qwen2_1_5b"})

@@ -53,9 +53,15 @@ wrapper around an empty body, and ``TickStats.flush`` of 64 recorded
 one-tick chunks; and the CUDA launches (``cudaLaunchKernel`` calls) of
 8 ticks of each engine, from ``torch.profiler``.
 ``--arch NAME`` traces the LM conformal-OOD serving path at full width
-(bf16, random weights from the seed): one calibration embedding pass over
-256 sequences of 512 tokens (one untraced pass first) and one decode step
-of 16 requests against a 544-token cache (one untraced step first).
+(bf16, random weights from the seed; ``--layers N`` keeps the first N
+layers of the pattern, the depth cut that lets an MoE model fit the card):
+one calibration embedding pass over ``--calib`` (256) sequences of 512
+tokens (one untraced pass first) and one decode step of 16 requests
+against a 544-token cache (one untraced step first). Each pass's device
+time is also split by the model's stages (``LM_SPANS``): attention (its
+projections and ``flash_attention``), the dense MLPs, and the MoE's
+router, sort and slot assignment, expert-input gather, expert products
+and combine; the rest is the embedding, norms, residuals and head.
 Needs a GPU.
 """
 from __future__ import annotations
@@ -63,6 +69,7 @@ from __future__ import annotations
 import argparse
 import time
 from collections import defaultdict
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -75,7 +82,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.kde_score import WIDE_ROWS, kde_rowsums
 from repro_torch.launch import serve
 from repro_torch.launch.serve import class_drift_traffic, reg_drift_traffic
+from repro_torch.models import attention as attn_m
 from repro_torch.models import lm
+from repro_torch.models import mlp as mlp_m
 from repro_torch.regression import RegressionServingEngine
 from repro_torch.serving import ServingEngine
 
@@ -94,7 +103,45 @@ HAND_KERNELS = ("stream_tick_class_kernel", "stream_tick_reg_kernel",
 LM_CALIB, LM_SEQ, LM_REQUESTS, LM_GEN = 256, 512, 16, 32  # smoke phase 7
 
 
-def device_breakdown(fn, label: str, trace: str | None) -> None:
+# the LM's stages: (span, module, functions), each function run inside a
+# ``record_function`` of its span while ``lm_spans()`` is active
+LM_SPANS = (("attention", attn_m, ("attention_full", "mla_full",
+                                   "attention_decode", "mla_decode")),
+            ("dense MLP", mlp_m, ("mlp",)),
+            ("moe: router", mlp_m, ("route", "_aux")),
+            ("moe: sort and slots", mlp_m, ("_buckets", "_dispatch_one")),
+            ("moe: gather", mlp_m, ("_gather",)),
+            ("moe: expert products", mlp_m, ("_experts",)),
+            ("moe: combine", mlp_m, ("_combine",)))
+
+
+@contextmanager
+def lm_spans():
+    """Run each of ``LM_SPANS``' functions inside its span, for
+    ``device_breakdown`` to sum the device time under."""
+    from torch.profiler import record_function
+
+    kept = []
+
+    def spanned(label, fn):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    for label, mod, names in LM_SPANS:
+        for name in names:
+            kept.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, spanned(label, getattr(mod, name)))
+    try:
+        yield
+    finally:
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
+
+
+def device_breakdown(fn, label: str, trace: str | None,
+                     spans: tuple = ()) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -104,7 +151,8 @@ def device_breakdown(fn, label: str, trace: str | None) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_name = defaultdict(lambda: [0, 0.0])
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a span also shows on the device's timeline: not a kernel
+        if e.device_type == DeviceType.CUDA and e.name not in spans:
             per_name[e.name][0] += 1
             per_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     busy = sum(ms for _, ms in per_name.values())
@@ -119,6 +167,15 @@ def device_breakdown(fn, label: str, trace: str | None) -> None:
     rows = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:TOP]
     for name, (count, ms) in rows:
         print(f"  {ms:10.3f} ms {ms / busy:6.1%} x{count:<6d} {name[:100]}")
+    if spans:
+        by_span = dict.fromkeys(spans, 0.0)
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.name in by_span:
+                by_span[e.name] += e.device_time_total / 1e3
+        by_span["other (embedding, norms, residuals, head)"] = (
+            busy - sum(by_span.values()))
+        print(f"[{label}] device time by stage: " + ", ".join(
+            f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in by_span.items()))
     if trace:
         prof.export_chrome_trace(trace)
 
@@ -402,21 +459,34 @@ def telemetry_costs() -> int:
     return 0
 
 
-def profile_lm(arch: str, trace: str | None) -> int:
-    """One calibration embedding pass and one decode step, traced."""
-    cfg, params = serve.lm_model(arch, False, SEED, "cuda")
-    calib = serve.stream_tokens(cfg, LM_CALIB, LM_SEQ, SEED, 0, "cuda")
+def profile_lm(arch: str, trace: str | None, layers: int = 0,
+               calib_n: int = LM_CALIB) -> int:
+    """One calibration embedding pass and one decode step, traced; with
+    ``layers`` only the first ``layers`` layers of the pattern."""
+    from repro_torch import configs
+
+    pattern = configs.get(arch).pattern
+    cut = (dict(n_layers=layers, layer_pattern=pattern[:layers])
+           if layers else {})
+    cfg, params = serve.lm_model(arch, False, SEED, "cuda", **cut)
+    calib = serve.stream_tokens(cfg, calib_n, LM_SEQ, SEED, 0, "cuda")
     print(f"[profile] {torch.cuda.get_device_name(0)}: {cfg.name} "
-          f"{cfg.n_layers} layers d {cfg.d_model} {cfg.dtype}")
+          f"{cfg.n_layers} of {len(pattern)} layers d {cfg.d_model} "
+          f"{cfg.dtype}")
+    spans = tuple(label for label, _, _ in LM_SPANS)
     serve.embed(params, cfg, calib)
-    device_breakdown(lambda: serve.embed(params, cfg, calib),
-                     f"embedding pass {LM_CALIB} x {LM_SEQ}", trace)
+    with lm_spans():
+        device_breakdown(lambda: serve.embed(params, cfg, calib),
+                         f"embedding pass {calib_n} x {LM_SEQ}", trace, spans)
+    del calib
     req = serve.request_tokens(cfg, LM_REQUESTS, 1, SEED, "cuda")
     cache = lm.init_cache(cfg, LM_REQUESTS, LM_SEQ + LM_GEN, "cuda")
     lm.decode_step(params, cfg, req, cache, 0)
-    device_breakdown(lambda: lm.decode_step(params, cfg, req, cache, LM_SEQ),
-                     f"decode step {LM_REQUESTS} requests, cache "
-                     f"{LM_SEQ + LM_GEN}", None)
+    with lm_spans():
+        device_breakdown(
+            lambda: lm.decode_step(params, cfg, req, cache, LM_SEQ),
+            f"decode step {LM_REQUESTS} requests, cache {LM_SEQ + LM_GEN}",
+            None, spans)
     return 0
 
 
@@ -439,6 +509,10 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None,
                     help="trace the LM serving path of this architecture "
                     "(e.g. qwen2-1.5b)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="--arch: keep the first N layers (0: all)")
+    ap.add_argument("--calib", type=int, default=LM_CALIB,
+                    help="--arch: sequences in the embedding pass")
     ap.add_argument("--trace", default="",
                     help="write the tick (or fit) trace (Chrome JSON) here")
     args = ap.parse_args(argv)
@@ -449,7 +523,8 @@ def main(argv=None) -> int:
     if args.telemetry:
         return telemetry_costs()
     if args.arch:
-        return profile_lm(args.arch, args.trace or None)
+        return profile_lm(args.arch, args.trace or None, args.layers,
+                          args.calib)
     if args.measure:
         return profile_batch(args.measure, args.trace or None)
     T = W + 2 * TICKS

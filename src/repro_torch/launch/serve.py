@@ -78,7 +78,10 @@ engine (bootstrap, Algorithm 3, with ``--boot-b`` trees and
 is served by ``--regression``.
 
 Without ``--sessions`` the launcher serves the language model ``--arch``
-(qwen2-1.5b by default; full width unless ``--reduced``) with a conformal
+(qwen2-1.5b by default; also qwen3-1.7b, gemma3-1b, granite-34b,
+mixtral-8x22b and deepseek-v2-236b; full width unless ``--reduced``, and
+refused before any allocation where the weights do not fit the card's
+free memory) with a conformal
 OOD head, as the JAX launcher's LM mode does: random weights from
 ``--seed``, ``--calib`` calibration sequences of ``--prompt-len`` tokens
 from the synthetic token stream embedded (mean final hidden state) to fit
@@ -93,12 +96,14 @@ request's conformal p-value and the in-distribution / corrupted means.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch._device import resolve
 from repro_torch.core.lm_conformal import (ConformalOodDetector,
                                           sequence_embedding)
 from repro_torch.data.lm_pipeline import TokenStream
@@ -594,13 +599,25 @@ OOD_K = 7  # the JAX launcher's ConformalOodDetector(k=7)
 
 def lm_model(arch: str, reduced: bool, seed: int, device, **overrides):
     """``(cfg, params)``: ``arch`` (``reduced()`` if asked, then
-    ``overrides``) with random weights drawn from ``seed`` on ``device``."""
+    ``overrides``, e.g. a depth cut ``n_layers=, layer_pattern=``) with
+    random weights drawn from ``seed`` on ``device``. On a card whose free
+    memory cannot hold the weights (``cfg.n_params()`` in
+    ``param_dtype``) it raises ``ValueError`` before allocating."""
     cfg = configs.get(arch)
     if reduced:
         cfg = cfg.reduced()
     if overrides:
         cfg = cfg.replace(**overrides)
-    return cfg, lm.init_lm(seed, cfg, device=device)
+    dev = resolve(device)
+    if dev.type == "cuda":
+        need = cfg.n_params() * lm.dtype_of(cfg.param_dtype).itemsize
+        free = torch.cuda.mem_get_info(dev)[0]
+        if need > free:
+            raise ValueError(
+                f"{cfg.name}: {cfg.n_layers} layers at d {cfg.d_model} hold "
+                f"{need / 2**30:.1f} GiB of {cfg.param_dtype} weights, the "
+                f"card has {free / 2**30:.1f} GiB free; run --reduced")
+    return cfg, lm.init_lm(seed, cfg, device=dev)
 
 
 def stream_tokens(cfg, batch: int, seq_len: int, seed: int, index: int,
@@ -657,7 +674,12 @@ def _timed(fn, device):
 
 
 def serve_lm(args) -> int:
-    cfg, params = lm_model(args.arch, args.reduced, args.seed, args.device)
+    try:
+        cfg, params = lm_model(args.arch, args.reduced, args.seed,
+                               args.device)
+    except ValueError as e:
+        print(f"[serve] {e}", file=sys.stderr)
+        return 2
     dev = params["embed"].device
     B, P, G = args.requests, args.prompt_len, args.gen_tokens
     print(f"[serve] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
@@ -698,7 +720,8 @@ def main(argv=None) -> int:
                     "language model --arch")
     ap.add_argument("--arch", default="qwen2-1.5b",
                     help="LM mode: the architecture (qwen2-1.5b, "
-                    "qwen3-1.7b, gemma3-1b)")
+                    "qwen3-1.7b, gemma3-1b, granite-34b, mixtral-8x22b, "
+                    "deepseek-v2-236b)")
     ap.add_argument("--reduced", action="store_true",
                     help="LM mode: the tiny same-family config")
     ap.add_argument("--requests", type=int, default=8)

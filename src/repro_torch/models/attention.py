@@ -1,6 +1,7 @@
-"""GQA/MQA attention (+ qk-norm, bias, sliding window, softcap).
+"""Attention layers: GQA/MQA (+ qk-norm, bias, sliding window, softcap),
+and MLA (DeepSeek-V2).
 
-Counterpart of the GQA parts of ``repro/models/attention.py``, two paths:
+Counterpart of ``repro/models/attention.py``, two paths:
 
 * full sequence (prefill, embedding passes): ``kernels.ops.
   flash_attention``, the hand-written kernel on the card, the plain
@@ -8,10 +9,15 @@ Counterpart of the GQA parts of ``repro/models/attention.py``, two paths:
 * decode: one query position against a preallocated KV cache, a dense f32
   masked softmax (memory-bound, no kernel), as in the reference.
 
+MLA keeps low-rank K/V: the full-sequence pass decompresses them and runs
+MHA through the same kernel at head dim ``qk_nope + qk_rope`` (192 for
+deepseek-v2) with an explicit scale, ``v`` padded to that width and
+sliced back; decode runs the absorbed form, attending in the latent space,
+so the cache holds only the ``kv_lora``-wide latents and the rope key.
+
 Weights keep the JAX shapes (``wq (d, h, hd)``, ``wo (h, hd, d)``) and
 activations the ``(B, S, H, D)`` layout. The reference's sharding
 constraints and barriers are the identity off a mesh and are left out.
-MLA (DeepSeek-V2) is not ported yet.
 """
 from __future__ import annotations
 
@@ -115,5 +121,119 @@ def attention_decode(p, x, cfg: ArchConfig, cache: dict, index: int,
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
 
 
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator: torch.Generator, cfg: ArchConfig,
+             dtype) -> nn.ParameterDict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = generator.device
+    return frozen({
+        "wq_a": dense_init((d, m.q_lora_rank), dtype, generator),
+        "q_norm": torch.ones((m.q_lora_rank,), dtype=dtype, device=dev),
+        "wq_b": dense_init((m.q_lora_rank, h, qk), dtype, generator),
+        "wkv_a": dense_init((d, m.kv_lora_rank + m.qk_rope_head_dim), dtype,
+                            generator),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype, device=dev),
+        "wk_b": dense_init((m.kv_lora_rank, h, m.qk_nope_head_dim), dtype,
+                           generator),
+        "wv_b": dense_init((m.kv_lora_rank, h, m.v_head_dim), dtype,
+                           generator),
+        "wo": dense_init((h, m.v_head_dim, d), dtype, generator),
+    })
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device) -> dict:
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+    }
+
+
+def _mla_query(p, x, cfg: ArchConfig, positions, theta):
+    """``(q_nope, q_rope)`` of ``x (B, S, D)``, the rope part rotated."""
+    m = cfg.mla
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_norm"],
+                  cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    return (q[..., :m.qk_nope_head_dim],
+            apply_rope(q[..., m.qk_nope_head_dim:], positions, theta))
+
+
+def _mla_latent(p, x, cfg: ArchConfig, positions, theta):
+    """``(c_kv (B, S, kv_lora), k_rope (B, S, 1, rope))``: the normed
+    latents and the rotated rope key shared across the heads."""
+    m = cfg.mla
+    ckv_full = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    c_kv = rms_norm(ckv_full[..., :m.kv_lora_rank], p["kv_norm"],
+                    cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[:, :, None, m.kv_lora_rank:], positions,
+                        theta)
+    return c_kv, k_rope
+
+
+def mla_full(p, x, cfg: ArchConfig, *, positions, theta: float = 10_000.0):
+    """Unabsorbed MLA (prefill): decompress K/V, run MHA through
+    ``flash_attention`` at head dim ``qk_nope + qk_rope`` with the scale
+    of that width; ``v`` is zero-padded to it and the output sliced
+    back."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_query(p, x, cfg, positions, theta)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions, theta)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
+    qk = torch.cat([q_nope, q_rope], dim=-1)
+    del q_nope, q_rope
+    kk = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_head_dim)],
+                   dim=-1)
+    del k_nope
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    vp = torch.nn.functional.pad(v, (0, qk.shape[-1] - v.shape[-1]))
+    del v
+    out = kops.flash_attention(qk, kk, vp, causal=True, scale=scale)
+    del qk, kk, vp
+    return torch.einsum("bshk,hkd->bsd", out[..., :m.v_head_dim], p["wo"])
+
+
+def mla_decode(p, x, cfg: ArchConfig, cache: dict, index: int,
+               *, theta: float = 10_000.0):
+    """Absorbed MLA decode, attending in the ``kv_lora`` latent space:
+    ``wk_b`` folds into the query, ``wv_b`` applies after the weighted
+    latent sum. The new latent and rope key are written into the cache
+    in place; returns ``(out (B, 1, D), cache)``."""
+    m = cfg.mla
+    B = x.shape[0]
+    S_max = cache["c_kv"].shape[1]
+    pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_query(p, x, cfg, pos, theta)
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])  # (B,1,H,rank)
+    c_new, kr_new = _mla_latent(p, x, cfg, pos, theta)
+    cache["c_kv"][:, index] = c_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, index] = kr_new[:, 0, 0].to(cache["k_rope"].dtype)
+
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    c_f = cache["c_kv"].float()
+    logits = (torch.einsum("bshr,btr->bhst", q_c.float(), c_f)
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             cache["k_rope"].float())) * scale
+    mask = torch.arange(S_max, device=x.device) <= index
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out_c = torch.einsum("bhst,btr->bshr", probs, c_f)  # (B,1,H,rank)
+    out = torch.einsum("bshr,rhk->bshk", out_c.to(x.dtype), p["wv_b"])
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
 __all__ = ["init_attention", "init_kv_cache", "attention_full",
-           "attention_decode", "NEG_INF"]
+           "attention_decode", "init_mla", "init_mla_cache", "mla_full",
+           "mla_decode", "NEG_INF"]

@@ -1,13 +1,17 @@
 """Transformer block assembly and the layer stack.
 
-Counterpart of ``repro/models/blocks.py`` for the ``attn`` and
-``attn_local`` kinds (the recurrent kinds ``rglru``, ``mlstm`` and
-``slstm`` are not ported yet). Consecutive layers of one kind form a
-*run* (``pattern_runs``), as in the reference, so that a run's parameters
-map onto the reference's stacked run one layer at a time. A run is an
+Counterpart of ``repro/models/blocks.py`` for the attention kinds
+``attn``, ``attn_local`` and ``dense_ffn_attn`` (attention and a dense
+FFN even in an MoE model: deepseek-v2's first layer), with GQA or MLA
+attention and a dense MLP or an MoE (the recurrent kinds ``rglru``,
+``mlstm`` and ``slstm`` are not ported yet). Consecutive layers of one
+kind form a *run* (``pattern_runs``), as in the reference, so that a
+run's parameters map onto the reference's stacked run one layer at a
+time. A run is an
 ``nn.ModuleList`` of blocks looped in Python: this is inference, so there
 is neither a scan nor rematerialisation. Caches are a list of runs, each a
-list of per-layer ``{"k", "v"}`` dicts.
+list of per-layer ``{"k", "v"}`` dicts (``{"c_kv", "k_rope"}`` with MLA).
+The MoE's load-balancing loss is a training term: inference drops it.
 """
 from __future__ import annotations
 
@@ -19,16 +23,14 @@ from repro_torch.models import attention as attn_m
 from repro_torch.models import mlp as mlp_m
 from repro_torch.models.common import frozen, layer_norm, rms_norm
 
-ATTN_KINDS = ("attn", "attn_local")
+ATTN_KINDS = ("attn", "attn_local", "dense_ffn_attn")
 
 
-def _check_kind(cfg: ArchConfig, kind: str) -> None:
+def _check_kind(kind: str) -> None:
     if kind not in ATTN_KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported yet (the port has "
             f"{ATTN_KINDS})")
-    if cfg.mla is not None or cfg.moe.n_experts:
-        raise NotImplementedError("MLA and MoE layers are not ported yet")
 
 
 def _norm_params(cfg: ArchConfig, dtype, device) -> dict:
@@ -48,12 +50,16 @@ def apply_norm(p, x, cfg: ArchConfig):
 
 def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
                dtype) -> nn.ModuleDict:
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     dev = generator.device
     p = {"ln1": _norm_params(cfg, dtype, dev),
-         "attn": attn_m.init_attention(generator, cfg, dtype),
-         "ln2": _norm_params(cfg, dtype, dev),
-         "mlp": mlp_m.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)}
+         "attn": (attn_m.init_mla if cfg.mla is not None else
+                  attn_m.init_attention)(generator, cfg, dtype),
+         "ln2": _norm_params(cfg, dtype, dev)}
+    if cfg.moe.n_experts and kind != "dense_ffn_attn":
+        p["moe"] = mlp_m.init_moe(generator, cfg, dtype)
+    else:
+        p["mlp"] = mlp_m.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
     if cfg.post_norms:
         p["post_attn"] = _norm_params(cfg, dtype, dev)
         p["post_mlp"] = _norm_params(cfg, dtype, dev)
@@ -62,7 +68,9 @@ def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      dtype, device) -> dict:
-    _check_kind(cfg, kind)
+    _check_kind(kind)
+    if cfg.mla is not None:
+        return attn_m.init_mla_cache(cfg, batch, max_len, dtype, device)
     return attn_m.init_kv_cache(cfg, batch, max_len, dtype, device)
 
 
@@ -72,9 +80,14 @@ def _attn_kwargs(cfg: ArchConfig, kind: str):
     return window, theta
 
 
-def _ffn(p, x, cfg: ArchConfig):
-    """The block's second half: norm, MLP, optional post-norm, residual."""
-    f = mlp_m.mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg.act)
+def _ffn(p, x, cfg: ArchConfig, decode: bool = False):
+    """The block's second half: norm, MLP or MoE (its loss dropped),
+    optional post-norm, residual."""
+    h = apply_norm(p["ln2"], x, cfg)
+    if "moe" in p:
+        f, _ = mlp_m.moe(p["moe"], h, cfg, decode=decode)
+    else:
+        f = mlp_m.mlp(p["mlp"], h, cfg.act)
     if cfg.post_norms:
         f = apply_norm(p["post_mlp"], f, cfg)
     return x + f
@@ -84,9 +97,13 @@ def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions,
                      causal: bool = True):
     """Full-sequence block application (prefill). Returns ``x``."""
     window, theta = _attn_kwargs(cfg, kind)
-    a = attn_m.attention_full(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
-                              positions=positions, window=window,
-                              causal=causal, theta=theta)
+    h = apply_norm(p["ln1"], x, cfg)
+    if cfg.mla is not None:
+        a = attn_m.mla_full(p["attn"], h, cfg, positions=positions,
+                            theta=theta)
+    else:
+        a = attn_m.attention_full(p["attn"], h, cfg, positions=positions,
+                                  window=window, causal=causal, theta=theta)
     if cfg.post_norms:
         a = apply_norm(p["post_attn"], a, cfg)
     return _ffn(p, x + a, cfg)
@@ -96,12 +113,16 @@ def apply_block_decode(p, x, cfg: ArchConfig, kind: str, cache, index: int):
     """One-token decode. Returns ``(x, cache)``; the cache is updated in
     place."""
     window, theta = _attn_kwargs(cfg, kind)
-    a, cache = attn_m.attention_decode(p["attn"], apply_norm(p["ln1"], x, cfg),
-                                       cfg, cache, index, window=window,
-                                       theta=theta)
+    h = apply_norm(p["ln1"], x, cfg)
+    if cfg.mla is not None:
+        a, cache = attn_m.mla_decode(p["attn"], h, cfg, cache, index,
+                                     theta=theta)
+    else:
+        a, cache = attn_m.attention_decode(p["attn"], h, cfg, cache, index,
+                                           window=window, theta=theta)
     if cfg.post_norms:
         a = apply_norm(p["post_attn"], a, cfg)
-    return _ffn(p, x + a, cfg), cache
+    return _ffn(p, x + a, cfg, decode=True), cache
 
 
 # ---------------------------------------------------------------------------

@@ -14,14 +14,47 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class ParamTree(nn.Module):
+    """A dict node that holds both tensors and sub-dicts (the MoE layer's
+    router and expert tensors beside its shared MLP), indexed like a dict
+    in its insertion order."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._names = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(
+                    v, requires_grad=False))
+            else:
+                self.add_module(k, v if isinstance(v, nn.Module)
+                                else frozen(v))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._names
+
+    def keys(self):
+        return list(self._names)
+
+    def items(self):
+        return [(k, self[k]) for k in self._names]
+
+
 def frozen(tree) -> nn.Module:
     """A nested dict of tensors as frozen parameters: a dict whose values
-    are all tensors becomes an ``nn.ParameterDict``, any other dict an
-    ``nn.ModuleDict``. The port runs inference only, so no parameter
-    requires a gradient and no autograd graph is built."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+    are all tensors becomes an ``nn.ParameterDict``, one of dicts only an
+    ``nn.ModuleDict``, one that mixes them a ``ParamTree``. The port runs
+    inference only, so no parameter requires a gradient and no autograd
+    graph is built."""
+    is_t = [isinstance(v, torch.Tensor) for v in tree.values()]
+    if all(is_t):
         return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                                  for k, v in tree.items()})
+    if any(is_t):
+        return ParamTree(tree)
     return nn.ModuleDict({k: v if isinstance(v, nn.Module) else frozen(v)
                           for k, v in tree.items()})
 
@@ -40,6 +73,18 @@ def dense_init(shape, dtype, generator: torch.Generator,
     u = lo + (1.0 - 2.0 * lo) * u  # uniform on [Phi(-2), Phi(2)]
     x = torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
     return (x.clamp_(-2.0, 2.0) * std).to(dtype)
+
+
+def expert_init(shape, dtype, generator: torch.Generator) -> torch.Tensor:
+    """``dense_init`` of a stacked expert tensor ``(E, fan, out)`` at the
+    reference's fan-in, which counts the expert axis (``E * fan``), drawn
+    one expert at a time: the f32 draw's temporaries never exceed one
+    expert's size (deepseek-v2's ``w_gate`` is 5 GB in f32 whole)."""
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    std = math.prod(shape[:-1]) ** -0.5
+    for e in range(shape[0]):
+        out[e] = dense_init(shape[1:], dtype, generator, scale=std)
+    return out
 
 
 def embed_init(shape, dtype, generator: torch.Generator) -> torch.Tensor:
@@ -107,5 +152,6 @@ def softcap(logits, cap: float | None):
     return cap * torch.tanh(logits / cap)
 
 
-__all__ = ["frozen", "dense_init", "embed_init", "rms_norm", "layer_norm",
-           "act_fn", "rope_frequencies", "apply_rope", "softcap"]
+__all__ = ["frozen", "ParamTree", "dense_init", "expert_init", "embed_init",
+           "rms_norm", "layer_norm", "act_fn", "rope_frequencies",
+           "apply_rope", "softcap"]

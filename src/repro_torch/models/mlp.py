@@ -1,14 +1,43 @@
-"""Gated feed-forward layer (SwiGLU / GeGLU).
+"""Feed-forward layers: gated MLP (SwiGLU / GeGLU) and token-choice MoE.
 
-Counterpart of the dense part of ``repro/models/mlp.py``; the
-mixture-of-experts layers are not ported yet.
+Counterpart of ``repro/models/mlp.py``. The MoE keeps the reference's
+sort-based capacity dispatch, with one dispatch group (the port has no
+mesh, so ``_dispatch_groups`` is 1 and the ``"ep"`` and ``"tp"``
+partitions are the same computation):
+
+    1. router logits in f32 (``x.float() @ router``), softmax, top-K as
+       ``jax.lax.top_k`` picks it (the lower expert id first on a tie: the
+       first K of a stable descending sort), weights ``top_p / max(sum,
+       1e-9)`` cast to the activation dtype;
+    2. a stable sort of the flat ``(T * K,)`` expert ids groups the slots
+       by expert; a slot's rank in its bucket is its position minus the
+       bucket's start; slots past ``cap = max(1, int(T * K * cf / E))``
+       are dropped, so the later ``(token, k)`` pairs of a full bucket
+       drop;
+    3. the expert inputs ``(E, cap, D)`` are gathered (unused slots read a
+       zero row), the experts run as three batched products;
+    4. each token adds its kept contributions in ascending slot order
+       (expert id) to zero, as the reference's scatter-add does on the
+       CPU: K gathered adds, no atomics, so two passes are bitwise equal
+       on the card.
+
+Nothing of this synchronises with the host (no boolean masks, no
+``bincount``), so a decode step stays free of host synchronisation.
+Routing, dispatch and the expert products are plain PyTorch and cuBLAS:
+the reference runs them as XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models.common import act_fn, dense_init, frozen
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import act_fn, dense_init, expert_init, frozen
+
+
+# ---------------------------------------------------------------------------
+# dense gated MLP
+# ---------------------------------------------------------------------------
 
 
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
@@ -26,4 +55,168 @@ def mlp(p, x, act: str = "silu"):
     return torch.einsum("bsf,fd->bsd", g * u, p["w_down"])
 
 
-__all__ = ["init_mlp", "mlp"]
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+
+def init_moe(generator: torch.Generator, cfg: ArchConfig,
+             dtype) -> nn.Module:
+    """Router ``(d, E)`` in f32 whatever ``dtype`` is, experts ``w_gate,
+    w_up (E, d, f)``, ``w_down (E, f, d)`` and, with shared experts, a
+    dense MLP of width ``f * n_shared`` under ``shared``."""
+    mo = cfg.moe
+    d, E, f = cfg.d_model, mo.n_experts, mo.d_ff
+    p = {
+        "router": dense_init((d, E), torch.float32, generator),
+        "w_gate": expert_init((E, d, f), dtype, generator),
+        "w_up": expert_init((E, d, f), dtype, generator),
+        "w_down": expert_init((E, f, d), dtype, generator),
+    }
+    if mo.n_shared_experts:
+        p["shared"] = init_mlp(generator, d, f * mo.n_shared_experts, dtype)
+    return frozen(p)
+
+
+def route(p, xt, K: int):
+    """``xt (T, D)`` -> ``(probs (T, E) f32, top_p (T, K) f32, top_e (T,
+    K) int64)``: the router's softmax, and its K largest entries with the
+    lower expert id first on a tie, renormalised to sum to 1."""
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :K], top_e[:, :K]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_e
+
+
+def _buckets(top_e, E: int):
+    """The flat ``(T * K,)`` expert ids stably sorted: ``(order,
+    sorted_e, start (E,), count (E,))``, each bucket's first position and
+    size found by binary search (no atomics, no host synchronisation)."""
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    ids = torch.arange(E, device=flat_e.device)
+    start = torch.searchsorted(sorted_e, ids)
+    count = torch.searchsorted(sorted_e, ids, right=True) - start
+    return order, sorted_e, start, count
+
+
+def _aux(probs, count, coef: float):
+    """The load-balancing loss ``mean(density * mean_prob * E) * coef``;
+    ``density`` is each expert's share of the ``(token, k)`` pairs times
+    ``E``."""
+    E = count.shape[0]
+    density = count.float() / count.sum().float() * E
+    return torch.mean(density * probs.mean(0) * E) * coef
+
+
+def moe_dense_mixture(p, x, cfg: ArchConfig):
+    """Every token runs every expert; the top-K weights combine them
+    (exactly token-choice top-K, no capacity drops). Returns ``(out,
+    aux)``."""
+    mo = cfg.moe
+    B, S, D = x.shape
+    E, K = mo.n_experts, mo.n_experts_per_token
+    xt = x.reshape(B * S, D)
+    probs, top_p, top_e = route(p, xt, K)
+    combine = torch.zeros_like(probs).scatter_(1, top_e, top_p)  # (T, E)
+    aux = _aux(probs, _buckets(top_e, E)[3], mo.router_aux_coef)
+    g = act_fn(cfg.act)(torch.matmul(xt, p["w_gate"]))
+    g = g.mul_(torch.matmul(xt, p["w_up"]))
+    y = torch.bmm(g, p["w_down"])  # (E, T, D)
+    out = torch.einsum("etd,te->td", y, combine.to(y.dtype))
+    out = out.reshape(B, S, D)
+    if mo.n_shared_experts:
+        out = out + mlp(p["shared"], x, cfg.act)
+    return out, aux
+
+
+def _dispatch_one(top_p, top_e, cap: int, dtype, buckets):
+    """Sort-based slot assignment of one group, from ``_buckets(top_e,
+    E)``. Returns ``(slot_tok (E * cap,) int64, slot_w (E * cap,) dtype,
+    pair_slot (T, K) int64)``: each slot's token (``T`` for an unused
+    slot) and weight (0 there), and each ``(token, k)`` pair's slot,
+    ``E * cap`` where it was dropped."""
+    T, K = top_e.shape
+    order, sorted_e, start, count = buckets
+    E = count.shape[0]
+    dev = top_e.device
+    # expert e's slot r holds the pair at sorted position start[e] + r
+    r = torch.arange(cap, device=dev)
+    used = r[None, :] < count[:, None]  # (E, cap)
+    pair = order[torch.clamp(start[:, None] + r[None, :], max=T * K - 1)]
+    slot_tok = torch.where(used, pair // K, T).reshape(-1)
+    slot_w = torch.where(used, top_p.reshape(-1).to(dtype)[pair],
+                         0).reshape(-1)
+    # each pair's slot: its rank in its bucket, the trash slot past cap
+    rank = torch.arange(T * K, device=dev) - start[sorted_e]
+    slot_sorted = torch.where(rank < cap, sorted_e * cap + rank, E * cap)
+    pair_slot = torch.empty_like(slot_sorted)
+    pair_slot[order] = slot_sorted  # a permutation: no index repeats
+    return slot_tok, slot_w, pair_slot.reshape(T, K)
+
+
+def _gather(xt, slot_tok, E: int, cap: int):
+    """The expert inputs ``(E, cap, D)``: each slot's token row, a zero row
+    for an unused slot."""
+    D = xt.shape[1]
+    return torch.cat([xt, xt.new_zeros((1, D))])[slot_tok].view(E, cap, D)
+
+
+def _experts(p, x_exp, act: str):
+    """The batched expert FFN ``(E, cap, D) -> (E * cap + 1, D)``; the
+    last row is zero, for the dropped pairs to read."""
+    E, cap, D = x_exp.shape
+    g = act_fn(act)(torch.bmm(x_exp, p["w_gate"]))
+    g = g.mul_(torch.bmm(x_exp, p["w_up"]))
+    y = torch.empty((E * cap + 1, D), dtype=x_exp.dtype, device=x_exp.device)
+    torch.bmm(g, p["w_down"], out=y[:E * cap].view(E, cap, D))
+    y[E * cap] = 0
+    return y
+
+
+def _combine(y, slot_w, pair_slot):
+    """``out (T, D)``: each token's kept contributions ``y[s] * w[s]``
+    added to zero in ascending slot order (a dropped pair adds the zero
+    row, which changes no sum that starts from +0)."""
+    y[:slot_w.shape[0]].mul_(slot_w[:, None])
+    ordered = torch.sort(pair_slot, dim=1).values  # expert id ascending
+    out = torch.zeros((pair_slot.shape[0], y.shape[1]), dtype=y.dtype,
+                      device=y.device)
+    for j in range(ordered.shape[1]):
+        out.add_(y[ordered[:, j]])
+    return out
+
+
+def moe(p, x, cfg: ArchConfig, decode: bool = False):
+    """Token-choice top-K MoE. ``x (B, S, D)`` -> ``(out, aux)``. The
+    partition is ``partition_decode`` (or ``partition``) for a decode
+    step, ``partition`` otherwise: ``"dense"`` is the mixture, ``"ep"``
+    and ``"tp"`` the dispatch, one group of ``T = B * S`` tokens."""
+    mo = cfg.moe
+    part = (mo.partition_decode or mo.partition) if decode \
+        else mo.partition
+    if part == "dense":
+        return moe_dense_mixture(p, x, cfg)
+    B, S, D = x.shape
+    T = B * S
+    K, E = mo.n_experts_per_token, mo.n_experts
+    cap = max(1, int(T * K * mo.capacity_factor / E))
+    xt = x.reshape(T, D)
+    probs, top_p, top_e = route(p, xt, K)
+    buckets = _buckets(top_e, E)
+    aux = _aux(probs, buckets[3], mo.router_aux_coef)
+    slot_tok, slot_w, pair_slot = _dispatch_one(top_p, top_e, cap, x.dtype,
+                                                buckets)
+    x_exp = _gather(xt, slot_tok, E, cap)
+    y = _experts(p, x_exp, cfg.act)
+    del x_exp
+    out = _combine(y, slot_w, pair_slot).reshape(B, S, D)
+    if mo.n_shared_experts:
+        out = out + mlp(p["shared"], x, cfg.act)
+    return out, aux
+
+
+__all__ = ["init_mlp", "mlp", "init_moe", "moe", "moe_dense_mixture",
+           "route"]

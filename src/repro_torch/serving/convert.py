@@ -20,7 +20,10 @@ map's ``W, b`` (drawn with ``jax.random``) into ``lssvm.feature_map``.
 A language model's parameters carry across with ``lm_params_from_numpy``
 / ``lm_params_to_numpy``: the JAX ``init_lm`` tree (``embed``, ``layers``
 as a list of runs whose leaves have a leading layer axis, ``final_norm``,
-``lm_head`` when untied) as numpy arrays, each run split into its layers.
+``lm_head`` when untied) as numpy arrays, each run split into its layers;
+the MoE's (``moe`` with ``shared``) and MLA's nested trees carry across as
+they are, and each leaf keeps the reference's dtype (an MoE router is f32
+in a bf16 model).
 """
 from __future__ import annotations
 
@@ -114,23 +117,38 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
+def _keyed_map(fn, tree, key: str = ""):
+    """``fn(leaf, key)`` over a nested dict, ``key`` the leaf's name."""
+    if isinstance(tree, dict):
+        return {k: _keyed_map(fn, v, k) for k, v in tree.items()}
+    return fn(tree, key)
+
+
+# leaves that the reference keeps in f32 whatever ``param_dtype`` is
+# (``repro/models/mlp.py::init_moe``: the router)
+_F32_LEAVES = ("router",)
+
+
 def lm_params_from_numpy(tree, cfg, device=None) -> lm.LmParams:
     """The port's ``LmParams`` from the JAX ``init_lm`` tree as numpy
-    arrays (``cfg.param_dtype`` on ``device``, cuda unless given)."""
+    arrays on ``device`` (cuda unless given), each leaf in the dtype the
+    reference gives it: ``cfg.param_dtype``, f32 for an MoE router."""
     dev = resolve(device)
     dtype = lm.dtype_of(cfg.param_dtype)
 
-    def t(a):
+    def t(a, key=""):
+        dt = torch.float32 if key in _F32_LEAVES else dtype
         return torch.as_tensor(np.array(a, dtype=np.float32), device=dev
-                               ).to(dtype)
+                               ).to(dt)
 
     runs = blk.pattern_runs(cfg.pattern)
     if len(tree["layers"]) != len(runs):
         raise ValueError(f"{len(tree['layers'])} runs for the pattern's "
                          f"{len(runs)}")
     layers = torch.nn.ModuleList(
-        torch.nn.ModuleList(frozen(_tree_map(lambda a, i=i: t(a[i]), run))
-                            for i in range(length))
+        torch.nn.ModuleList(
+            frozen(_keyed_map(lambda a, key, i=i: t(a[i], key), run))
+            for i in range(length))
         for (_, length), run in zip(runs, tree["layers"]))
     head = t(tree["lm_head"]) if "lm_head" in tree else None
     return lm.LmParams(t(tree["embed"]), layers,

@@ -9,6 +9,7 @@ flagged near-ties) and the slice as a whole, token stream to request
 p-values. Inside the port: decode == forward at 1e-4, and the launcher's
 LM mode runs to its end on the CPU.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -82,7 +83,18 @@ def _attn_params(c, rng):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _port_config(jc):
+    """The reference's config as the port's dataclasses, field for field
+    (``moe`` and ``mla`` included)."""
+    kw = {f: getattr(jc, f) for f in cfgs.base.ArchConfig.__dataclass_fields__}
+    kw["moe"] = cfgs.MoeConfig(**dataclasses.asdict(jc.moe))
+    kw["mla"] = None if jc.mla is None else cfgs.MlaConfig(
+        **dataclasses.asdict(jc.mla))
+    return cfgs.base.ArchConfig(**kw)
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["granite-34b", "mixtral-8x22b",
+                                          "deepseek-v2-236b"])
 def test_config_matches_the_reference(arch):
     jc, c = jcfgs.get(arch), cfgs.get(arch)
     for name in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
@@ -91,15 +103,19 @@ def test_config_matches_the_reference(arch):
                  "rope_theta_local", "rms_offset", "act", "post_norms",
                  "embed_scale", "tie_embeddings", "norm_eps", "dtype"):
         assert getattr(c, name) == getattr(jc, name), name
+    assert dataclasses.asdict(c.moe) == dataclasses.asdict(jc.moe)
+    assert (c.mla is None and jc.mla is None) or (
+        dataclasses.asdict(c.mla) == dataclasses.asdict(jc.mla))
     assert c.n_params() == jc.n_params()
-    assert c.reduced() == cfgs.base.ArchConfig(**{
-        f: getattr(jc.reduced(), f) for f in c.__dataclass_fields__
-        if f not in ("moe", "mla")})
+    assert c == _port_config(jc)
+    assert c.reduced() == _port_config(jc.reduced())
 
 
 def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cfgs.get("mixtral-8x22b")
+    for arch in ("xlstm-125m", "recurrentgemma-9b", "whisper-base",
+                 "internvl2-26b"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            cfgs.get(arch)
     with pytest.raises(KeyError):
         cfgs.get("no-such-arch")
 
