@@ -65,8 +65,13 @@ exits non-zero without a result line:
    path without TMA (head dim 60; bases 2 bytes off 16), and at phase
    13's shapes: deepseek-v2's MLA prefill (B 8, S 512, H = Hkv = 128, D
    192, the scale passed), granite's MQA 48:1 and mixtral's window 4096
-   at S 4608; the useful TFLOP/s at (a) and at the MLA prefill, the f32
-   body's time at (c), and the count of tensor-core instructions
+   at S 4608; at phase 14's: recurrentgemma's MQA 16:1 at D 256 where
+   its 2048 window masks (S 4608), whisper's non-causal encoder (B 16, S
+   1,500: a ragged last key tile) and its cross-attention at prefill (Sq
+   64) and at a decode step (Sq 1) over 1,500 keys; the useful TFLOP/s at
+   (a), at the MLA prefill and at whisper's encoder (with its bound and
+   SDPA), the f32 body's time at (c), and the count of tensor-core
+   instructions
    (``HGMMA``) in the bf16 kernel's SASS at D 128 and 192; then the
    launcher's functions: 256 calibration sequences of 512 tokens
    embedded and the OOD head fitted (k 7), 256 held-out sequences of the
@@ -190,7 +195,26 @@ exits non-zero without a result line:
    == forward (1e-3) over (2, 64), on the sequences both runs route
    alike, each routing difference required to sit at a router near-tie
    (K-th and (K+1)-th probabilities within 1e-5). The kernel's launches
-   count under ``families``.
+   count under ``families``;
+14. the recurrent and front-end families at full width and full depth in
+   bf16: recurrentgemma-9b (26 RG-LRU + 12 local-attention layers),
+   xlstm-125m (10 mLSTM + 2 sLSTM), whisper-base (6 + 6 layers, 1,500
+   frames) and internvl2-26b (48 layers, 256 patch positions), each freed
+   before the next, through the launcher's functions as in phase 13
+   (whisper's requests carry their frames, whose encoder pass fills the
+   cross cache before the decode steps); validity, three passes bitwise
+   equal, one decode step under ``set_sync_debug_mode("error")``;
+   ``flash_attention`` once per attention layer per pass (and for whisper
+   once for each encoder layer and each decoder layer at each decode
+   step) and no other kernel. Then, in f32 at full width (recurrentgemma
+   3 layers, so that its ``attn_local`` runs; xlstm 6, so that its
+   ``slstm`` runs; whisper whole; internvl 2), the kernel route == the
+   plain route within 1e-5 of the RMS on the embeddings, on internvl's
+   ``hidden_forward`` with 256 patches prepended and on whisper's
+   ``forward_encdec`` over 1,500 frames, and teacher-forced decode ==
+   forward (``forward_encdec`` with the cross cache) within 1e-3 over (2,
+   300): past one 256-step chunk of the RG-LRU scan and the mLSTM. The
+   kernel's launches count under ``recurrent_frontends``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -258,10 +282,20 @@ FLASH_CASES = [  # name, dtype, B, Sq, Skv, H, Hkv, D, causal, window, softcap
     ("j", torch.bfloat16, 8, 512, 512, 128, 128, 192, True, None, None),
     ("k", torch.bfloat16, 4, 512, 512, 48, 1, 128, True, None, None),
     ("l", torch.bfloat16, 1, 4608, 4608, 48, 8, 128, True, 4096, None),
+    # the families of phase 14: recurrentgemma's local layer, MQA 16:1 at
+    # D 256 where its 2048 window masks; whisper's encoder (1,500 frames:
+    # 23 key tiles of 64 and 28), and its cross-attention at prefill and at
+    # a decode step (Sq 1), all bf16 and non-causal but the first
+    ("m", torch.bfloat16, 1, 4608, 4608, 16, 1, 256, True, 2048, None),
+    ("n", torch.bfloat16, 16, 1500, 1500, 8, 8, 64, False, None, None),
+    ("o", torch.bfloat16, 16, 64, 1500, 8, 8, 64, False, None, None),
+    ("p", torch.bfloat16, 16, 1, 1500, 8, 8, 64, False, None, None),
 ]
 FLASH_OFF16 = ("i",)
 FLASH_SCALE = {"j": 192 ** -0.5}  # passed as MLA passes it
 FLASH_MLA = "j"  # timed beside (a)
+FLASH_ENC = "n"  # whisper's encoder, timed beside (a)
+FLASH_READ = ("m", "o", "p")  # phase 14's other shapes: the kernel's time
 BIG = 1e30
 
 
@@ -1675,9 +1709,10 @@ def sass_mix() -> str:
 
 
 def time_flash(q, k, v, kw, iters):
-    """``(ms, plain_ms, SDPA ms, bound ms, bound by, line)`` of a causal
-    bf16 call: the kernel, its plain version and SDPA (the yardstick
-    only) on the same operands, the bound from this call's live pairs."""
+    """``(ms, plain_ms, SDPA ms, bound ms, bound by, line)`` of a bf16
+    call without a window: the kernel, its plain version and SDPA (the
+    yardstick only) on the same operands, the bound from this call's live
+    pairs."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -1687,13 +1722,14 @@ def time_flash(q, k, v, kw, iters):
     plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), 3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=kw["causal"],
                                   scale=kw["scale"], enable_gqa=True), iters)
     nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D)
-    pairs = live_pairs(Sq, Skv, True, kw["window"])
+    pairs = live_pairs(Sq, Skv, kw["causal"], kw["window"])
     flops = 4 * B * H * D * pairs
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    line = (f"B={B} S={Sq} H={H} Hkv={Hkv} D={D} causal bf16: {ms:.4f} ms "
+    mode = "causal" if kw["causal"] else "non-causal"
+    line = (f"B={B} S={Sq} H={H} Hkv={Hkv} D={D} {mode} bf16: {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} useful TFLOP/s), plain {plain_ms:.4f} "
             f"ms, SDPA {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} "
             f"TFLOP/s), bound {b_ms:.4f} ms ({b_by}; {pairs} live pairs per "
@@ -1709,7 +1745,7 @@ def check_flash_attention(g, iters, dev="cuda"):
     from repro_torch.kernels.flash_attention import flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    err, notes, timed, f32_ms = 0.0, [], {}, float("nan")
+    err, notes, timed, f32_ms, read_ms = 0.0, [], {}, float("nan"), {}
     for name, dt, B, Sq, Skv, H, Hkv, D, causal, window, cap in FLASH_CASES:
         q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dt)
         k = torch.randn((B, Skv, Hkv, D), generator=g, device=dev).to(dt)
@@ -1743,17 +1779,23 @@ def check_flash_attention(g, iters, dev="cuda"):
                          f"ulp, the largest by {excess / 1e-5:.3f} of the "
                          "1e-5")
         err = max(err, diff)
-        if name in ("a", FLASH_MLA):
+        if name in ("a", FLASH_MLA, FLASH_ENC):
             timed[name] = time_flash(q, k, v, kw, iters)
         if name == "c":  # the f32 body, a reading
             f32_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
+        if name in FLASH_READ:
+            read_ms[name] = cuda_ms(lambda: flash_attention(q, k, v, **kw),
+                                    iters)
         del q, k, v, got, want
     ms, plain_ms, lib_ms, b_ms, b_by, line = timed["a"]
     print(f"[kernel] flash_attention: " + "; ".join(notes) + f"; (a) {line}")
     print(f"[kernel] flash_attention at the MLA prefill ({FLASH_MLA}): "
           f"{timed[FLASH_MLA][-1]}")
+    print(f"[kernel] flash_attention at whisper's encoder ({FLASH_ENC}): "
+          f"{timed[FLASH_ENC][-1]}")
     print(f"[kernel] flash_attention f32 body at (c): {f32_ms:.4f} ms (a "
-          "reading)")
+          "reading); " + ", ".join(f"({n}) {ms:.4f} ms" for n, ms in
+                                   read_ms.items()) + " (readings)")
     print(f"[sass] flash_attention: {sass_mix()}")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3948,6 +3990,230 @@ def families_path(dev="cuda"):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recurrent and front-end families at full width and depth
+# ---------------------------------------------------------------------------
+
+# (arch, layers of the f32 checks; None: all). recurrentgemma's first two
+# layers are rglru and its third attn_local; xlstm's sixth is its first
+# slstm; whisper is small enough to check whole (6 encoder + 6 decoder)
+FRONT_CHECKS = (("recurrentgemma-9b", 3), ("xlstm-125m", 6),
+                ("whisper-base", None), ("internvl2-26b", 2))
+# teacher-forced decode == forward over (B, S): S past one 256-step chunk
+# of the RG-LRU scan and the mLSTM, so the carry across chunks is held too
+FRONT_DECODE_CHECK = (2, 300)
+FRONT_REDUCED = False  # a CPU rehearsal runs the reduced configs instead
+
+
+def front_batch(cfg, B: int, dev) -> dict:
+    """Batch 0 of ``TokenStream(SEED)`` with its front-end stub inputs on
+    ``dev``: internvl's text (``FAM_SEQ`` minus the patches) and
+    ``patch_embeds``, whisper's tokens and 1,500 ``frames``."""
+    from repro_torch.data.lm_pipeline import TokenStream
+
+    out = TokenStream(cfg, B, FAM_SEQ, seed=SEED).batch_at(0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()
+            if k != "labels"}
+
+
+def front_route_gaps(fn) -> tuple:
+    """``fn()`` (a ``(B, S, ...)`` output) by the kernel route against the
+    plain route, in units of the plain output's RMS (``rel_gap``): of the
+    means over the sequence, as the served embedding pools it (the gate),
+    and element by element (a reading: the largest of millions of
+    elements, each a few roundings apart). Both outputs must be
+    finite."""
+    got = fn()
+    with plain_attention():
+        want = fn()
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "finite outputs on both routes")
+    return (rel_gap(got.mean(dim=1), want.mean(dim=1)),
+            rel_gap(got, want))
+
+
+def front_run(arch: str, check_layers, dev="cuda"):
+    """Phase 14 for one arch. Returns the main path's launch counts."""
+    from repro_torch import configs
+    from repro_torch.core.lm_conformal import (ConformalOodDetector,
+                                              hidden_states)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    t_arch = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (cfg, params), init_ms = timed_ms(
+        lambda: serve.lm_model(arch, FRONT_REDUCED, SEED, dev))
+    n_par = sum(t.numel() for t in params.parameters())
+    calib = serve.stream_tokens(cfg, FAM_CALIB, FAM_SEQ, SEED, 0, dev)
+    held = serve.stream_tokens(cfg, FAM_CALIB, FAM_SEQ, SEED, 1, dev)
+    req = serve.request_tokens(cfg, FAM_REQUESTS, FAM_SEQ, SEED, dev)
+    frames = serve.request_frames(cfg, FAM_REQUESTS, FAM_SEQ, SEED, dev)
+
+    # ---- the main path (counted) ------------------------------------------
+    ops.reset_launch_counts()
+    emb, emb_ms = timed_ms(lambda: serve.embed(params, cfg, calib))
+    ood, fit_ms = timed_ms(
+        lambda: ConformalOodDetector(k=LM_K, device=dev).fit(emb))
+    held_emb, held_ms = timed_ms(lambda: serve.embed(params, cfg, held))
+    p_held, pv_ms = timed_ms(lambda: ood.pvalues(held_emb))
+    req_emb, req_ms = timed_ms(lambda: serve.embed(params, cfg, req))
+    p_req = ood.pvalues(req_emb)
+    gen, dec_ms = timed_ms(lambda: serve.generate(
+        params, cfg, req[:, :FAM_PROMPT], FAM_GEN, frames))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = FAM_PROMPT + FAM_GEN
+    n_attn = sum(kind in ("attn", "attn_local") for kind in cfg.pattern)
+    want = 3 * n_attn  # self-attention, one launch a layer a pass
+    if cfg.is_encoder_decoder:  # the encoder once, cross-attention a step
+        want += cfg.n_encoder_layers + steps * cfg.n_layers
+    kinds = {k: cfg.pattern.count(k) for k in dict.fromkeys(cfg.pattern)}
+    text = calib.shape[1]
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers ("
+          + " + ".join(f"{n} {k}" for k, n in kinds.items())
+          + (f"; encoder {cfg.n_encoder_layers} attn over "
+             f"{cfg.n_frontend_tokens} frames" if cfg.is_encoder_decoder
+             else "")
+          + f"), d {cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv) "
+          f"x {cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{n_par / 1e9:.3f} B parameters ({n_par * 2 / 2**30:.1f} GiB), "
+          f"init {init_ms / 1e3:.2f} s, peak {peak / 2**30:.2f} GiB")
+    print(f"[front-main] {cfg.name}: embedding pass {FAM_CALIB} x {text} "
+          f"tokens: calibration {emb_ms:.1f} ms, held-out {held_ms:.1f} ms "
+          f"({FAM_CALIB * text / held_ms * 1e3:.0f} tok/s); OOD fit "
+          f"{fit_ms:.3f} ms, p-values of {FAM_CALIB} {pv_ms:.3f} ms; "
+          f"{FAM_REQUESTS} requests x {req.shape[1]} embedded in "
+          f"{req_ms:.1f} ms; {FAM_REQUESTS} x ({FAM_PROMPT} prompt + "
+          f"{FAM_GEN} generated) by decode steps"
+          + (" after the encoder pass" if frames is not None else "")
+          + f" in {dec_ms:.1f} ms ({steps / dec_ms * 1e3:.1f} steps/s) "
+          f"(host clock, synchronised); launches {counts}")
+    check(counts["flash_attention"] == want,
+          f"{arch}: flash_attention {counts['flash_attention']} launches, "
+          f"{want} expected")
+    check(sum(counts.values()) == counts["flash_attention"],
+          f"{arch}: no other kernel on the LM path")
+    check(emb.shape == (FAM_CALIB, cfg.d_model)
+          and emb.dtype == lm.dtype_of(cfg.dtype)
+          and bool(torch.isfinite(emb).all()), f"{arch}: finite embeddings")
+    check(gen.shape == (FAM_REQUESTS, FAM_GEN) and bool(
+        ((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          f"{arch}: generated tokens")
+    for p in (p_held, p_req):
+        check(bool(((p > 0) & (p <= 1)).all()), f"{arch}: p-values in (0, 1]")
+
+    # ---- validity (binding) and power (a reading) --------------------------
+    ph, pr = p_held.cpu().numpy(), p_req.cpu().numpy()
+    share, mean_p = float((ph <= EPS).mean()), float(ph.mean())
+    half = FAM_REQUESTS // 2
+    print(f"[front-valid] {cfg.name}: held-out ({FAM_CALIB}): share p <= "
+          f"{EPS} {share:.4f} (<= 0.18), mean p {mean_p:.4f} (in [0.40, "
+          f"0.60]); requests of another seed's stream: mean p "
+          f"{pr[:half].mean():.4f}; uniform-token requests: mean p "
+          f"{pr[half:].mean():.4f} (power, a reading)")
+    check(share <= 0.18, f"{arch}: held-out share with p <= {EPS}: {share}")
+    check(0.40 <= mean_p <= 0.60, f"{arch}: held-out mean p {mean_p}")
+
+    # ---- determinism: two more calibration passes, bitwise ----------------
+    h1 = hidden_states(params, cfg, {"tokens": calib})
+    h2 = hidden_states(params, cfg, {"tokens": calib})
+    same = torch.equal(h1, h2) and torch.equal(
+        torch.mean(h1, dim=1, dtype=torch.float32).to(h1.dtype), emb)
+    check(same, f"{arch}: calibration passes bitwise equal")
+    del h1, h2
+
+    # ---- one decode step without a host synchronisation --------------------
+    cache = lm.init_cache(cfg, FAM_REQUESTS, 2, dev)
+    if frames is not None:
+        cache["cross"] = lm.prefill_cross_cache(params, cfg, frames)
+    lm.decode_step(params, cfg, req[:, :1], cache, 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_logits, _ = lm.decode_step(params, cfg, req[:, 1:2], cache, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(step_logits).all()),
+          f"{arch}: finite decode logits")
+    print(f"[front-det] {cfg.name}: three calibration passes bitwise equal "
+          f"(hidden states {FAM_CALIB} x {text} x {cfg.d_model}); one "
+          f"decode step ({FAM_REQUESTS} sequences"
+          + (", cross cache filled" if frames is not None else "")
+          + ") under set_sync_debug_mode(\"error\"): no host synchronisation")
+    del params, cache, step_logits, emb, held_emb, req_emb, ood
+    torch.cuda.empty_cache()
+
+    # ---- f32 at full width on check_layers layers (binding) ----------------
+    kw32 = dict(dtype="float32", param_dtype="float32")
+    if check_layers is not None:
+        pat = configs.get(arch).pattern
+        kw32.update(n_layers=check_layers, layer_pattern=pat[:check_layers])
+    cfg32, p32 = serve.lm_model(arch, FRONT_REDUCED, SEED, dev, **kw32)
+    B = FAM_CHECK_BATCH.get(arch, 8)
+    gaps = {"embedding": front_route_gaps(
+        lambda: hidden_states(p32, cfg32, {"tokens": calib[:B]}))}
+    fb = front_batch(cfg32, B, dev)
+    if cfg32.frontend == "vision_stub":
+        gaps["hidden_forward with patches"] = front_route_gaps(
+            lambda: lm.hidden_forward(p32, cfg32, fb))
+    if cfg32.is_encoder_decoder:  # the real vocabulary's logits
+        gaps["forward_encdec logits"] = front_route_gaps(
+            lambda: lm.forward_encdec(p32, cfg32, fb)[..., :cfg32.vocab_size])
+    for what, (gap, _) in gaps.items():
+        check(gap <= 1e-5, f"{arch}: f32 kernel route == plain route "
+              f"({what}, pooled) within 1e-5 of the RMS: {gap}")
+    Bd, Sd = FRONT_DECODE_CHECK
+    patches = (cfg32.n_frontend_tokens if cfg32.frontend == "vision_stub"
+               else 0)  # the stream cuts the text by them
+    td = serve.stream_tokens(cfg32, Bd, Sd + patches, SEED, 2, dev)
+    cache = lm.init_cache(cfg32, Bd, Sd, dev)
+    if cfg32.is_encoder_decoder:
+        fr = fb["frames"][:Bd]
+        fwd = lm.forward_encdec(p32, cfg32, {"tokens": td, "frames": fr})
+        cache["cross"] = lm.prefill_cross_cache(p32, cfg32, fr)
+    else:
+        fwd = lm.forward(p32, cfg32, {"tokens": td})
+    dec = torch.stack([lm.decode_step(p32, cfg32, td[:, i:i + 1], cache,
+                                      i)[0][:, 0] for i in range(Sd)], 1)
+    dec_err = float((dec - fwd).abs().max())
+    check(torch.allclose(dec, fwd, atol=1e-3, rtol=1e-3),
+          f"{arch}: decode == forward within 1e-3: {dec_err}")
+    print(f"[front-exact] {cfg.name} f32, {cfg32.n_layers} layers at full "
+          f"width: kernel route == plain route over {B} sequences, "
+          + ", ".join(f"{w} within {g:.3g} pooled ({e:.3g} by element, a "
+                      "reading)" for w, (g, e) in gaps.items())
+          + " of the RMS (pooled <= 1e-5)"
+          + (f" ({fb['patch_embeds'].shape[1]} patches + "
+             f"{fb['tokens'].shape[1]} tokens)" if cfg32.frontend ==
+             "vision_stub" else "")
+          + (f" ({fb['frames'].shape[1]} frames)"
+             if cfg32.is_encoder_decoder else "")
+          + f"; teacher-forced decode == "
+          + ("forward_encdec with the cross cache" if
+             cfg32.is_encoder_decoder else "forward")
+          + f" over {Bd} x {Sd} tokens, max abs err {dec_err:.3g} (1e-3); "
+          f"{time.perf_counter() - t_arch:.1f} s for {cfg.name}")
+    del p32, cache, fwd, dec, fb
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fronts_path(dev="cuda"):
+    """Phase 14: each of ``FRONT_CHECKS`` in turn, each model freed before
+    the next loads. Returns the main paths' launch counts, summed."""
+    t_phase = time.perf_counter()
+    total = {}
+    for arch, layers in FRONT_CHECKS:
+        for name, n in front_run(arch, layers, dev).items():
+            total[name] = total.get(name, 0) + n
+    print(f"[front] phase 14 in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -4019,6 +4285,8 @@ def main(argv=None) -> int:
     by_path["replay"] = replay_path(S, W, args.iters)
     torch.cuda.empty_cache()
     by_path["families"] = families_path()
+    torch.cuda.empty_cache()
+    by_path["recurrent_frontends"] = fronts_path()
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

@@ -16,7 +16,8 @@ the smoke rely on:
   ``_observe_impl``, ``drop_backfill`` (in ``kernels/ref.py``),
   ``regression/stream.py`` ``observe`` / ``evict_oldest``, the
   ``stream_update`` routing and wrapper, ``models/lm.py``
-  ``decode_step``) must not call ``.item()``,
+  ``decode_step``, the recurrent blocks' decode steps in
+  ``models/recurrent.py``) must not call ``.item()``,
   ``.cpu()``, ``.tolist()``, ``.numpy()``, ``np.asarray``,
   ``torch.cuda.synchronize``, a ``time`` function, or ``torch.as_tensor``
   / ``torch.tensor`` with ``device=`` (from a Python number or host data
@@ -76,6 +77,8 @@ TICK_ROOTS = {
     "kernels/ops.py": ("stream_update", "stream_tick"),
     "kernels/stream_update.py": ("stream_update",),
     "models/lm.py": ("decode_step",),
+    "models/recurrent.py": ("rglru_block_step", "mlstm_block_step",
+                            "slstm_block_step"),
 }
 
 #: modules whose For/While loops must not range over the tenant axis

@@ -108,8 +108,12 @@ class ConformalOodDetector:
 
 
 def hidden_states(params, cfg, batch) -> torch.Tensor:
-    """Final-norm hidden states ``(B, S, D)`` for embedding extraction."""
-    return lm.hidden_forward(params, cfg, batch)
+    """Final-norm hidden states ``(B, S, D)`` for embedding extraction:
+    the tokens alone through the layer stack, as the reference has it. A
+    batch's ``patch_embeds`` and ``frames`` are not read, so an
+    encoder-decoder runs its decoder's self-attention stack without the
+    encoder and without its learned positions."""
+    return lm.hidden_forward(params, cfg, {"tokens": batch["tokens"]})
 
 
 def sequence_embedding(params, cfg, batch) -> torch.Tensor:

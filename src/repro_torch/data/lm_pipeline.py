@@ -3,9 +3,11 @@
 
 Batch ``i`` is a pure function of ``(seed, i, host)``: a Zipf-ish (alpha
 1.1) frequency-ranked token source in which about every other token
-echoes the previous one shifted by a seeded constant. The batches equal
-the reference's bit for bit. The vision and audio stubs' extra inputs are
-not produced (their front ends are not ported).
+echoes the previous one shifted by a seeded constant. The front-end
+stubs' inputs come from the same generator, after the tokens: the vision
+stub's ``patch_embeds`` (the tokens cut to ``S - n_frontend_tokens``) and
+the encoder-decoder's ``frames``. The batches equal the reference's bit
+for bit.
 """
 from __future__ import annotations
 
@@ -34,7 +36,9 @@ class TokenStream:
 
     def batch_at(self, index: int) -> dict:
         """Batch ``index``: ``tokens`` and next-token ``labels``, ``(B,
-        S)`` int32 each."""
+        S)`` int32 each; for the vision stub also ``patch_embeds (B, Np,
+        D)`` f32 and the text cut to ``S - Np``; for an encoder-decoder
+        also ``frames (B, n_frontend_tokens, D)`` f32."""
         rng = np.random.default_rng(
             (self.seed * 1_000_003 + index) * 4099 + self.host_id)
         B, S = self.local_batch, self.seq_len
@@ -45,8 +49,20 @@ class TokenStream:
         seq = base[:, 1:].copy()
         seq[mask] = echo[mask]
         tokens = np.concatenate([base[:, :1], seq], axis=1)
-        return {"tokens": tokens[:, :-1].astype(np.int32),
-                "labels": tokens[:, 1:].astype(np.int32)}
+        out = {"tokens": tokens[:, :-1].astype(np.int32),
+               "labels": tokens[:, 1:].astype(np.int32)}
+        cfg = self.cfg
+        if cfg.frontend == "vision_stub":
+            npz = cfg.n_frontend_tokens
+            out["patch_embeds"] = rng.standard_normal(
+                (B, npz, cfg.d_model)).astype(np.float32) * 0.02
+            out["tokens"] = out["tokens"][:, :S - npz]
+            out["labels"] = out["labels"][:, :S - npz]
+        if cfg.is_encoder_decoder:
+            out["frames"] = rng.standard_normal(
+                (B, cfg.n_frontend_tokens, cfg.d_model)
+            ).astype(np.float32) * 0.02
+        return out
 
     def __iter__(self):
         i = 0

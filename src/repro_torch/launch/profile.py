@@ -59,14 +59,19 @@ one calibration embedding pass over ``--calib`` (256) sequences of 512
 tokens (one untraced pass first) and one decode step of 16 requests
 against a 544-token cache (one untraced step first). Each pass's device
 time is also split by the model's stages (``LM_SPANS``): attention (its
-projections and ``flash_attention``), the dense MLPs, and the MoE's
+projections and ``flash_attention``), the encoder-decoder's
+cross-attention, the recurrences (the RG-LRU scan, the mLSTM's chunks,
+the sLSTM's steps) and their conv1d, the dense MLPs, and the MoE's
 router, sort and slot assignment, expert-input gather, expert products
-and combine; the rest is the embedding, norms, residuals and head.
-Needs a GPU.
+and combine; the rest is the embedding, norms, residuals, projections
+around the recurrences and head. The embedding pass reads the text
+tokens only, as the served embeddings do; an encoder-decoder's decode
+step reads a zero cross cache. Needs a GPU.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -85,6 +90,7 @@ from repro_torch.launch.serve import class_drift_traffic, reg_drift_traffic
 from repro_torch.models import attention as attn_m
 from repro_torch.models import lm
 from repro_torch.models import mlp as mlp_m
+from repro_torch.models import recurrent as rec_m
 from repro_torch.regression import RegressionServingEngine
 from repro_torch.serving import ServingEngine
 
@@ -107,6 +113,11 @@ LM_CALIB, LM_SEQ, LM_REQUESTS, LM_GEN = 256, 512, 16, 32  # smoke phase 7
 # ``record_function`` of its span while ``lm_spans()`` is active
 LM_SPANS = (("attention", attn_m, ("attention_full", "mla_full",
                                    "attention_decode", "mla_decode")),
+            ("cross-attention", lm, ("_cross_attention", "_cross_kv")),
+            ("recurrence: RG-LRU scan", rec_m, ("_rglru_scan",)),
+            ("recurrence: mLSTM chunks", rec_m, ("_mlstm_chunk",)),
+            ("recurrence: sLSTM steps", rec_m, ("_slstm_step",)),
+            ("conv1d", rec_m, ("conv1d_full", "conv1d_step")),
             ("dense MLP", mlp_m, ("mlp",)),
             ("moe: router", mlp_m, ("route", "_aux")),
             ("moe: sort and slots", mlp_m, ("_buckets", "_dispatch_one")),
@@ -140,6 +151,28 @@ def lm_spans():
             setattr(mod, name, fn)
 
 
+def span_times(events, spans: tuple, busy: float) -> dict:
+    """Device ms by span: each kernel counts under the span whose
+    device-side range (the profiler's annotation of a ``record_function``
+    on the card's timeline) holds the kernel's start, each kernel once;
+    the rest under "other". The spans do not nest and one stream runs
+    their kernels in order, so the ranges do not overlap."""
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events
+                    if e.device_type == DeviceType.CUDA and e.name in spans)
+    starts = [r[0] for r in ranges]
+    out = dict.fromkeys(spans, 0.0)
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in spans:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < ranges[i][1]:
+            out[ranges[i][2]] += e.time_range.elapsed_us() / 1e3
+    out["other (embedding, norms, residuals, projections, head)"] = (
+        busy - sum(out.values()))
+    return out
+
+
 def device_breakdown(fn, label: str, trace: str | None,
                      spans: tuple = ()) -> None:
     torch.cuda.synchronize()
@@ -168,14 +201,9 @@ def device_breakdown(fn, label: str, trace: str | None,
     for name, (count, ms) in rows:
         print(f"  {ms:10.3f} ms {ms / busy:6.1%} x{count:<6d} {name[:100]}")
     if spans:
-        by_span = dict.fromkeys(spans, 0.0)
-        for e in prof.events():
-            if e.device_type == DeviceType.CPU and e.name in by_span:
-                by_span[e.name] += e.device_time_total / 1e3
-        by_span["other (embedding, norms, residuals, head)"] = (
-            busy - sum(by_span.values()))
         print(f"[{label}] device time by stage: " + ", ".join(
-            f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in by_span.items()))
+            f"{k} {v:.3f} ms ({v / busy:.1%})"
+            for k, v in span_times(prof.events(), spans, busy).items()))
     if trace:
         prof.export_chrome_trace(trace)
 

@@ -78,10 +78,11 @@ engine (bootstrap, Algorithm 3, with ``--boot-b`` trees and
 is served by ``--regression``.
 
 Without ``--sessions`` the launcher serves the language model ``--arch``
-(qwen2-1.5b by default; also qwen3-1.7b, gemma3-1b, granite-34b,
-mixtral-8x22b and deepseek-v2-236b; full width unless ``--reduced``, and
-refused before any allocation where the weights do not fit the card's
-free memory) with a conformal
+(qwen2-1.5b by default; any of ``configs.ARCH_NAMES``: also qwen3-1.7b,
+gemma3-1b, granite-34b, mixtral-8x22b, deepseek-v2-236b,
+recurrentgemma-9b, xlstm-125m, whisper-base and internvl2-26b; full width
+unless ``--reduced``, and refused before any allocation where the weights
+do not fit the card's free memory) with a conformal
 OOD head, as the JAX launcher's LM mode does: random weights from
 ``--seed``, ``--calib`` calibration sequences of ``--prompt-len`` tokens
 from the synthetic token stream embedded (mean final hidden state) to fit
@@ -89,6 +90,11 @@ from the synthetic token stream embedded (mean final hidden state) to fit
 half replaced by uniform random tokens, prefilled by teacher-forced
 decode steps and extended greedily by ``--gen-tokens``; prints tok/s, each
 request's conformal p-value and the in-distribution / corrupted means.
+The stream's front-end stubs apply: internvl2-26b's ``--prompt-len``
+counts its 256 patch positions, which the text is cut by (the embedding
+reads the text only, as the reference's does), and whisper-base's
+requests carry their stream batch's frames, whose encoder pass fills the
+cross-attention cache before the decode steps.
 
     python -m repro_torch.launch.serve --arch qwen2-1.5b --calib 256 \\
         --prompt-len 512 --requests 16 --gen-tokens 32
@@ -639,16 +645,33 @@ def request_tokens(cfg, batch: int, seq_len: int, seed: int,
     return tokens
 
 
+def request_frames(cfg, batch: int, seq_len: int, seed: int, device):
+    """An encoder-decoder's request frames, from the batch of
+    ``TokenStream(seed + 1)`` the request tokens come from; ``None`` for
+    other models."""
+    if not cfg.is_encoder_decoder:
+        return None
+    frames = TokenStream(cfg, batch, seq_len, seed=seed + 1).batch_at(
+        0)["frames"]
+    return torch.from_numpy(frames).to(device)
+
+
 def embed(params, cfg, tokens) -> torch.Tensor:
     """Sequence embeddings ``(B, D)`` of ``tokens (B, S)``, one pass."""
     return sequence_embedding(params, cfg, {"tokens": tokens})
 
 
-def generate(params, cfg, tokens, gen_tokens: int):
+def generate(params, cfg, tokens, gen_tokens: int, frames=None):
     """Teacher-forced decode steps over the prompt ``tokens (B, P)``, then
-    ``gen_tokens`` greedy ones: the generated ``(B, gen_tokens)``."""
+    ``gen_tokens`` greedy ones: the generated ``(B, gen_tokens)``. An
+    encoder-decoder first fills its cross cache from ``frames (B, T,
+    D)``."""
     B, P = tokens.shape
     cache = lm.init_cache(cfg, B, P + gen_tokens, tokens.device)
+    if cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError(f"{cfg.name} decodes against frames")
+        cache["cross"] = lm.prefill_cross_cache(params, cfg, frames)
     logits = None
     for i in range(P):
         logits, cache = lm.decode_step(params, cfg, tokens[:, i:i + 1],
@@ -675,6 +698,13 @@ def _timed(fn, device):
 
 def serve_lm(args) -> int:
     try:
+        cfg = configs.get(args.arch)
+        cfg = cfg.reduced() if args.reduced else cfg
+        if cfg.frontend == "vision_stub" and (
+                args.prompt_len <= cfg.n_frontend_tokens):
+            raise ValueError(
+                f"{cfg.name}: --prompt-len {args.prompt_len} leaves no text "
+                f"after its {cfg.n_frontend_tokens} patch positions")
         cfg, params = lm_model(args.arch, args.reduced, args.seed,
                                args.device)
     except ValueError as e:
@@ -695,7 +725,8 @@ def serve_lm(args) -> int:
           f"(embedding {t_emb * 1e3:.1f} ms, fit {t_fit * 1e3:.1f} ms)")
 
     tokens = request_tokens(cfg, B, P, args.seed, dev)
-    gen, dt = _timed(lambda: generate(params, cfg, tokens, G), dev)
+    frames = request_frames(cfg, B, P, args.seed, dev)
+    gen, dt = _timed(lambda: generate(params, cfg, tokens, G, frames), dev)
     req_emb = embed(params, cfg, tokens)
     pvals, t_p = _timed(lambda: ood.pvalues(req_emb), dev)
     print(f"[serve] {B} requests x {G} tokens in {dt:.2f}s "
@@ -721,7 +752,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen2-1.5b",
                     help="LM mode: the architecture (qwen2-1.5b, "
                     "qwen3-1.7b, gemma3-1b, granite-34b, mixtral-8x22b, "
-                    "deepseek-v2-236b)")
+                    "deepseek-v2-236b, recurrentgemma-9b, xlstm-125m, "
+                    "whisper-base, internvl2-26b)")
     ap.add_argument("--reduced", action="store_true",
                     help="LM mode: the tiny same-family config")
     ap.add_argument("--requests", type=int, default=8)

@@ -1,16 +1,21 @@
-"""Transformer block assembly and the layer stack.
+"""Block assembly and the layer stack.
 
-Counterpart of ``repro/models/blocks.py`` for the attention kinds
-``attn``, ``attn_local`` and ``dense_ffn_attn`` (attention and a dense
-FFN even in an MoE model: deepseek-v2's first layer), with GQA or MLA
-attention and a dense MLP or an MoE (the recurrent kinds ``rglru``,
-``mlstm`` and ``slstm`` are not ported yet). Consecutive layers of one
-kind form a *run* (``pattern_runs``), as in the reference, so that a
-run's parameters map onto the reference's stacked run one layer at a
-time. A run is an
-``nn.ModuleList`` of blocks looped in Python: this is inference, so there
-is neither a scan nor rematerialisation. Caches are a list of runs, each a
-list of per-layer ``{"k", "v"}`` dicts (``{"c_kv", "k_rope"}`` with MLA).
+Counterpart of ``repro/models/blocks.py``. A layer is of one *kind*:
+
+    attn            full-attention block (+ MoE if configured)
+    attn_local      sliding-window attention block
+    dense_ffn_attn  attention + dense FFN even in an MoE model
+                    (deepseek-v2's first layer)
+    rglru           Griffin recurrent block + MLP
+    mlstm / slstm   xLSTM blocks (self-contained, no separate FFN)
+
+Attention is GQA or MLA, the FFN a dense MLP or an MoE. Consecutive
+layers of one kind form a *run* (``pattern_runs``), as in the reference,
+so that a run's parameters map onto the reference's stacked run one layer
+at a time. A run is an ``nn.ModuleList`` of blocks looped in Python: this
+is inference, so there is neither a scan nor rematerialisation. Caches
+are a list of runs, each a list of per-layer dicts: ``{"k", "v"}``
+(``{"c_kv", "k_rope"}`` with MLA) or a recurrent state, updated in place.
 The MoE's load-balancing loss is a training term: inference drops it.
 """
 from __future__ import annotations
@@ -21,16 +26,12 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_m
 from repro_torch.models import mlp as mlp_m
+from repro_torch.models import recurrent as rec_m
 from repro_torch.models.common import frozen, layer_norm, rms_norm
 
 ATTN_KINDS = ("attn", "attn_local", "dense_ffn_attn")
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (the port has "
-            f"{ATTN_KINDS})")
+# the recurrent kinds: the name of the block's parameters
+_RECURRENT = {"rglru": "rec", "mlstm": "block", "slstm": "block"}
 
 
 def _norm_params(cfg: ArchConfig, dtype, device) -> dict:
@@ -50,12 +51,21 @@ def apply_norm(p, x, cfg: ArchConfig):
 
 def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
                dtype) -> nn.ModuleDict:
-    _check_kind(kind)
     dev = generator.device
-    p = {"ln1": _norm_params(cfg, dtype, dev),
-         "attn": (attn_m.init_mla if cfg.mla is not None else
-                  attn_m.init_attention)(generator, cfg, dtype),
-         "ln2": _norm_params(cfg, dtype, dev)}
+    p = {"ln1": _norm_params(cfg, dtype, dev)}
+    if kind in _RECURRENT:
+        init = getattr(rec_m, f"init_{kind}_block")
+        p[_RECURRENT[kind]] = init(generator, cfg, dtype)
+        if kind == "rglru":
+            p["ln2"] = _norm_params(cfg, dtype, dev)
+            p["mlp"] = mlp_m.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                      dtype)
+        return frozen(p)
+    if kind not in ATTN_KINDS:
+        raise ValueError(kind)
+    p["attn"] = (attn_m.init_mla if cfg.mla is not None else
+                 attn_m.init_attention)(generator, cfg, dtype)
+    p["ln2"] = _norm_params(cfg, dtype, dev)
     if cfg.moe.n_experts and kind != "dense_ffn_attn":
         p["moe"] = mlp_m.init_moe(generator, cfg, dtype)
     else:
@@ -68,7 +78,14 @@ def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      dtype, device) -> dict:
-    _check_kind(kind)
+    if kind == "rglru":
+        return rec_m.init_rglru_state(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return rec_m.init_mlstm_state(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return rec_m.init_slstm_state(cfg, batch, device)
+    if kind not in ATTN_KINDS:
+        raise ValueError(kind)
     if cfg.mla is not None:
         return attn_m.init_mla_cache(cfg, batch, max_len, dtype, device)
     return attn_m.init_kv_cache(cfg, batch, max_len, dtype, device)
@@ -93,9 +110,25 @@ def _ffn(p, x, cfg: ArchConfig, decode: bool = False):
     return x + f
 
 
+def _recurrent(p, x, cfg: ArchConfig, kind: str, form: str, *args):
+    """A recurrent block: the norm, ``{kind}_block_{form}`` of
+    ``models/recurrent.py`` (form ``full`` or ``step``), the residual,
+    and for ``rglru`` the MLP half. Returns ``(x, state)``."""
+    fn = getattr(rec_m, f"{kind}_block_{form}")
+    r, state = fn(p[_RECURRENT[kind]], apply_norm(p["ln1"], x, cfg), cfg,
+                  *args)
+    x = x + r
+    if kind == "rglru":
+        h = apply_norm(p["ln2"], x, cfg)
+        x = x + mlp_m.mlp(p["mlp"], h, cfg.act)
+    return x, state
+
+
 def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions,
                      causal: bool = True):
     """Full-sequence block application (prefill). Returns ``x``."""
+    if kind in _RECURRENT:
+        return _recurrent(p, x, cfg, kind, "full")[0]
     window, theta = _attn_kwargs(cfg, kind)
     h = apply_norm(p["ln1"], x, cfg)
     if cfg.mla is not None:
@@ -112,6 +145,8 @@ def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions,
 def apply_block_decode(p, x, cfg: ArchConfig, kind: str, cache, index: int):
     """One-token decode. Returns ``(x, cache)``; the cache is updated in
     place."""
+    if kind in _RECURRENT:
+        return _recurrent(p, x, cfg, kind, "step", cache)
     window, theta = _attn_kwargs(cfg, kind)
     h = apply_norm(p["ln1"], x, cfg)
     if cfg.mla is not None:

@@ -146,6 +146,15 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.reshape(x.shape).to(x.dtype)
 
 
+def sinusoidal_positions(n_pos: int, dim: int, device=None):
+    """The sin / cos table ``(n_pos, dim)`` in f32: whisper's encoder
+    positions (the caller casts it to the activation dtype)."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10000.0 ** (2.0 * idx / dim))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 def softcap(logits, cap: float | None):
     if cap is None:
         return logits
@@ -154,4 +163,4 @@ def softcap(logits, cap: float | None):
 
 __all__ = ["frozen", "ParamTree", "dense_init", "expert_init", "embed_init",
            "rms_norm", "layer_norm", "act_fn", "rope_frequencies",
-           "apply_rope", "softcap"]
+           "apply_rope", "sinusoidal_positions", "softcap"]

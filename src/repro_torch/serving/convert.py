@@ -20,10 +20,13 @@ map's ``W, b`` (drawn with ``jax.random``) into ``lssvm.feature_map``.
 A language model's parameters carry across with ``lm_params_from_numpy``
 / ``lm_params_to_numpy``: the JAX ``init_lm`` tree (``embed``, ``layers``
 as a list of runs whose leaves have a leading layer axis, ``final_norm``,
-``lm_head`` when untied) as numpy arrays, each run split into its layers;
-the MoE's (``moe`` with ``shared``) and MLA's nested trees carry across as
-they are, and each leaf keeps the reference's dtype (an MoE router is f32
-in a bf16 model).
+``lm_head`` when untied; an encoder-decoder's ``encoder`` runs, its
+``cross`` tree stacked over the decoder's layers and ``pos_embed_dec``) as
+numpy arrays, each run or stack split into its layers; the MoE's (``moe``
+with ``shared``), MLA's and the recurrent blocks' nested trees carry
+across as they are, and each leaf keeps the reference's dtype (in a bf16
+model an MoE router, the RG-LRU's ``lam``, the mLSTM's ``w_if`` and
+``b_if`` and the sLSTM's ``b_zifo`` are f32).
 """
 from __future__ import annotations
 
@@ -124,15 +127,17 @@ def _keyed_map(fn, tree, key: str = ""):
     return fn(tree, key)
 
 
-# leaves that the reference keeps in f32 whatever ``param_dtype`` is
-# (``repro/models/mlp.py::init_moe``: the router)
-_F32_LEAVES = ("router",)
+# leaves that the reference keeps in f32 whatever ``param_dtype`` is:
+# the MoE router (``repro/models/mlp.py::init_moe``), the RG-LRU's ``lam``
+# and the xLSTM gates' ``w_if``, ``b_if``, ``b_zifo``
+# (``repro/models/recurrent.py``)
+_F32_LEAVES = ("router", "lam", "w_if", "b_if", "b_zifo")
 
 
 def lm_params_from_numpy(tree, cfg, device=None) -> lm.LmParams:
     """The port's ``LmParams`` from the JAX ``init_lm`` tree as numpy
     arrays on ``device`` (cuda unless given), each leaf in the dtype the
-    reference gives it: ``cfg.param_dtype``, f32 for an MoE router."""
+    reference gives it: ``cfg.param_dtype``, f32 for ``_F32_LEAVES``."""
     dev = resolve(device)
     dtype = lm.dtype_of(cfg.param_dtype)
 
@@ -141,18 +146,31 @@ def lm_params_from_numpy(tree, cfg, device=None) -> lm.LmParams:
         return torch.as_tensor(np.array(a, dtype=np.float32), device=dev
                                ).to(dt)
 
-    runs = blk.pattern_runs(cfg.pattern)
-    if len(tree["layers"]) != len(runs):
-        raise ValueError(f"{len(tree['layers'])} runs for the pattern's "
-                         f"{len(runs)}")
-    layers = torch.nn.ModuleList(
-        torch.nn.ModuleList(
-            frozen(_keyed_map(lambda a, key, i=i: t(a[i], key), run))
+    def layer_stack(runs_tree, pattern):
+        runs = blk.pattern_runs(pattern)
+        if len(runs_tree) != len(runs):
+            raise ValueError(f"{len(runs_tree)} runs for the pattern's "
+                             f"{len(runs)}")
+        return torch.nn.ModuleList(
+            split_layers(run, length) for (_, length), run in
+            zip(runs, runs_tree))
+
+    def split_layers(stacked, length):
+        return torch.nn.ModuleList(
+            frozen(_keyed_map(lambda a, key, i=i: t(a[i], key), stacked))
             for i in range(length))
-        for (_, length), run in zip(runs, tree["layers"]))
+
     head = t(tree["lm_head"]) if "lm_head" in tree else None
-    return lm.LmParams(t(tree["embed"]), layers,
-                       _tree_map(t, tree["final_norm"]), head)
+    extra = {}
+    if cfg.is_encoder_decoder:
+        extra = dict(
+            encoder=layer_stack(tree["encoder"],
+                                lm._encoder_cfg(cfg).pattern),
+            cross=split_layers(tree["cross"], cfg.n_layers),
+            pos_embed_dec=t(tree["pos_embed_dec"]))
+    return lm.LmParams(t(tree["embed"]), layer_stack(tree["layers"],
+                                                     cfg.pattern),
+                       _tree_map(t, tree["final_norm"]), head, **extra)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -164,16 +182,25 @@ def _module_tree(mod) -> dict:
             _numpy(v) for k, v in mod.items()}
 
 
+def _stacked(layers) -> dict:
+    """Per-layer modules as one tree, each leaf stacked on a leading
+    axis."""
+    return _tree_map(lambda *xs: np.stack(xs), *map(_module_tree, layers))
+
+
 def lm_params_to_numpy(params: lm.LmParams) -> dict:
     """The JAX ``init_lm`` tree of ``params`` (float32 numpy arrays, each
-    run's layers stacked on a leading axis)."""
+    run's layers stacked on a leading axis, as is an encoder-decoder's
+    ``cross``)."""
     out = {"embed": _numpy(params["embed"]),
-           "layers": [_tree_map(lambda *xs: np.stack(xs),
-                                *map(_module_tree, run))
-                      for run in params["layers"]],
+           "layers": [_stacked(run) for run in params["layers"]],
            "final_norm": _module_tree(params["final_norm"])}
     if "lm_head" in params:
         out["lm_head"] = _numpy(params["lm_head"])
+    if "encoder" in params:
+        out["encoder"] = [_stacked(run) for run in params["encoder"]]
+        out["cross"] = _stacked(params["cross"])
+        out["pos_embed_dec"] = _numpy(params["pos_embed_dec"])
     return out
 
 

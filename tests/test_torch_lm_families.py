@@ -350,10 +350,27 @@ def test_blocks(arch, kind):
 
 
 def test_recurrent_kinds_still_raise():
+    """Since the recurrent kinds are ported, the name is historical: each
+    initialises with the reference's layout (``rglru``: ``ln1, rec, ln2,
+    mlp``; ``mlstm`` and ``slstm``: ``ln1, block``) and its cache, and an
+    unknown kind raises ``ValueError``."""
+    for arch, kinds in (("recurrentgemma-9b", ("rglru",)),
+                        ("xlstm-125m", ("mlstm", "slstm"))):
+        c = cfgs.get(arch).reduced()
+        for kind in kinds:
+            p = blocks.init_block(torch.Generator(), c, kind, torch.float32)
+            assert list(p.keys()) == (["ln1", "rec", "ln2", "mlp"]
+                                      if kind == "rglru" else
+                                      ["ln1", "block"])
+            assert blocks.init_block_cache(c, kind, 2, 8, torch.float32,
+                                           "cpu")
     c = cfgs.get("granite-34b").reduced()
-    for kind in ("rglru", "mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            blocks.init_block(torch.Generator(), c, kind, torch.float32)
+    for fn in (lambda: blocks.init_block(torch.Generator(), c, "conv",
+                                         torch.float32),
+               lambda: blocks.init_block_cache(c, "conv", 2, 8,
+                                               torch.float32, "cpu")):
+        with pytest.raises(ValueError):
+            fn()
 
 
 # ---------------------------------------------------------------------------
