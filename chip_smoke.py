@@ -214,7 +214,31 @@ exits non-zero without a result line:
    ``forward_encdec`` over 1,500 frames, and teacher-forced decode ==
    forward (``forward_encdec`` with the cross cache) within 1e-3 over (2,
    300): past one 256-step chunk of the RG-LRU scan and the mLSTM. The
-   kernel's launches count under ``recurrent_frontends``.
+   kernel's launches count under ``recurrent_frontends``;
+15. training: (a) gradients through ``ops.flash_attention`` (the kernel
+   forward, ``flash_attention_bwd`` backward) == autograd through the
+   plain version within 1e-5 of the largest gradient (bf16: past 4 ulps
+   of each element) at the training shape (B 8, S 512, H 12, Hkv 2, D
+   128, causal, bf16), phase 7's f32 (c) and (d), gemma3's D 256 window
+   512, the MLA prefill's D 192 with its scale and whisper's encoder; the
+   backward's ms beside the kernel forward's, the plain version's and
+   SDPA's forward + backward; (b) qwen2-1.5b at full width in bf16,
+   random weights from the seed, through the ``Trainer``: batch 8 x 512,
+   100 steps, warm-up 5, peak lr 3e-4, remat ``full``, checkpoints at
+   steps 50 and 100: every loss finite, the last 10 losses' mean at least
+   1.0 below the first 10's, ``flash_attention`` launched twice a layer a
+   step (the forward and the recompute) and no other kernel; step ms p50
+   / p90, tokens/s, peak GiB; step 50's checkpoint restored leaf by leaf
+   == what was saved, bitwise; (c) in a subprocess under
+   ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_
+   CONFIG=:4096:8``): whisper-base whole at full width (bf16) and
+   mixtral-8x22b reduced, 6 steps straight against 4 and a restart to 6:
+   the last two losses and every final leaf bitwise equal; what
+   xlstm-125m (its mLSTM's float ``cumsum``) raises there is printed;
+   (d) each other architecture reduced (f32), 3 steps on the card against
+   the CPU from the same weights, the first loss within 1e-5 and the
+   others within 1e-3 (relative). The
+   kernel's launches of (b) and (d) count under ``train``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -4158,7 +4182,7 @@ def front_run(arch: str, check_layers, dev="cuda"):
     fb = front_batch(cfg32, B, dev)
     if cfg32.frontend == "vision_stub":
         gaps["hidden_forward with patches"] = front_route_gaps(
-            lambda: lm.hidden_forward(p32, cfg32, fb))
+            lambda: lm.hidden_forward(p32, cfg32, fb)[0])
     if cfg32.is_encoder_decoder:  # the real vocabulary's logits
         gaps["forward_encdec logits"] = front_route_gaps(
             lambda: lm.forward_encdec(p32, cfg32, fb)[..., :cfg32.vocab_size])
@@ -4214,6 +4238,341 @@ def fronts_path(dev="cuda"):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_REDUCED = "qwen2-1.5b", False  # a rehearsal: reduced
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 512, 100, 5
+TRAIN_LR, TRAIN_CKPT, TRAIN_DROP = 3e-4, 50, 1.0
+# (c): deterministic resume, (arch, reduced); whisper-base whole at full
+# width (52 M parameters: six 0.5 GB checkpoints; the smoke's writes must
+# stay under its machine's 45 GiB)
+RESUME_ARCHS = (("whisper-base", False), ("mixtral-8x22b", True))
+RESUME_BATCH, RESUME_SEQ = 4, 256
+RESUME_PROBE = "xlstm-125m"  # the mLSTM's float cumsum
+# (d): every other family, reduced, card against CPU
+FAMILY_STEPS, FAMILY_BATCH, FAMILY_SEQ = 3, 2, 64
+# relative loss gaps, card against CPU: before the first update, and after
+# (Adam's first steps move a weight by about the learning rate whatever
+# its gradient's size, so weights whose gradient is rounding noise on one
+# device move apart; 60-layer deepseek reached 1.9e-4 on an H100)
+FAMILY_TOL0, FAMILY_TOL = 1e-5, 1e-3
+BWD_CASES = [  # name, dtype, B, Sq, Skv, H, Hkv, D, causal, window, softcap
+    ("train", torch.bfloat16, 8, 512, 512, 12, 2, 128, True, None, None),
+    ("c", torch.float32, 2, 1024, 1024, 8, 4, 64, False, None, 50.0),
+    ("d", torch.float32, 2, 16, 80, 4, 2, 128, True, None, None),
+    ("b", torch.bfloat16, 4, 2048, 2048, 4, 1, 256, True, 512, None),
+    ("j", torch.bfloat16, 8, 512, 512, 128, 128, 192, True, None, None),
+    ("n", torch.bfloat16, 16, 1500, 1500, 8, 8, 64, False, None, None),
+]
+BWD_TOL = 1e-5  # of the largest gradient; bf16 past 4 ulps of each element
+
+
+def grad_gap(got, want) -> float:
+    """``max |got - want|`` over ``max |want|``; for bf16 what lies past
+    4 bf16 ulps of each element of ``want`` (each rounded once from
+    f32 sums taken in another order)."""
+    w, d = want.float(), (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        d = d - 4 * torch.ldexp(torch.ones_like(w),
+                                torch.frexp(w).exponent - 8)
+    return float(d.max().clamp(min=0) / w.abs().max())
+
+
+def check_flash_backward(g, iters, dev="cuda"):
+    """Phase 15 (a): gradients through ``ops.flash_attention`` (the
+    kernel forward, ``flash_attention_bwd`` backward) == autograd through
+    ``ref.flash_attention`` (``grad_gap`` within ``BWD_TOL``) at the
+    training shape and phase 7's (c), (d), (b), (j) and (n); at the
+    training shape the backward's ms beside the kernel forward's, the
+    plain version's forward and forward + backward, and SDPA's forward +
+    backward (the yardstick only), CUDA events."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    notes, line = [], ""
+    for name, dt, B, Sq, Skv, H, Hkv, D, causal, window, cap in BWD_CASES:
+        mk = lambda *sh: torch.randn(sh, generator=g, device=dev).to(dt)  # noqa: E731
+        q, k, v = mk(B, Sq, H, D), mk(B, Skv, Hkv, D), mk(B, Skv, Hkv, D)
+        do = mk(B, Sq, H, D)
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  scale=FLASH_SCALE.get(name))
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(ops.flash_attention(*ts, **kw), ts, do)
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention(*ts, **kw), ts, do)
+        gaps = [grad_gap(a, w) for a, w in zip(got, want)]
+        check(all(a.dtype == dt and bool(torch.isfinite(a).all())
+                  for a in got), f"flash backward ({name}) finite, {dt}")
+        check(max(gaps) <= BWD_TOL, f"flash backward ({name}) == autograd "
+              f"through the plain version within {BWD_TOL}: {gaps}")
+        notes.append(f"({name}) dq/dk/dv " + "/".join(f"{x:.2e}"
+                                                      for x in gaps))
+        if name == "train":
+            bwd = cuda_ms(lambda: flash_attention_bwd(q, k, v, do, **kw),
+                          iters)
+            fwd = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters)
+            pfwd = cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), 3)
+
+            def plain():
+                ts = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                torch.autograd.grad(ref.flash_attention(*ts, **kw), ts, do)
+
+            def sdpa():
+                ts = [t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v)]
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    *ts, is_causal=causal, enable_gqa=True)
+                torch.autograd.grad(out, ts, do.transpose(1, 2))
+
+            pboth = cuda_ms(plain, 3)
+            lib = cuda_ms(sdpa, iters)
+            line = (f"B={B} S={Sq} H={H} Hkv={Hkv} D={D} causal bf16: "
+                    f"backward {bwd:.4f} ms, kernel forward {fwd:.4f} ms; "
+                    f"plain forward {pfwd:.4f} ms, forward + backward "
+                    f"{pboth:.4f} ms (backward {pboth - pfwd:.4f}); SDPA "
+                    f"forward + backward {lib:.4f} ms")
+        del q, k, v, do, got, want, ts
+    print("[train] flash_attention backward == autograd through the plain "
+          f"version (gap / max |grad|): {'; '.join(notes)}; {line}")
+
+
+def same_leaves(a, b) -> bool:
+    """Leaf lists equal bit for bit (a float leaf compared as its
+    integer view, so -0 and +0 differ)."""
+    def bits(t):
+        if not t.is_floating_point():
+            return t
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def train_run(root: str, dev="cuda") -> dict:
+    """Phase 15 (b): ``TRAIN_ARCH`` at full width in bf16 through the
+    ``Trainer``. Returns the run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import ATTN_KINDS
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import trainer as tr
+
+    cfg = configs.get(TRAIN_ARCH)
+    if TRAIN_REDUCED:
+        cfg = cfg.reduced()
+    ocfg = OptimizerConfig(peak_lr=TRAIN_LR, end_lr=TRAIN_LR / 10,
+                           warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    tcfg = tr.TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
+                            ckpt_dir=root, log_every=10, seed=SEED,
+                            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    trainer = tr.Trainer(cfg, tcfg, ocfg, device=dev)
+    n = cfg.n_params()
+    state = n * (lm.dtype_of(cfg.param_dtype).itemsize + 8)  # + mu, nu
+    room_for(state, os.path.dirname(root))  # host: a copy and a write
+    check(shutil.disk_usage(os.path.dirname(root)).free >= 2.1 * state,
+          "train: room on disk for two checkpoints")
+    saved, save_s, real = {}, [], trainer.save
+
+    def save(step, params, opt_state, blocking=False):
+        if step == TRAIN_CKPT:  # what this step's checkpoint must restore
+            saved["leaves"] = [t.detach().to("cpu", copy=True) for t in
+                               tr.state_leaves(params, opt_state)]
+        h0 = time.perf_counter()
+        real(step, params, opt_state, blocking)
+        save_s.append(time.perf_counter() - h0)
+
+    trainer.save = save
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    h0 = time.perf_counter()
+    out = trainer.run()
+    wall = time.perf_counter() - h0
+    counts = dict(ops.kernel_launches())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = out["losses"]
+    check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+          "train: every loss finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(first - last >= TRAIN_DROP, f"train: the last 10 losses' mean "
+          f"{last:.4f} at least {TRAIN_DROP} below the first 10's "
+          f"{first:.4f}")
+    n_attn = sum(kind in ATTN_KINDS for kind in cfg.pattern)
+    per_step = n_attn * (2 if cfg.remat == "full" else 1)
+    check(counts["flash_attention"] == per_step * TRAIN_STEPS
+          and sum(counts.values()) == counts["flash_attention"],
+          f"train: flash_attention launched {per_step} times a step (the "
+          f"forward and the remat recompute) and no other kernel: {counts}")
+    ms = np.asarray(trainer.step_seconds) * 1e3
+    p50, p90 = np.percentile(ms[1:], [50, 90])
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {cfg.name} at d {cfg.d_model}, {cfg.n_layers} layers "
+          f"({n / 1e9:.3f} B params) {cfg.dtype}, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, remat {cfg.remat}: {TRAIN_STEPS} steps in "
+          f"{wall:.1f} s; step ms p50 {p50:.1f} p90 {p90:.1f} (first "
+          f"{ms[0]:.1f}), {tok / p50 * 1e3:.0f} tokens/s at p50; peak "
+          f"{peak:.2f} GiB allocated; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, first 10 mean {first:.4f}, "
+          f"last 10 {last:.4f}; flash_attention {counts['flash_attention']}"
+          f" launches ({per_step} a step); saves "
+          + ", ".join(f"{x:.1f}" for x in save_s) + " s")
+    h0 = time.perf_counter()
+    back, step = trainer.store.restore(None, TRAIN_CKPT, device="cpu")
+    check(step == TRAIN_CKPT and same_leaves(back, saved["leaves"]),
+          f"train: step {TRAIN_CKPT} restored leaf by leaf == what was "
+          "saved, bitwise")
+    nbytes = sum(t.numel() * t.element_size() for t in back)
+    print(f"[train] step {TRAIN_CKPT} restored ({len(back)} leaves, "
+          f"{nbytes / 1e9:.2f} GB) in {time.perf_counter() - h0:.1f} s: "
+          "bitwise what was saved")
+    return counts
+
+
+def resume_cfg(arch: str, reduced: bool):
+    from repro_torch import configs
+
+    cfg = configs.get(arch)
+    return cfg.reduced() if reduced or TRAIN_REDUCED else cfg
+
+
+def resume_child(root: str) -> int:
+    """Phase 15 (c), in its own process (``--train-resume DIR``, with
+    ``CUBLAS_WORKSPACE_CONFIG`` set): under
+    ``torch.use_deterministic_algorithms(True)``, each of
+    ``RESUME_ARCHS`` trained 6 steps straight, and 4 steps then a restart
+    to 6; prints one JSON line: the last two losses and every final leaf
+    bitwise equal or not, and what ``RESUME_PROBE`` raises there."""
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import trainer as tr
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(cfg, d, steps):
+        return tr.Trainer(cfg, tr.TrainerConfig(
+            steps=steps, ckpt_every=2, ckpt_dir=os.path.join(root, d),
+            log_every=100, seed=SEED, batch=RESUME_BATCH,
+            seq_len=RESUME_SEQ), OptimizerConfig(
+                peak_lr=TRAIN_LR, warmup_steps=1, total_steps=6)).run()
+
+    report = {}
+    for arch, reduced in RESUME_ARCHS:
+        cfg = resume_cfg(arch, reduced)
+        one = run(cfg, f"{arch}-straight", 6)
+        run(cfg, f"{arch}-resumed", 4)
+        two = run(cfg, f"{arch}-resumed", 6)
+        leaves = [tr.state_leaves(o["final_params"], o["opt_state"])
+                  for o in (one, two)]
+        report[arch] = {"layers": cfg.n_layers, "width": cfg.d_model,
+                        "losses": two["losses"],
+                        "same_losses": one["losses"][4:] == two["losses"],
+                        "same_state": same_leaves(*leaves)}
+    try:
+        run(resume_cfg(RESUME_PROBE, True), "probe", 1)
+        probe = "none"
+    except RuntimeError as e:  # the finding: an op with no such form
+        probe = str(e).splitlines()[0]
+    print(json.dumps({"resume": report, "probe": probe}))
+    return 0
+
+
+def resume_check(root: str, dev="cuda"):
+    """Phase 15 (c): ``resume_child`` in a subprocess; every arch's last
+    two losses and final state bitwise those of the straight run."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": str(ROOT / "src")}
+    h0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--train-resume", root], capture_output=True,
+                         text=True, timeout=600, env=env, cwd=ROOT)
+    check(out.returncode == 0, f"train: the resume child failed: "
+          f"{out.stderr[-2000:]}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    for arch, r in rep["resume"].items():
+        check(r["same_losses"] and r["same_state"], f"train: {arch} resumed "
+              f"at step 4 == straight, bitwise, deterministic: {r}")
+    print(f"[train] deterministic resume in {time.perf_counter() - h0:.1f} s"
+          f" (a subprocess): " + "; ".join(
+              f"{a} (d {r['width']}, {r['layers']} layers) steps 4-5 losses "
+              f"{r['losses'][0]:.6f}, {r['losses'][1]:.6f} and every final "
+              "leaf bitwise those of 6 straight steps" for a, r in
+              rep["resume"].items())
+          + f"; {RESUME_PROBE} under use_deterministic_algorithms raises: "
+          f"{rep['probe']}")
+
+
+def family_train(root: str, dev="cuda") -> dict:
+    """Phase 15 (d): every other architecture reduced (f32, the kernel's
+    f32 body) through ``FAMILY_STEPS`` trainer steps on the card and on
+    the CPU from the same weights (drawn on the CPU): the first loss
+    within ``FAMILY_TOL0``, the others ``FAMILY_TOL`` (relative). Returns
+    the card runs' launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime import trainer as tr
+
+    total, gaps = {}, []
+    for arch in configs.ARCH_NAMES:
+        cfg = configs.get(arch).reduced()
+        if cfg.name == configs.get(TRAIN_ARCH).name:
+            continue
+        losses, step_ms = [], 0.0
+        for i, d in enumerate((dev, "cpu")):
+            t = tr.Trainer(cfg, tr.TrainerConfig(
+                steps=FAMILY_STEPS, ckpt_every=100, log_every=100, seed=SEED,
+                ckpt_dir=os.path.join(root, f"{arch}-{i}"),
+                batch=FAMILY_BATCH, seq_len=FAMILY_SEQ), device=d)
+            t.init_params = lambda d=d: lm.init_lm(SEED, cfg, "cpu").to(d)
+            ops.reset_launch_counts()
+            losses.append(t.run()["losses"])
+            if i == 0:
+                for name, c in ops.kernel_launches().items():
+                    total[name] = total.get(name, 0) + c
+                step_ms = float(np.median(t.step_seconds[1:])) * 1e3
+        a, b = np.asarray(losses[0]), np.asarray(losses[1])
+        gap = np.abs(a - b) / np.abs(b)
+        check(bool(np.isfinite(a).all()) and gap[0] <= FAMILY_TOL0
+              and gap.max() <= FAMILY_TOL, f"train: {arch} reduced on the "
+              f"card == on the CPU within {FAMILY_TOL0} / {FAMILY_TOL}: {a} "
+              f"vs {b}")
+        gaps.append(f"{arch} {gap[0]:.1e} / {gap.max():.1e} ({step_ms:.1f}"
+                    " ms a step)")
+    print(f"[train] every other family reduced, {FAMILY_STEPS} steps, card "
+          "against CPU (relative loss gap at the first step / the largest): "
+          + "; ".join(gaps))
+    return total
+
+
+def train_path(dev="cuda") -> dict:
+    """Phase 15: (a) the attention's backward, (b) the full-width run and
+    its restore, (c) the deterministic resume, (d) the other families.
+    Returns the launch counts of (b) and (d)."""
+    t_phase = time.perf_counter()
+    check_flash_backward(torch.Generator(device=dev).manual_seed(SEED), 20,
+                         dev)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        counts = train_run(os.path.join(root, "full"), dev)
+        torch.cuda.empty_cache()
+        resume_check(os.path.join(root, "resume"), dev)
+        for name, c in family_train(os.path.join(root, "families"),
+                                    dev).items():
+            counts[name] = counts.get(name, 0) + c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[train] phase 15 in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -4223,10 +4582,15 @@ def main(argv=None) -> int:
                     "one only for a quick rehearsal)")
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per kernel")
+    ap.add_argument("--train-resume", metavar="DIR",
+                    help="phase 15 (c)'s child process (started by the "
+                    "phase itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
+    if args.train_resume:
+        return resume_child(args.train_resume)
     t_start = time.perf_counter()
 
     from repro_torch.data.synthetic import make_classification
@@ -4287,6 +4651,8 @@ def main(argv=None) -> int:
     by_path["families"] = families_path()
     torch.cuda.empty_cache()
     by_path["recurrent_frontends"] = fronts_path()
+    torch.cuda.empty_cache()
+    by_path["train"] = train_path()
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

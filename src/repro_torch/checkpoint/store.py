@@ -18,7 +18,10 @@ the port writes there the name of the state class it saved.
 
 Shards are hashed in fixed-size chunks (the same digest without a second
 copy of a multi-GB shard in host memory). Restore returns tensors on the
-caller's device (``cuda`` by default).
+caller's device (``cuda`` by default). numpy has no bfloat16: a bf16 leaf
+is written as its raw 2-byte values (``|V2``, as numpy writes the JAX
+store's ``ml_dtypes`` bfloat16 arrays) under the manifest dtype
+``bfloat16``, and read back bit for bit.
 """
 from __future__ import annotations
 
@@ -53,15 +56,35 @@ def sha256_file(path: str) -> str:
     return h.hexdigest()
 
 
+_BF16_HOST = np.dtype("V2")  # a bf16 leaf's raw values on the host
+
+
 def host_leaf(x, *, copy: bool) -> np.ndarray:
-    """``x`` (tensor or array) as a host numpy array; ``copy`` detaches it
-    from a host tensor the caller may go on updating in place."""
+    """``x`` (tensor or array) as a host numpy array (a bf16 tensor as its
+    raw ``|V2`` values); ``copy`` detaches it from a host tensor the
+    caller may go on updating in place."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        raw = x.dtype == torch.bfloat16
+        if raw:
+            x = x.view(torch.int16)
         if x.device.type != "cpu":
-            return x.cpu().numpy()  # a fresh host buffer
-        return x.numpy().copy() if copy else x.numpy()
+            out = x.cpu().numpy()  # a fresh host buffer
+        else:
+            out = x.numpy().copy() if copy else x.numpy()
+        return out.view(_BF16_HOST) if raw else out
     return np.array(x) if copy else np.asarray(x)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == _BF16_HOST else str(a.dtype)
+
+
+def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(arr.astype(dtype, copy=False))
 
 
 class CheckpointStore:
@@ -133,7 +156,7 @@ class CheckpointStore:
             "step": step,
             "treedef": treedef,
             "n_leaves": len(host_leaves),
-            "leaves": [{"shape": list(a.shape), "dtype": str(a.dtype)}
+            "leaves": [{"shape": list(a.shape), "dtype": _dtype_name(a)}
                        for a in host_leaves],
             "shards": [],
             "extra": extra,
@@ -168,6 +191,14 @@ class CheckpointStore:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def flush(self):
+        """Wait for the outstanding background write and raise its
+        error, if it failed."""
+        self.wait()
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
     def _gc(self):
         steps = self.committed_steps()
@@ -257,8 +288,7 @@ class CheckpointStore:
                 raise ValueError(
                     f"step {step}: a leaf is missing or its shape "
                     f"disagrees with the manifest's {spec['shape']}")
-            out.append(torch.from_numpy(
-                arr.astype(spec["dtype"], copy=False)).to(dev))
+            out.append(_tensor(arr, spec["dtype"]).to(dev))
         return make(out), step
 
 

@@ -113,7 +113,7 @@ def hidden_states(params, cfg, batch) -> torch.Tensor:
     batch's ``patch_embeds`` and ``frames`` are not read, so an
     encoder-decoder runs its decoder's self-attention stack without the
     encoder and without its learned positions."""
-    return lm.hidden_forward(params, cfg, {"tokens": batch["tokens"]})
+    return lm.hidden_forward(params, cfg, {"tokens": batch["tokens"]})[0]
 
 
 def sequence_embedding(params, cfg, batch) -> torch.Tensor:

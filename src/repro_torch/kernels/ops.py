@@ -10,7 +10,9 @@ per-tenant form and keeps the launch counts, ``stream_update``'s per mode
 (its fused serving-tick form, ``stream_tick``, counts there too).
 ``kde_rowsums`` takes the unbatched ``(m, p)`` form of the batch measures;
 ``flash_attention`` the ``(B, S, H, D)`` layout of the LM substrate (bf16
-or f32 on the card).
+or f32 on the card), through a ``torch.autograd.Function`` whose forward
+is the kernel's single launch (the plain version on the CPU) and whose
+backward is ``flash_attention_bwd`` on both devices.
 
 The bootstrap measure's forest (``boot_fit_forest``, ``boot_forest_predict``)
 is plain PyTorch on the device it is given (``boot_forest.py``): numpy in
@@ -26,6 +28,8 @@ from repro_torch._device import resolve
 from repro_torch.kernels import boot_forest as _boot
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.cp_update import cp_knn_counts as _cp_knn_counts
+from repro_torch.kernels.flash_attention import (DENSE_SCORE_LIMIT,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.interval_sweep import interval_sweep as _sweep
 from repro_torch.kernels.kde_score import kde_rowsums as _kde_rowsums
@@ -46,7 +50,7 @@ KERNELS = {
 
 # past this many score elements per (batch, head), a CPU tensor takes the
 # chunked online-softmax version, so long sequences stay memory-bounded
-_DENSE_SCORE_LIMIT = 2048 * 2048
+_DENSE_SCORE_LIMIT = DENSE_SCORE_LIMIT
 
 
 def kernel_launches() -> dict[str, int]:
@@ -147,17 +151,39 @@ def stream_tick(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
                           new_aid=new_aid)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The kernel (or on the CPU the plain version) forward;
+    ``flash_attention_bwd`` backward, from the saved operands."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, softcap):
+        kw = dict(causal=causal, window=window, scale=scale, softcap=softcap)
+        if (q.device.type == "cpu"
+                and q.shape[1] * k.shape[1] > _DENSE_SCORE_LIMIT):
+            out = _ref.chunked_attention(q, k, v, **kw)
+        else:
+            out = _flash(q, k, v, **kw)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v)
+            ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout.contiguous(),
+                                         limit=_DENSE_SCORE_LIMIT, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                     softcap=None):
     """Attention ``(B, Sq, H, D)`` over ``k, v (B, Skv, Hkv, D)``, as
     ``repro/kernels/ops.py::flash_attention`` routes it: the kernel on the
     card; on the CPU the plain dense version, or the chunked one past
-    ``_DENSE_SCORE_LIMIT`` score elements."""
-    if q.device.type == "cpu" and q.shape[1] * k.shape[1] > _DENSE_SCORE_LIMIT:
-        return _ref.chunked_attention(q, k, v, causal=causal, window=window,
-                                      scale=scale, softcap=softcap)
-    return _flash(q, k, v, causal=causal, window=window, scale=scale,
-                  softcap=softcap)
+    ``_DENSE_SCORE_LIMIT`` score elements. Differentiable in ``q, k, v``
+    (``flash_attention_bwd``)."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale, softcap)
 
 
 def _on(a, dtype, dev, counter) -> torch.Tensor:

@@ -67,6 +67,14 @@ and combine; the rest is the embedding, norms, residuals, projections
 around the recurrences and head. The embedding pass reads the text
 tokens only, as the served embeddings do; an encoder-decoder's decode
 step reads a zero cross cache. Needs a GPU.
+``--train`` (with ``--arch``, qwen2-1.5b by default) traces one train
+step at full width (bf16, random weights from the seed, remat as the
+config says; ``--layers N`` as above) on a batch of 8 x 512 tokens, two
+untraced steps first: device time by kernel, then by stage, the
+forward's ``LM_SPANS`` (run again by the remat recompute) and
+``TRAIN_SPANS`` (``flash_attention``'s backward, the loss's forward, the
+optimizer step); the rest is the other backward products and the
+elementwise ops of both passes.
 """
 from __future__ import annotations
 
@@ -86,6 +94,7 @@ from repro_torch.data.synthetic import make_classification
 from repro_torch.kernels import ops
 from repro_torch.kernels.kde_score import WIDE_ROWS, kde_rowsums
 from repro_torch.launch import serve
+from repro_torch.launch import steps as steps_m
 from repro_torch.launch.serve import class_drift_traffic, reg_drift_traffic
 from repro_torch.models import attention as attn_m
 from repro_torch.models import lm
@@ -124,11 +133,17 @@ LM_SPANS = (("attention", attn_m, ("attention_full", "mla_full",
             ("moe: gather", mlp_m, ("_gather",)),
             ("moe: expert products", mlp_m, ("_experts",)),
             ("moe: combine", mlp_m, ("_combine",)))
+# a train step's own stages, beside LM_SPANS
+TRAIN_SPANS = (("attention backward", ops, ("flash_attention_bwd",)),
+               ("loss (forward)", lm, ("chunked_cross_entropy",
+                                       "cross_entropy")),
+               ("optimizer", steps_m, ("apply_updates",)))
+TRAIN_BATCH, TRAIN_SEQ = 8, 512  # smoke phase 15
 
 
 @contextmanager
-def lm_spans():
-    """Run each of ``LM_SPANS``' functions inside its span, for
+def lm_spans(table=LM_SPANS):
+    """Run each of ``table``'s functions inside its span, for
     ``device_breakdown`` to sum the device time under."""
     from torch.profiler import record_function
 
@@ -140,7 +155,7 @@ def lm_spans():
                 return fn(*a, **kw)
         return run
 
-    for label, mod, names in LM_SPANS:
+    for label, mod, names in table:
         for name in names:
             kept.append((mod, name, getattr(mod, name)))
             setattr(mod, name, spanned(label, getattr(mod, name)))
@@ -518,6 +533,39 @@ def profile_lm(arch: str, trace: str | None, layers: int = 0,
     return 0
 
 
+def profile_train(arch: str, trace: str | None, layers: int = 0) -> int:
+    """One train step traced (two untraced first), split by kernel and by
+    ``LM_SPANS + TRAIN_SPANS``."""
+    from repro_torch import configs
+    from repro_torch.data.lm_pipeline import TokenStream
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+
+    pattern = configs.get(arch).pattern
+    cut = (dict(n_layers=layers, layer_pattern=pattern[:layers])
+           if layers else {})
+    cfg, params = serve.lm_model(arch, False, SEED, "cuda", **cut)
+    params.requires_grad_(True)
+    ocfg = OptimizerConfig(warmup_steps=5, total_steps=100)
+    opt = init_opt_state(params, ocfg)
+    step = steps_m.make_train_step(cfg, ocfg)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    batch = lambda i: {k: torch.from_numpy(v).cuda()  # noqa: E731
+                       for k, v in stream.batch_at(i).items()}
+    print(f"[profile] {torch.cuda.get_device_name(0)}: train step "
+          f"{cfg.name} {cfg.n_layers} of {len(pattern)} layers d "
+          f"{cfg.d_model} {cfg.dtype}, remat {cfg.remat}, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}")
+    for i in range(2):
+        params, opt, _ = step(params, opt, batch(i))
+    b = batch(2)
+    table = LM_SPANS + TRAIN_SPANS
+    with lm_spans(table):
+        device_breakdown(lambda: step(params, opt, b),
+                         f"train step {TRAIN_BATCH} x {TRAIN_SEQ}", trace,
+                         tuple(label for label, _, _ in table))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--regression", action="store_true",
@@ -541,6 +589,9 @@ def main(argv=None) -> int:
                     help="--arch: keep the first N layers (0: all)")
     ap.add_argument("--calib", type=int, default=LM_CALIB,
                     help="--arch: sequences in the embedding pass")
+    ap.add_argument("--train", action="store_true",
+                    help="trace one train step of --arch (default "
+                    "qwen2-1.5b)")
     ap.add_argument("--trace", default="",
                     help="write the tick (or fit) trace (Chrome JSON) here")
     args = ap.parse_args(argv)
@@ -550,6 +601,9 @@ def main(argv=None) -> int:
         return kernel_times()
     if args.telemetry:
         return telemetry_costs()
+    if args.train:
+        return profile_train(args.arch or "qwen2-1.5b", args.trace or None,
+                             args.layers)
     if args.arch:
         return profile_lm(args.arch, args.trace or None, args.layers,
                           args.calib)

@@ -12,21 +12,31 @@ Counterpart of ``repro/models/blocks.py``. A layer is of one *kind*:
 Attention is GQA or MLA, the FFN a dense MLP or an MoE. Consecutive
 layers of one kind form a *run* (``pattern_runs``), as in the reference,
 so that a run's parameters map onto the reference's stacked run one layer
-at a time. A run is an ``nn.ModuleList`` of blocks looped in Python: this
-is inference, so there is neither a scan nor rematerialisation. Caches
-are a list of runs, each a list of per-layer dicts: ``{"k", "v"}``
-(``{"c_kv", "k_rope"}`` with MLA) or a recurrent state, updated in place.
-The MoE's load-balancing loss is a training term: inference drops it.
+at a time. A run is an ``nn.ModuleList`` of blocks looped in Python (the
+reference's ``lax.scan``). Caches are a list of runs, each a list of
+per-layer dicts: ``{"k", "v"}`` (``{"c_kv", "k_rope"}`` with MLA) or a
+recurrent state, updated in place.
+
+For training, as in the reference: the full-sequence blocks return the
+MoE's load-balancing loss beside ``x`` (zero for a block without an MoE),
+summed in f32 through the stack; each block's input passes
+``boundary.grad_compressed_boundary`` (active only inside the trainer's
+``compressed_boundaries()``); and with ``cfg.remat == "full"`` a block
+whose parameters require a gradient runs under
+``torch.utils.checkpoint`` while grad is enabled, so its activations are
+recomputed in the backward pass (serving never enters it).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_m
 from repro_torch.models import mlp as mlp_m
 from repro_torch.models import recurrent as rec_m
+from repro_torch.models.boundary import grad_compressed_boundary
 from repro_torch.models.common import frozen, layer_norm, rms_norm
 
 ATTN_KINDS = ("attn", "attn_local", "dense_ffn_attn")
@@ -97,17 +107,22 @@ def _attn_kwargs(cfg: ArchConfig, kind: str):
     return window, theta
 
 
+def _zero_aux(x) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _ffn(p, x, cfg: ArchConfig, decode: bool = False):
-    """The block's second half: norm, MLP or MoE (its loss dropped),
-    optional post-norm, residual."""
+    """The block's second half: norm, MLP or MoE, optional post-norm,
+    residual. Returns ``(x, aux)``: the MoE's load-balancing loss, None
+    for a dense MLP."""
     h = apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
-        f, _ = mlp_m.moe(p["moe"], h, cfg, decode=decode)
+        f, aux = mlp_m.moe(p["moe"], h, cfg, decode=decode)
     else:
-        f = mlp_m.mlp(p["mlp"], h, cfg.act)
+        f, aux = mlp_m.mlp(p["mlp"], h, cfg.act), None
     if cfg.post_norms:
         f = apply_norm(p["post_mlp"], f, cfg)
-    return x + f
+    return x + f, aux
 
 
 def _recurrent(p, x, cfg: ArchConfig, kind: str, form: str, *args):
@@ -126,9 +141,12 @@ def _recurrent(p, x, cfg: ArchConfig, kind: str, form: str, *args):
 
 def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions,
                      causal: bool = True):
-    """Full-sequence block application (prefill). Returns ``x``."""
+    """Full-sequence block application (train / prefill). Returns ``(x,
+    aux)``, ``aux`` the MoE's load-balancing loss (f32, zero without
+    one)."""
+    x = grad_compressed_boundary(x)
     if kind in _RECURRENT:
-        return _recurrent(p, x, cfg, kind, "full")[0]
+        return _recurrent(p, x, cfg, kind, "full")[0], _zero_aux(x)
     window, theta = _attn_kwargs(cfg, kind)
     h = apply_norm(p["ln1"], x, cfg)
     if cfg.mla is not None:
@@ -139,7 +157,8 @@ def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions,
                                   window=window, causal=causal, theta=theta)
     if cfg.post_norms:
         a = apply_norm(p["post_attn"], a, cfg)
-    return _ffn(p, x + a, cfg)
+    x, aux = _ffn(p, x + a, cfg)
+    return x, _zero_aux(x) if aux is None else aux
 
 
 def apply_block_decode(p, x, cfg: ArchConfig, kind: str, cache, index: int):
@@ -157,7 +176,7 @@ def apply_block_decode(p, x, cfg: ArchConfig, kind: str, cache, index: int):
                                            window=window, theta=theta)
     if cfg.post_norms:
         a = apply_norm(p["post_attn"], a, cfg)
-    return _ffn(p, x + a, cfg, decode=True), cache
+    return _ffn(p, x + a, cfg, decode=True)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +203,33 @@ def init_layer_stack(generator: torch.Generator, cfg: ArchConfig,
         for kind, length in pattern_runs(cfg.pattern))
 
 
+def remat(fn, cfg: ArchConfig, p: nn.Module, x: torch.Tensor):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` is
+    ``"full"``, grad is enabled and ``p`` (the layer's parameters) or
+    ``x`` requires a gradient: the reference's ``_remat`` around each
+    layer. Otherwise ``fn`` itself."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if not (x.requires_grad or next(p.parameters()).requires_grad):
+        return fn
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: the port rematerialises whole layers "
+            "only ('full' or 'none')")
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
 def apply_stack_full(stacks, x, cfg: ArchConfig, positions,
                      causal: bool = True):
+    """All runs, full sequence. Returns ``(x, aux)``: ``aux`` the blocks'
+    MoE losses summed in f32 in layer order."""
+    aux = _zero_aux(x)
     for (kind, _), run in zip(pattern_runs(cfg.pattern), stacks):
         for p in run:
-            x = apply_block_full(p, x, cfg, kind, positions, causal)
-    return x
+            x, a = remat(apply_block_full, cfg, p, x)(
+                p, x, cfg, kind, positions, causal)
+            aux = aux + a
+    return x, aux
 
 
 def apply_stack_decode(stacks, x, cfg: ArchConfig, caches, index: int):
@@ -212,4 +252,4 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
 __all__ = ["init_block", "apply_block_full", "apply_block_decode",
            "pattern_runs", "init_layer_stack", "apply_stack_full",
            "apply_stack_decode", "init_stack_cache", "init_block_cache",
-           "apply_norm", "ATTN_KINDS"]
+           "apply_norm", "remat", "ATTN_KINDS"]

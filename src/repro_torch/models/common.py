@@ -46,9 +46,9 @@ class ParamTree(nn.Module):
 def frozen(tree) -> nn.Module:
     """A nested dict of tensors as frozen parameters: a dict whose values
     are all tensors becomes an ``nn.ParameterDict``, one of dicts only an
-    ``nn.ModuleDict``, one that mixes them a ``ParamTree``. The port runs
-    inference only, so no parameter requires a gradient and no autograd
-    graph is built."""
+    ``nn.ModuleDict``, one that mixes them a ``ParamTree``. No parameter
+    requires a gradient as built, so serving builds no autograd graph; a
+    trainer turns them on with ``requires_grad_(True)``."""
     is_t = [isinstance(v, torch.Tensor) for v in tree.values()]
     if all(is_t):
         return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)

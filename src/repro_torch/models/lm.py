@@ -1,9 +1,11 @@
 """Language models: the decoder-only LM and the encoder-decoder.
 
-Counterpart of ``repro/models/lm.py`` for inference (``init_lm``,
-``embed_tokens``, ``lm_logits``, ``hidden_forward``, ``forward``,
-``init_cache``, ``decode_step``, and the encoder-decoder's ``encode``,
-``forward_encdec``, ``prefill_cross_cache``, ``decode_encdec_body``):
+Counterpart of ``repro/models/lm.py``: ``init_lm``, ``embed_tokens``,
+``lm_logits``, ``hidden_forward``, ``forward``, ``init_cache``,
+``decode_step``, the encoder-decoder's ``encode``, ``forward_encdec``,
+``prefill_cross_cache``, ``decode_encdec_body``, and for training the
+loss: ``cross_entropy`` (with the z-loss), ``chunked_cross_entropy`` and
+``train_step_loss``, whose gradient is the train step:
 
 * decoder-only: token embedding (the vision stub prepends a batch's
   precomputed ``patch_embeds``), the layer stack, final norm, (tied) head;
@@ -17,13 +19,16 @@ The parameters are an ``LmParams`` module indexed like the reference's
 dict (``params["embed"]``, ``params["layers"]``, ``params["final_norm"]``,
 ``params["lm_head"]`` when untied; ``params["encoder"]``,
 ``params["cross"]`` (one entry a decoder layer) and
-``params["pos_embed_dec"]`` for an encoder-decoder).
+``params["pos_embed_dec"]`` for an encoder-decoder). They are frozen
+(``requires_grad=False``) as built; a trainer turns them on with
+``params.requires_grad_(True)``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve
 from repro_torch.configs.base import ArchConfig
@@ -34,6 +39,15 @@ from repro_torch.models.common import (dense_init, embed_init, frozen,
                                        sinusoidal_positions)
 
 POS_DEC = 32_768  # learned decoder positions: the largest assigned shape
+Z_LOSS_COEF = 1e-4
+# past this many logit elements the loss runs in sequence chunks, so the
+# f32 (B, S, V) logits exist for one chunk at a time
+_CE_CHUNK_LIMIT = 64 * 1024 * 1024
+_CE_CHUNK = 512
+# the parameters a leading layer axis stacks in the reference's tree: a
+# run's (``layers``, ``encoder``: name.run.layer...) or the cross stack's
+# (``cross``: name.layer...)
+_STACKED = {"layers": 2, "encoder": 2, "cross": 1}
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -42,9 +56,9 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 class LmParams(nn.Module):
-    """The model's parameters, frozen: ``embed (V_pad, d)``, ``layers``
-    (one ``nn.ModuleList`` of blocks per run), ``final_norm``; for an
-    untied head ``lm_head (d, V_pad)``; for an encoder-decoder
+    """The model's parameters (frozen as built): ``embed (V_pad, d)``,
+    ``layers`` (one ``nn.ModuleList`` of blocks per run), ``final_norm``;
+    for an untied head ``lm_head (d, V_pad)``; for an encoder-decoder
     ``encoder`` (runs, as ``layers``), ``cross`` (one ``{"ln", "attn"}``
     a decoder layer) and ``pos_embed_dec (POS_DEC, d)``."""
 
@@ -67,6 +81,23 @@ class LmParams(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return getattr(self, name, None) is not None
+
+    def reference_leaves(self) -> dict:
+        """The leaves of the reference's ``init_lm`` tree by dotted path
+        (``"embed"``, ``"layers.0.attn.wq"``, ``"cross.ln.w"``, ...), in
+        this module's order: a parameter alone, or for a stacked leaf the
+        list of its layers' parameters (the reference's leading layer
+        axis)."""
+        out = {}
+        for name, t in self.named_parameters():
+            parts = name.split(".")
+            keep = _STACKED.get(parts[0])
+            if keep is None:
+                out[name] = t
+            else:
+                key = ".".join(parts[:keep] + parts[keep + 1:])
+                out.setdefault(key, []).append(t)
+        return out
 
 
 def _frozen_tensor(t):
@@ -122,19 +153,83 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 def hidden_forward(params, cfg: ArchConfig, batch):
     """Trunk only: embed -> layer stack -> final norm. ``batch["tokens"]
     (B, S_txt)``, and for the vision stub optionally ``batch
-    ["patch_embeds"] (B, Np, D)``, prepended; returns ``h (B, S, D)``."""
+    ["patch_embeds"] (B, Np, D)``, prepended; returns ``(h (B, S, D),
+    aux)``, ``aux`` the MoE load-balancing losses (f32, 0 without an
+    MoE)."""
     x = embed_tokens(params, cfg, batch["tokens"])
     if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
-    x = blk.apply_stack_full(params["layers"], x, cfg,
-                             _positions(B, S, x.device))
-    return blk.apply_norm(params["final_norm"], x, cfg)
+    x, aux = blk.apply_stack_full(params["layers"], x, cfg,
+                                  _positions(B, S, x.device))
+    return blk.apply_norm(params["final_norm"], x, cfg), aux
 
 
 def forward(params, cfg: ArchConfig, batch):
     """Logits ``(B, S, V_pad)`` of ``batch`` (see ``hidden_forward``)."""
-    return lm_logits(params, cfg, hidden_forward(params, cfg, batch))
+    return lm_logits(params, cfg, hidden_forward(params, cfg, batch)[0])
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross entropy with the z-loss, in f32: ``lse - gold +
+    Z_LOSS_COEF * lse ** 2`` a token, ``gold`` the label's logit (a
+    gather: the same value as the reference's masked reduce), the mean
+    over ``mask`` where given (``sum / max(sum(mask), 1)``)."""
+    logits_f = logits.float()
+    lse = torch.logsumexp(logits_f, dim=-1)
+    gold = torch.gather(logits_f, -1, labels.long()[..., None])[..., 0]
+    per_tok = (lse - gold) + Z_LOSS_COEF * lse ** 2
+    if mask is None:
+        return torch.mean(per_tok)
+    mask = mask.float()
+    return torch.sum(per_tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def chunked_cross_entropy(params, cfg: ArchConfig, h, labels, mask=None):
+    """``cross_entropy(lm_logits(params, cfg, h), labels, mask)`` in
+    ``_CE_CHUNK``-token chunks of the sequence, each under
+    ``torch.utils.checkpoint`` when grad is enabled, so the f32 logits
+    exist for one chunk at a time, forward and backward."""
+    B, S, _ = h.shape
+    c = min(_CE_CHUNK, S)
+    mask = (torch.ones((B, S), dtype=torch.float32, device=h.device)
+            if mask is None else mask.float())
+
+    def chunk(hx, lx, mx):
+        logits = lm_logits(params, cfg, hx).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lx.long()[..., None])[..., 0]
+        return torch.sum((lse - gold + Z_LOSS_COEF * lse ** 2) * mx)
+
+    run = chunk
+    if torch.is_grad_enabled() and h.requires_grad:
+        run = lambda *a: checkpoint(chunk, *a, use_reentrant=False)  # noqa: E731
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, S, c):
+        mx = mask[:, s0:s0 + c]
+        tot = tot + run(h[:, s0:s0 + c], labels[:, s0:s0 + c], mx)
+        cnt = cnt + torch.sum(mx)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_step_loss(params, cfg: ArchConfig, batch):
+    """The scalar loss of one batch (``tokens``, ``labels``, optionally
+    ``mask``; the front ends' ``patch_embeds`` / ``frames``): its gradient
+    is the train step. The vision stub's patch positions carry no loss;
+    the encoder-decoder's goes through ``forward_encdec`` (whose aux is
+    the reference's constant 0); past ``_CE_CHUNK_LIMIT`` logit elements
+    the loss is chunked; the MoE loss is added."""
+    labels, mask = batch["labels"], batch.get("mask")
+    if cfg.is_encoder_decoder:
+        return cross_entropy(forward_encdec(params, cfg, batch), labels,
+                             mask)
+    h, aux = hidden_forward(params, cfg, batch)
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        h = h[:, batch["patch_embeds"].shape[1]:]
+    if h.shape[0] * h.shape[1] * cfg.padded_vocab_size > _CE_CHUNK_LIMIT:
+        return chunked_cross_entropy(params, cfg, h, labels, mask) + aux
+    return cross_entropy(lm_logits(params, cfg, h), labels, mask) + aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
@@ -201,7 +296,7 @@ def encode(params, cfg: ArchConfig, frames):
     B, T, _ = x.shape
     x = x + sinusoidal_positions(T, cfg.d_model, x.device).to(x.dtype)
     return blk.apply_stack_full(params["encoder"], x, _encoder_cfg(cfg),
-                                _positions(B, T, x.device), causal=False)
+                                _positions(B, T, x.device), causal=False)[0]
 
 
 def _cross_attention(p, x, k, v, cfg: ArchConfig):
@@ -226,7 +321,9 @@ def _cross_kv(p, enc_out, cfg: ArchConfig):
 
 def forward_encdec(params, cfg: ArchConfig, batch):
     """The teacher-forced encoder-decoder pass: logits ``(B, S, V_pad)`` of
-    ``batch["tokens"] (B, S)`` given ``batch["frames"] (B, T, D)``."""
+    ``batch["tokens"] (B, S)`` given ``batch["frames"] (B, T, D)``. Each
+    decoder layer (its self-attention block, then cross-attention) is one
+    unit of ``blk.remat``, as the reference's scan body."""
     enc_out = encode(params, cfg, batch["frames"])
     x = embed_tokens(params, cfg, batch["tokens"])
     B, S, _ = x.shape
@@ -234,10 +331,14 @@ def forward_encdec(params, cfg: ArchConfig, batch):
     positions = _positions(B, S, x.device)
     if len(params["layers"]) != 1:
         raise ValueError("the encoder-decoder's decoder must be one run")
+
+    def layer(self_p, cross_p, x, enc_out):
+        x = blk.apply_block_full(self_p, x, cfg, "attn", positions)[0]
+        return _cross_attention(cross_p, x,
+                                *_cross_kv(cross_p, enc_out, cfg), cfg)
+
     for self_p, cross_p in zip(params["layers"][0], params["cross"]):
-        x = blk.apply_block_full(self_p, x, cfg, "attn", positions)
-        x = _cross_attention(cross_p, x, *_cross_kv(cross_p, enc_out, cfg),
-                             cfg)
+        x = blk.remat(layer, cfg, self_p, x)(self_p, cross_p, x, enc_out)
     x = blk.apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params, cfg, x)
 
@@ -264,7 +365,9 @@ def decode_encdec_body(params, cfg: ArchConfig, x, cache: dict, index: int):
 
 
 __all__ = ["LmParams", "init_lm", "embed_tokens", "lm_logits",
-           "hidden_forward", "forward", "init_cache", "decode_step",
+           "hidden_forward", "forward", "cross_entropy",
+           "chunked_cross_entropy", "train_step_loss", "Z_LOSS_COEF",
+           "init_cache", "decode_step",
            "encode", "forward_encdec", "prefill_cross_cache",
            "decode_encdec_body", "init_encoder", "init_cross_stack",
            "dtype_of", "POS_DEC"]

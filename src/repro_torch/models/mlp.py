@@ -22,7 +22,10 @@ partitions are the same computation):
        on the card.
 
 Nothing of this synchronises with the host (no boolean masks, no
-``bincount``), so a decode step stays free of host synchronisation.
+``bincount``), so a decode step stays free of host synchronisation, and
+nothing updates a tensor in place, so autograd differentiates it (the
+router through the top-K weights and the load-balancing loss, as the
+reference's ``jax.grad`` does).
 Routing, dispatch and the expert products are plain PyTorch and cuBLAS:
 the reference runs them as XLA outside any Pallas kernel.
 """
@@ -120,10 +123,10 @@ def moe_dense_mixture(p, x, cfg: ArchConfig):
     E, K = mo.n_experts, mo.n_experts_per_token
     xt = x.reshape(B * S, D)
     probs, top_p, top_e = route(p, xt, K)
-    combine = torch.zeros_like(probs).scatter_(1, top_e, top_p)  # (T, E)
+    combine = torch.zeros_like(probs).scatter(1, top_e, top_p)  # (T, E)
     aux = _aux(probs, _buckets(top_e, E)[3], mo.router_aux_coef)
     g = act_fn(cfg.act)(torch.matmul(xt, p["w_gate"]))
-    g = g.mul_(torch.matmul(xt, p["w_up"]))
+    g = g * torch.matmul(xt, p["w_up"])
     y = torch.bmm(g, p["w_down"])  # (E, T, D)
     out = torch.einsum("etd,te->td", y, combine.to(y.dtype))
     out = out.reshape(B, S, D)
@@ -165,27 +168,28 @@ def _gather(xt, slot_tok, E: int, cap: int):
 
 
 def _experts(p, x_exp, act: str):
-    """The batched expert FFN ``(E, cap, D) -> (E * cap + 1, D)``; the
-    last row is zero, for the dropped pairs to read."""
+    """The batched expert FFN ``(E, cap, D) -> (E * cap, D)``, one row a
+    slot."""
     E, cap, D = x_exp.shape
     g = act_fn(act)(torch.bmm(x_exp, p["w_gate"]))
-    g = g.mul_(torch.bmm(x_exp, p["w_up"]))
-    y = torch.empty((E * cap + 1, D), dtype=x_exp.dtype, device=x_exp.device)
-    torch.bmm(g, p["w_down"], out=y[:E * cap].view(E, cap, D))
-    y[E * cap] = 0
-    return y
+    g = g * torch.bmm(x_exp, p["w_up"])
+    return torch.bmm(g, p["w_down"]).view(E * cap, D)
 
 
 def _combine(y, slot_w, pair_slot):
     """``out (T, D)``: each token's kept contributions ``y[s] * w[s]``
-    added to zero in ascending slot order (a dropped pair adds the zero
-    row, which changes no sum that starts from +0)."""
-    y[:slot_w.shape[0]].mul_(slot_w[:, None])
+    added to zero in ascending slot order; a dropped pair (slot ``E *
+    cap``) adds +0, which changes no sum that starts from +0. Out of
+    place, one ``(T, D)`` gather a rank: no ``(E * cap, D)`` copy."""
+    n = slot_w.shape[0]
     ordered = torch.sort(pair_slot, dim=1).values  # expert id ascending
     out = torch.zeros((pair_slot.shape[0], y.shape[1]), dtype=y.dtype,
                       device=y.device)
     for j in range(ordered.shape[1]):
-        out.add_(y[ordered[:, j]])
+        s = ordered[:, j]
+        kept = (s < n)[:, None]
+        s = torch.clamp(s, max=n - 1)
+        out = out + torch.where(kept, y[s] * slot_w[s, None], 0)
     return out
 
 

@@ -1,0 +1,170 @@
+"""AdamW with an optional factored second moment, the port's copy of
+``repro/optim/adamw.py``.
+
+The state mirrors the parameters' leaves: ``mu`` and ``nu`` map each
+leaf's dotted name to its first moment and to ``{"full"}`` or, for a
+factored leaf, ``{"row", "col"}``; ``step`` is an int32 device scalar.
+A model's leaves are the reference's (``LmParams.reference_leaves()``):
+the layers of a run stacked on a leading axis, as the reference stacks
+them, so that the decoupled decay (leaves of two or more dimensions: a
+run's norm weights and biases too) and the factoring (both last dims at
+least 8: a run's 1-D leaves once it has 8 layers) fall on the same
+leaves; any other module's leaves are its named parameters, a plain dict
+its tensors. The update is taken in f32 and cast to the parameter's
+dtype, written into the parameters in place. Plain PyTorch: the
+reference has no kernel here.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    peak_lr: float = 3e-4
+    end_lr: float = 3e-5
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    factored: bool = False  # factored 2nd moment for >=2D params
+    moment_dtype: torch.dtype = torch.float32
+
+
+def lr_schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
+    """Linear warm-up, then cosine decay to ``end_lr``, in f32; ``step``
+    an int or a tensor."""
+    step = torch.as_tensor(step).float()
+    warm = cfg.peak_lr * step / max(cfg.warmup_steps, 1)
+    t = (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps,
+                                        1)
+    t = torch.clamp(t, 0.0, 1.0)
+    cos = cfg.end_lr + 0.5 * (cfg.peak_lr - cfg.end_lr) * (
+        1.0 + torch.cos(math.pi * t))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def _factorable(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 8 and shape[-2] >= 8
+
+
+def param_leaves(params) -> dict:
+    """``{name: tensor or list of tensors}``: ``params.reference_leaves()``
+    where it has them (a list is one leaf, its members stacked), else the
+    named parameters of a module or the items of a dict."""
+    if hasattr(params, "reference_leaves"):
+        return params.reference_leaves()
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def _shape(leaf) -> tuple:
+    if isinstance(leaf, list):
+        return (len(leaf),) + tuple(leaf[0].shape)
+    return tuple(leaf.shape)
+
+
+def _stacked(leaf) -> torch.Tensor:
+    return torch.stack(leaf) if isinstance(leaf, list) else leaf
+
+
+def init_opt_state(params, cfg: OptimizerConfig) -> dict:
+    mu, nu = {}, {}
+    for name, leaf in param_leaves(params).items():
+        shape = _shape(leaf)
+        dev = (leaf[0] if isinstance(leaf, list) else leaf).device
+        zeros = lambda s: torch.zeros(s, dtype=cfg.moment_dtype,  # noqa: E731
+                                      device=dev)
+        mu[name] = zeros(shape)
+        nu[name] = ({"row": zeros(shape[:-1]),
+                     "col": zeros(shape[:-2] + shape[-1:])}
+                    if cfg.factored and _factorable(shape)
+                    else {"full": zeros(shape)})
+    step = torch.zeros((), dtype=torch.int32,
+                       device=next(iter(mu.values())).device)
+    return {"mu": mu, "nu": nu, "step": step}
+
+
+def global_norm(grads: dict) -> torch.Tensor:
+    """``sqrt`` of the f32 sum of squares over the leaves, in order."""
+    total = 0
+    for g in grads.values():
+        total = total + torch.sum(torch.square(_stacked(g).float()))
+    return torch.sqrt(total)
+
+
+def leaf_grads(params, grads) -> dict:
+    """The gradients of ``param_leaves(params)`` from ``grads`` (a
+    tensor a parameter, keyed by the module's parameter names); a leaf
+    of stacked layers gets the list of theirs."""
+    by_id = {id(p): grads[n] for n, p in params.named_parameters()} \
+        if isinstance(params, torch.nn.Module) else None
+    out = {}
+    for name, leaf in param_leaves(params).items():
+        if isinstance(leaf, list):
+            out[name] = [by_id[id(t)] for t in leaf]
+        else:
+            out[name] = grads[name] if by_id is None else by_id[id(leaf)]
+    return out
+
+
+@torch.no_grad()
+def apply_updates(params, grads, opt_state: dict, cfg: OptimizerConfig):
+    """One AdamW / factored-Adam step. ``grads`` maps each of the
+    module's parameter names (a dict's keys) to its gradient. Writes the
+    new parameters into ``params`` and returns ``(params, opt_state,
+    stats)``, ``stats`` the step's ``lr``, ``grad_norm`` and ``step``."""
+    step = opt_state["step"] + 1
+    lr = lr_schedule(cfg, step)
+    gl = leaf_grads(params, grads)
+    gnorm = global_norm(gl)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    c1 = 1.0 - torch.pow(cfg.b1, step.float())
+    c2 = 1.0 - torch.pow(cfg.b2, step.float())
+
+    mu, nu = {}, {}
+    for name, leaf in param_leaves(params).items():
+        p = _stacked(leaf)
+        g = _stacked(gl[name]).float() * scale
+        m, v = opt_state["mu"][name], opt_state["nu"][name]
+        m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g
+        if "full" in v:
+            v_new = {"full": cfg.b2 * v["full"].float()
+                     + (1 - cfg.b2) * g * g}
+            v_hat = v_new["full"] / c2
+        else:
+            row = cfg.b2 * v["row"].float() \
+                + (1 - cfg.b2) * torch.mean(g * g, dim=-1)
+            col = cfg.b2 * v["col"].float() \
+                + (1 - cfg.b2) * torch.mean(g * g, dim=-2)
+            v_new = {"row": row, "col": col}
+            # rank-1 reconstruction: v ~ row x col / mean(row)
+            denom = torch.clamp(torch.mean(row, dim=-1, keepdim=True),
+                                min=1e-30)
+            v_hat = (row[..., None] * col[..., None, :]
+                     / denom[..., None]) / c2
+        update = (m_new / c1) / (torch.sqrt(v_hat) + cfg.eps)
+        if p.dim() >= 2:  # decoupled weight decay on matrices only
+            update = update + cfg.weight_decay * p.float()
+        p_new = (p.float() - lr * update).to(p.dtype)
+        if isinstance(leaf, list):
+            for t, new in zip(leaf, p_new.unbind(0)):
+                t.copy_(new)
+        else:
+            leaf.copy_(p_new)
+        mu[name] = m_new.to(m.dtype)
+        nu[name] = {k: v_new[k].to(v[k].dtype) for k in v}
+    stats = {"lr": lr, "grad_norm": gnorm, "step": step}
+    return params, {"mu": mu, "nu": nu, "step": step}, stats
+
+
+__all__ = ["OptimizerConfig", "init_opt_state", "apply_updates",
+           "lr_schedule", "global_norm", "param_leaves", "leaf_grads"]

@@ -26,7 +26,15 @@ numpy arrays, each run or stack split into its layers; the MoE's (``moe``
 with ``shared``), MLA's and the recurrent blocks' nested trees carry
 across as they are, and each leaf keeps the reference's dtype (in a bf16
 model an MoE router, the RG-LRU's ``lam``, the mLSTM's ``w_if`` and
-``b_if`` and the sLSTM's ``b_zifo`` are f32).
+``b_if`` and the sLSTM's ``b_zifo`` are f32). ``lm_params_to_numpy(params,
+grads=True)`` lays the parameters' gradients out in the same tree.
+
+The optimizer state carries across with ``opt_state_from_numpy`` /
+``opt_state_to_numpy``: the JAX ``init_opt_state`` tree (``mu`` and
+``nu`` shaped like the ``init_lm`` tree, ``nu``'s leaves ``{"full"}`` or
+``{"row", "col"}``, an int32 ``step``) against the port's, whose leaves
+are keyed by the reference's dotted paths
+(``LmParams.reference_leaves()``) and already hold its stacked shapes.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from repro_torch.core.measures import kde, knn, lssvm
 from repro_torch.models import blocks as blk
 from repro_torch.models import lm
 from repro_torch.models.common import frozen
+from repro_torch.optim import param_leaves
 from repro_torch.regression.stream import RegStreamState
 from repro_torch.serving.session import Session
 
@@ -177,34 +186,93 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def _module_tree(mod) -> dict:
-    return {k: _module_tree(v) if isinstance(v, torch.nn.Module) else
-            _numpy(v) for k, v in mod.items()}
+def _grad_numpy(t: torch.Tensor) -> np.ndarray:
+    """A parameter's gradient (zeros where none reached it)."""
+    return (np.zeros(t.shape, np.float32) if t.grad is None
+            else _numpy(t.grad))
 
 
-def _stacked(layers) -> dict:
+def _module_tree(mod, leaf=_numpy) -> dict:
+    return {k: _module_tree(v, leaf) if isinstance(v, torch.nn.Module)
+            else leaf(v) for k, v in mod.items()}
+
+
+def _stacked(layers, leaf=_numpy) -> dict:
     """Per-layer modules as one tree, each leaf stacked on a leading
     axis."""
-    return _tree_map(lambda *xs: np.stack(xs), *map(_module_tree, layers))
+    return _tree_map(lambda *xs: np.stack(xs),
+                     *(_module_tree(m, leaf) for m in layers))
 
 
-def lm_params_to_numpy(params: lm.LmParams) -> dict:
+def lm_params_to_numpy(params: lm.LmParams, grads: bool = False) -> dict:
     """The JAX ``init_lm`` tree of ``params`` (float32 numpy arrays, each
     run's layers stacked on a leading axis, as is an encoder-decoder's
-    ``cross``)."""
-    out = {"embed": _numpy(params["embed"]),
-           "layers": [_stacked(run) for run in params["layers"]],
-           "final_norm": _module_tree(params["final_norm"])}
+    ``cross``); with ``grads``, of the parameters' gradients instead."""
+    leaf = _grad_numpy if grads else _numpy
+    out = {"embed": leaf(params["embed"]),
+           "layers": [_stacked(run, leaf) for run in params["layers"]],
+           "final_norm": _module_tree(params["final_norm"], leaf)}
     if "lm_head" in params:
-        out["lm_head"] = _numpy(params["lm_head"])
+        out["lm_head"] = leaf(params["lm_head"])
     if "encoder" in params:
-        out["encoder"] = [_stacked(run) for run in params["encoder"]]
-        out["cross"] = _stacked(params["cross"])
-        out["pos_embed_dec"] = _numpy(params["pos_embed_dec"])
+        out["encoder"] = [_stacked(run, leaf) for run in params["encoder"]]
+        out["cross"] = _stacked(params["cross"], leaf)
+        out["pos_embed_dec"] = leaf(params["pos_embed_dec"])
     return out
 
 
+def _at(tree, path: str):
+    """The node of a nested dict / list tree at a dotted path (integer
+    parts index lists)."""
+    for part in path.split("."):
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
+def _put(tree: dict, path: str, value) -> None:
+    """``tree`` at ``path`` set to ``value``, making dicts and lists on
+    the way (a list grows to the index asked for)."""
+    parts = path.split(".")
+    for part, nxt in zip(parts[:-1], parts[1:]):
+        make = list if nxt.isdigit() else dict
+        if isinstance(tree, list):
+            i = int(part)
+            while len(tree) <= i:
+                tree.append(make())
+            tree = tree[i]
+        else:
+            tree = tree.setdefault(part, make())
+    tree[parts[-1]] = value
+
+
+def opt_state_to_numpy(opt_state: dict) -> dict:
+    """The JAX ``init_opt_state`` tree of the port's optimizer state
+    (numpy arrays in the moments' dtype, ``step`` int32)."""
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    mu, nu = {}, {}
+    for name, m in opt_state["mu"].items():
+        _put(mu, name, host(m))
+        _put(nu, name, {k: host(v) for k, v in
+                        opt_state["nu"][name].items()})
+    return {"mu": mu, "nu": nu,
+            "step": np.asarray(host(opt_state["step"]), np.int32)}
+
+
+def opt_state_from_numpy(tree: dict, params, device=None) -> dict:
+    """The port's optimizer state for ``params`` from the JAX
+    ``init_opt_state`` tree (numpy arrays), on ``device`` (cuda unless
+    given)."""
+    dev = resolve(device)
+    t = lambda a: torch.as_tensor(np.array(a), device=dev)  # noqa: E731
+    names = list(param_leaves(params))
+    return {"mu": {n: t(_at(tree["mu"], n)) for n in names},
+            "nu": {n: {k: t(v) for k, v in _at(tree["nu"], n).items()}
+                   for n in names},
+            "step": t(np.asarray(tree["step"], np.int32))}
+
+
 __all__ = ["lm_params_from_numpy", "lm_params_to_numpy",
+           "opt_state_from_numpy", "opt_state_to_numpy",
            "session_from_numpy", "session_to_numpy", "reg_state_from_numpy",
            "reg_state_to_numpy", "batch_state_from_numpy",
            "batch_state_to_numpy", "rff_params_from_numpy"]

@@ -334,11 +334,12 @@ def test_blocks(arch, kind):
     rng = np.random.default_rng(12)
     x = rng.standard_normal((2, 16, c.d_model)).astype(np.float32)
     pos = np.tile(np.arange(16, dtype=np.int32), (2, 1))
-    got = blocks.apply_block_full(p, torch.from_numpy(x), c, kind,
-                                  torch.from_numpy(pos))
-    want, _, _ = jblk.apply_block_full(jp, jnp.asarray(x), jc, kind,
-                                       jnp.asarray(pos))
+    got, aux = blocks.apply_block_full(p, torch.from_numpy(x), c, kind,
+                                       torch.from_numpy(pos))
+    want, jaux, _ = jblk.apply_block_full(jp, jnp.asarray(x), jc, kind,
+                                          jnp.asarray(pos))
     _close(got, want, 1e-5)
+    _close(aux, jaux, 1e-6)
     cache = blocks.init_block_cache(c, kind, 2, 16, torch.float32, "cpu")
     jcache = jblk.init_block_cache(jc, kind, 2, 16, jnp.float32)
     for i in range(16):

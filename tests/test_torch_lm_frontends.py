@@ -236,12 +236,12 @@ def test_hidden_forward_with_patches(models):
     jc, jp, c, p = models[VLM]
     batch = TokenStream(c, 3, 24, seed=2).batch_at(0)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    got = lm.hidden_forward(p, c, tb)
+    got, _ = lm.hidden_forward(p, c, tb)
     want, _, _ = jlm.hidden_forward(
         jp, jc, {k: jnp.asarray(v) for k, v in batch.items()})
     assert got.shape == (3, 24, c.d_model)
     _close(got, want)
-    text = lm.hidden_forward(p, c, {"tokens": tb["tokens"]})
+    text, _ = lm.hidden_forward(p, c, {"tokens": tb["tokens"]})
     assert text.shape == (3, 24 - c.n_frontend_tokens, c.d_model)
 
 

@@ -226,8 +226,8 @@ def test_blocks(kind):
     p = frozen(_to_torch(tree))
     x = _x(c, 2, 16, 12)
     pos = np.tile(np.arange(16, dtype=np.int32), (2, 1))
-    got = blocks.apply_block_full(p, torch.from_numpy(x), c, kind,
-                                  torch.from_numpy(pos))
+    got, _ = blocks.apply_block_full(p, torch.from_numpy(x), c, kind,
+                                     torch.from_numpy(pos))
     want, _, _ = jblk.apply_block_full(jp, jnp.asarray(x), jc, kind,
                                        jnp.asarray(pos))
     _close(got, want)
