@@ -238,7 +238,27 @@ exits non-zero without a result line:
    (d) each other architecture reduced (f32), 3 steps on the card against
    the CPU from the same weights, the first loss within 1e-5 and the
    others within 1e-3 (relative). The
-   kernel's launches of (b) and (d) count under ``train``.
+   kernel's launches of (b) and (d) count under ``train``;
+16. the multi-device code (``core/distributed.py``): (a) both engines at
+   the sliding-full shapes served by N = 2, 4, 8 tenant shards, logical
+   on the card (``devices=[cuda:0] * N``; also min(4, cards) real cards
+   where there are two or more), each form from one prefilled state
+   (windows at W - 32) through 64 one-tick ``observe`` calls (the last
+   32 evicting), ``predict`` / ``pvalues`` / ``intervals``: state,
+   p-values and reads bitwise the one-device engine's,
+   ``stream_update`` launched N times a tick, every shard's kernels ==
+   plain on the arguments it passed them (S/N lanes a launch); tick p50
+   / p99 by N and peak GiB as readings; (b) a 48-tenant ``Fleet`` at 4
+   shards bitwise one device; (c) the row-sharded k-NN CP at n
+   100,000 over 1, 2, 4, 8 row x 1, 2 query shards, bitwise across
+   them, its count gap to the single-device path a reading, and
+   ``ConformalLmClassifier.fit(mesh=(4, 2))`` at d 1,536, n 8,192
+   bitwise mesh (2, 1); (d) ``launch.serve --shards 2`` refused on one
+   card with the reference's message (served on two); (e) in a
+   subprocess under ``use_deterministic_algorithms``, 3 qwen2-1.5b steps
+   (full width and depth, bf16, 8 x 512) with remat "dots" bitwise those
+   of "full" (losses and every final parameter), step ms and peak GiB of
+   each. The launches of (a) and (b) count under ``sharded``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -255,6 +275,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -800,8 +821,9 @@ class recorded:
     ``kw``) and calls through: the exact arguments a read or a tick passes
     its kernel."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, every: bool = False):
         self.name, self.args, self.kw = name, None, None
+        self.every, self.calls = every, []  # every: each call's copies
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -810,6 +832,8 @@ class recorded:
 
         def record(*args, **kw):
             self.args, self.kw = cloned(args), cloned(kw)
+            if self.every:
+                self.calls.append((self.args, self.kw))
             return self._kept(*args, **kw)
 
         setattr(ops, self.name, record)
@@ -817,6 +841,24 @@ class recorded:
 
     def __exit__(self, *exc):
         setattr(self._ops, self.name, self._kept)
+
+
+def read_equals_plain(name, a):
+    """``ops.<name>`` (a read kernel: ``sq_dists``, ``cp_knn_counts``,
+    ``interval_sweep``) against its plain version on the arguments ``a``:
+    ``(bitwise equal, kernel's output, plain output)``."""
+    from repro_torch.kernels import ops, ref
+
+    kern = getattr(ops, name)
+    if name == "sq_dists":  # the pairwise_sq_dists kernel
+        got, want = kern(*a), ref.sq_dists(*a)
+        return torch.equal(got, want), got, want
+    if name == "cp_knn_counts":
+        got, want = kern(*a), ref.cp_knn_counts(*a[:6])
+        return torch.equal(got, want), got, want
+    got, want = kern(*a), ref.reg_interval_endpoints(*a)
+    return (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            got, want)
 
 
 def check_read_kernel(name, read, iters):
@@ -830,17 +872,12 @@ def check_read_kernel(name, read, iters):
         read()
     a = rec.args
     kern = getattr(ops, name)
+    ok, got, want = read_equals_plain(name, a)
     if name == "sq_dists":  # the pairwise_sq_dists kernel
-        got, want = kern(*a), ref.sq_dists(*a)
-        ok = torch.equal(got, want)
         what = "the queries' squared distances to the window"
     elif name == "cp_knn_counts":
-        got, want = kern(*a), ref.cp_knn_counts(*a[:6])
-        ok = torch.equal(got, want)
         what = f"counts in [{int(want.min())}, {int(want.max())}]"
     else:
-        got, want = kern(*a), ref.reg_interval_endpoints(*a)
-        ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         X, _, kth, _, live, Xt = a[:6]
         d = torch.sqrt(torch.clamp(ref.sq_dists(Xt, X), min=0.0))
         enters = (live[:, None, :] & (d < kth[:, None, :])).sum()
@@ -3109,7 +3146,7 @@ def tick_equals_plain(rec, what, iters):
     """The ``stream_update`` launch recorded in ``rec`` against
     ``ref.stream_tick`` on copies of its own arguments: every output and
     every argument it updates in place, bitwise (NaN where NaN). Returns
-    the kernel's ms there (CUDA events)."""
+    the kernel's ms there (CUDA events; ``iters=0``: not timed, None)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.stream_update import stream_update
 
@@ -3127,6 +3164,8 @@ def tick_equals_plain(rec, what, iters):
         "own arguments")
     del runs
     torch.cuda.empty_cache()
+    if not iters:
+        return None
     return cuda_ms(lambda: stream_update(*cloned(a), **cloned(kw)), iters)
 
 
@@ -4573,6 +4612,453 @@ def train_path(dev="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the multi-device code (core/distributed.py)
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (2, 4, 8)  # logical shards on one card (devices=[cuda:0]*N)
+SHARD_T = 2 * CHUNK  # timed ticks a form runs: windows fill, then evict
+FLEET_SHARDS, FLEET_TENANTS_16, FLEET_STEPS_16 = 4, 48, 96
+CP_ROWS, CP_QUERY = (1, 2, 4, 8), (1, 2)  # row x query shards, n N_BATCH
+LM_MESH_N, LM_MESH_D, LM_MESH_Q, LM_MESH_L = 8192, 1536, 64, 3  # qwen2 d
+DOTS_STEPS = 3  # (e): qwen2-1.5b steps under remat "full" and "dots"
+
+
+def shard_forms(dev):
+    """``(label, shards, devices)`` of (a): logical shards on the one card,
+    and min(4, cards) real cards where there are two or more."""
+    forms = [(f"{n} logical", n, [torch.device(dev)] * n)
+             for n in SHARD_COUNTS]
+    cards = torch.cuda.device_count() if torch.device(dev).type == "cuda" \
+        else 1
+    if cards >= 2:
+        n = min(4, cards)
+        forms.append((f"{n} cards", n, [torch.device("cuda", i)
+                                        for i in range(n)]))
+    return forms
+
+
+def sync_all(devs) -> None:
+    for d in dict.fromkeys(devs):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def sharded_form(mode, eng, pre, traffic, reads, devs, iters):
+    """One form of (a): ``SHARD_T`` one-tick ``observe`` calls from a copy
+    of the prefilled state ``pre``, each timed on the host clock after a
+    synchronisation of every card of the form, then ``reads``. Returns
+    ``(state, p, read outputs, tick ms, peak GiB, launch counts)``; the
+    counts cover the ticks and the reads only."""
+    from repro_torch.kernels import ops
+
+    xs, ys, taus = traffic
+    state = eng.shard_state(pre.clone())
+    sync_all(devs)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ms, ps = [], []
+    for t in range(SHARD_T):
+        h0 = time.perf_counter()
+        state, p = eng.observe(state, xs[t], ys[t], taus[t])
+        sync_all(devs)
+        ms.append((time.perf_counter() - h0) * 1e3)
+        ps.append(p)
+    out = [fn(eng, state) for fn in reads]
+    sync_all(devs)
+    counts = dict(ops.kernel_launches())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return state, torch.stack(ps), out, np.asarray(ms), peak, counts
+
+
+def shard_kernels_equal_plain(mode, eng, state, traffic, reads, what):
+    """Every shard's kernels against their plain versions on the exact
+    arguments that shard passes them: one more (evicting) tick on a copy
+    of the state, recording each ``stream_update`` launch, and the reads,
+    recording each read kernel's. Returns the calls checked."""
+    xs, ys, taus = traffic
+    probe = state.clone()
+    with recorded("_stream_update", every=True) as rec:
+        eng.observe(probe, xs[SHARD_T], ys[SHARD_T], taus[SHARD_T])
+    del probe
+    check(len(rec.calls) == eng.shards, f"{what}: one stream_update launch "
+          f"a shard on the checked tick: {len(rec.calls)}")
+    for i, (a, kw) in enumerate(rec.calls):
+        tick_equals_plain(types.SimpleNamespace(args=a, kw=kw),
+                          f"{what} shard {i}", 0)
+    n = len(rec.calls)
+    del rec
+    names = (("sq_dists", "cp_knn_counts") if mode == "class"
+             else ("sq_dists", "interval_sweep"))
+    for name in names:
+        with recorded(name, every=True) as rec:
+            for fn in reads:
+                fn(eng, state)
+        for i, (a, _) in enumerate(rec.calls):
+            ok, got, want = read_equals_plain(name, a)
+            check(ok, f"{what} shard {i % eng.shards}: {name} == plain, "
+                  "bitwise, on the read's own arguments")
+            del got, want
+        n += len(rec.calls)
+        del rec
+    torch.cuda.empty_cache()
+    return n
+
+
+def sharded_engines(S, W, iters, dev="cuda"):
+    """Phase 16 (a): both engines at the sliding-full shapes. One engine
+    prefills every window to ``W - CHUNK``; each form then serves
+    ``SHARD_T`` ticks from a copy of that state (the last ``CHUNK``
+    evicting) and the reads: bitwise the one-device engine's (state
+    gathered leaf by leaf, p-values, reads), ``stream_update`` launched
+    ``shards`` times a tick, and every shard's kernels == plain on its
+    own arguments (S/N lanes a launch). Returns the sharded forms'
+    launch counts."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.serve import class_drift_traffic, reg_drift_traffic
+    from repro_torch.regression import RegressionServingEngine
+    from repro_torch.serving import ServingEngine
+
+    P, M, L = DIM, QUERIES, N_LABELS
+    forms = shard_forms(dev)
+    print("[sharded] (a) forms: one card, " + "; ".join(
+        f"{lbl} ({', '.join(str(d) for d in devs)})"
+        for lbl, _, devs in forms)
+        + ("" if any("cards" in f[0] for f in forms) else
+           "; real cards not run: one card visible"))
+    total = {}
+    rng = np.random.default_rng(SEED + 16)
+    Xq = torch.from_numpy(rng.standard_normal((S, M, P), dtype=np.float32))
+    for mode in ("class", "reg"):
+        k = K if mode == "class" else K_REG
+        T0 = W - CHUNK
+        if mode == "class":
+            xs, ys, taus, _ = class_drift_traffic(SEED + 16, S,
+                                                  T0 + SHARD_T + 1, P, 2.0)
+            Eng = ServingEngine
+            kw = dict(n_labels=L)
+            reads = [lambda e, st: e.predict(st, Xq.to(e.device))]
+        else:
+            xs, ys, taus, _, _ = reg_drift_traffic(SEED + 16, S,
+                                                   T0 + SHARD_T + 1, P, 2.0)
+            Eng = RegressionServingEngine
+            kw = {}
+            tq = torch.linspace(-3.0, 3.0, 9)
+            reads = [lambda e, st: e.pvalues(st, Xq.to(e.device),
+                                             tq.to(e.device)),
+                     lambda e, st: e.intervals(st, Xq.to(e.device), EPS)]
+        kw.update(n_sessions=S, capacity=W, dim=P, k=k, window=W)
+        one = Eng(**kw, device=dev)
+        pre = one.init_state()
+        for c0 in range(0, T0, CHUNK):
+            pre, _ = one.observe_many(pre, xs[c0:c0 + CHUNK],
+                                      ys[c0:c0 + CHUNK],
+                                      taus[c0:c0 + CHUNK])
+        traffic = tuple(v[T0:] for v in (xs, ys, taus))
+        ref_run = sharded_form(mode, one, pre, traffic, reads,
+                               [torch.device(dev)], iters)
+        rstate = ref_run[0]
+        n_ev = int((rstate.head > 0).sum()) if mode == "class" else int(
+            (rstate.head > 0).sum())
+        check(n_ev == S, f"{mode}: every window evicted in the timed ticks")
+        lines = [f"1 (one device): tick p50 "
+                 f"{np.percentile(ref_run[3], 50):.3f} p99 "
+                 f"{np.percentile(ref_run[3], 99):.3f} ms, peak "
+                 f"{ref_run[4]:.2f} GiB"]
+        name = "stream_update_" + mode
+        for label, n, devs in forms:
+            eng = Eng(**kw, shards=n, devices=devs)
+            st, p, out, ms, peak, counts = sharded_form(
+                mode, eng, pre, traffic, reads, devs, iters)
+            check(counts[name] == n * SHARD_T, f"{mode} {label}: "
+                  f"stream_update launched {n} times a tick: {counts}")
+            whole = dist.gather_tenants(st, dev)
+            check(all(same_bits(a, b) for a, b in zip(whole.leaves(),
+                                                     rstate.leaves()))
+                  and same_bits(p, ref_run[1]) and all(
+                      same_bits(a.to(dev), b)
+                      for a, b in zip(out, ref_run[2])),
+                  f"{mode} {label}: state, p-values and reads bitwise "
+                  "those of one device")
+            del whole
+            n_checked = shard_kernels_equal_plain(
+                mode, eng, st, traffic, reads, f"{mode} {label}")
+            for kname, c in counts.items():
+                total[kname] = total.get(kname, 0) + c
+            lines.append(f"{label}: tick p50 {np.percentile(ms, 50):.3f} "
+                         f"p99 {np.percentile(ms, 99):.3f} ms, peak "
+                         f"{peak:.2f} GiB, {counts[name]} stream_update "
+                         f"launches ({n} a tick at S/N = {S // n}), "
+                         f"{n_checked} kernel calls == plain")
+            del st, p, out, eng
+            torch.cuda.empty_cache()
+        print(f"[sharded] (a) {mode} S={S} window={W} k={k}: {SHARD_T} "
+              f"one-tick observes from windows at {T0} (the last {CHUNK} "
+              f"evicting) + reads, every form bitwise the one-device "
+              f"engine; tick = host clock around observe + synchronise "
+              f"(shards: " + "; ".join(lines) + ")")
+        del pre, rstate, ref_run, one
+        torch.cuda.empty_cache()
+    return total
+
+
+def sharded_fleet(dev="cuda") -> dict:
+    """Phase 16 (b): a classification ``Fleet`` at ``FLEET_SHARDS``
+    logical shards against one device: every tenant's p-values and a
+    predict bitwise, through migrations 16 -> 128. Returns the sharded
+    fleet's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Fleet
+
+    rng = np.random.default_rng(SEED + 17)
+    T, n = FLEET_STEPS_16, FLEET_TENANTS_16
+    x = rng.standard_normal((T, n, DIM), dtype=np.float32)
+    y = rng.integers(0, N_LABELS, (T, n)).astype(np.int32)
+    tau = rng.random((T, n), dtype=np.float32)
+    out, counts = [], {}
+    for shards in (1, FLEET_SHARDS):
+        fleet = Fleet(dim=DIM, k=K, n_labels=N_LABELS, cap_min=16,
+                      cap_max=128, pool_sessions=32, shards=shards,
+                      devices=[torch.device(dev)] * shards)
+        for t in range(n):
+            fleet.admit(t)
+        ops.reset_launch_counts()
+        h0 = time.perf_counter()
+        ps = []
+        for s in range(T):
+            got = fleet.observe({t: (x[s, t], y[s, t], tau[s, t])
+                                 for t in range(n)})
+            ps.append(torch.stack([got[t] for t in range(n)]))
+        pv = torch.stack([fleet.predict(t, x[0]) for t in range(0, n, 7)])
+        sync_all([torch.device(dev)])
+        wall = time.perf_counter() - h0
+        if shards > 1:
+            counts = dict(ops.kernel_launches())
+        out.append((torch.stack(ps), pv, wall, fleet.stats()))
+    check(same_bits(out[0][0], out[1][0]) and same_bits(out[0][1], out[1][1]),
+          "the sharded fleet's p-values and predicts bitwise one device's")
+    caps = sorted({p["capacity"] for p in out[1][3]["pools"]})
+    print(f"[sharded] (b) fleet of {n} tenants, {T} steps, pools of 32 "
+          f"lanes, capacities {caps}: {FLEET_SHARDS} logical shards "
+          f"bitwise one device ({out[1][2]:.2f} s against "
+          f"{out[0][2]:.2f} s); launches {counts}")
+    return counts
+
+
+def sharded_cp(X, y, Xq, dev="cuda"):
+    """Phase 16 (c): the row-sharded k-NN CP at the batch cell (n
+    ``N_BATCH``, p 30, k 15, m 100) over row x query shards, bitwise
+    across the shard counts; as a reading, its counts against the
+    single-device ``pvalues_optimized`` (another distance rounding). Then
+    ``ConformalLmClassifier.fit(mesh=(4, 2))`` at qwen2's width, bitwise
+    mesh (2, 1)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import lm_conformal as lmc
+    from repro_torch.core.measures import knn as knn_m
+
+    n, L = X.shape[0], N_LABELS
+    h0 = time.perf_counter()
+    st = knn_m.fit(X, y, k=K)
+    single = knn_m.pvalues_optimized(st, Xq, k=K, simplified=False,
+                                     n_labels=L)
+    sync_all([torch.device(dev)])
+    fit_s = time.perf_counter() - h0
+    ref_out, times = None, []
+    for R in CP_ROWS:
+        for Q in CP_QUERY:
+            mesh = dist.make_mesh((R, Q), ("data", "model"),
+                                  [torch.device(dev)] * (R * Q))
+            sh = dist.shard_knn_state(st, mesh)
+            fn = dist.make_knn_pvalues_fn(mesh, k=K, simplified=False,
+                                          n_labels=L)
+            fn(sh, Xq)  # warm-up
+            sync_all([torch.device(dev)])
+            h0 = time.perf_counter()
+            out = fn(sh, Xq)
+            sync_all([torch.device(dev)])
+            times.append(f"{R}x{Q} {(time.perf_counter() - h0) * 1e3:.1f}")
+            if ref_out is None:
+                ref_out = out
+            check(same_bits(out, ref_out), f"row-sharded k-NN CP at {R} x "
+                  f"{Q} shards bitwise 1 x 1")
+            del sh, fn
+    check(ref_out.shape == (Xq.shape[0], L) and bool(
+        ((ref_out > 0) & (ref_out <= 1)).all()), "row-sharded p-values")
+    cnt = lambda p: torch.round(p.double() * (n + 1)).long() - 1  # noqa
+    gap = (cnt(ref_out) - cnt(single)).abs()
+    print(f"[sharded] (c) row-sharded k-NN CP n={n} p={X.shape[1]} k={K} "
+          f"m={Xq.shape[0]} L={L}: bitwise across row shards {CP_ROWS} x "
+          f"query shards {CP_QUERY} (ms, host clock: {', '.join(times)}); "
+          f"against the single-device pvalues_optimized "
+          f"({fit_s:.1f} s with the fit): {int((gap > 0).sum())} of "
+          f"{gap.numel()} p-values differ, the largest by "
+          f"{int(gap.max())} counts")
+    del st, single
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    lab = torch.randint(0, LM_MESH_L, (LM_MESH_N,), generator=g,
+                        device=dev, dtype=torch.int32)
+    emb = torch.randn((LM_MESH_N, LM_MESH_D), generator=g, device=dev)
+    emb += lab[:, None].float() * 0.05
+    qe = torch.randn((LM_MESH_Q, LM_MESH_D), generator=g, device=dev)
+    outs = []
+    for shape in ((4, 2), (2, 1)):
+        mesh = dist.make_mesh(shape, ("data", "model"),
+                              [torch.device(dev)] * (shape[0] * shape[1]))
+        h0 = time.perf_counter()
+        clf = lmc.ConformalLmClassifier(n_labels=LM_MESH_L, k=K).fit(
+            emb, lab, mesh=mesh)
+        p = clf.pvalues(qe)
+        sync_all([torch.device(dev)])
+        outs.append((p, time.perf_counter() - h0))
+        del clf
+    check(same_bits(outs[0][0], outs[1][0]) and bool(
+        torch.isfinite(outs[0][0]).all()), "ConformalLmClassifier.fit("
+          "mesh=(4, 2)) p-values bitwise mesh (2, 1)")
+    print(f"[sharded] (c) ConformalLmClassifier.fit(mesh=(4, 2)) at d "
+          f"{LM_MESH_D}, n {LM_MESH_N}, {LM_MESH_Q} queries, "
+          f"{LM_MESH_L} labels: bitwise mesh (2, 1) (fit + p-values "
+          f"{outs[0][1]:.2f} s and {outs[1][1]:.2f} s)")
+    torch.cuda.empty_cache()
+
+
+def sharded_launcher(dev="cuda") -> None:
+    """Phase 16 (d): ``launch.serve --shards 2`` in a subprocess: on one
+    card it exits with the reference's "exceeds the ... visible
+    device(s)" message; on two or more it serves and ends with a
+    bit-exact snapshot round trip through the two-block saver."""
+    cards = torch.cuda.device_count()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--sessions",
+           "64", "--steps", "40", "--window", "32", "--capacity", "32",
+           "--dim", str(DIM), "--k", str(K), "--shards", "2"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    root = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    if cards >= 2:  # the sharded saver's round trip across the cards
+        cmd += ["--snapshot-dir", root]
+    h0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300, env=env, cwd=ROOT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    text = out.stdout + out.stderr
+    if cards >= 2:
+        check(out.returncode == 0 and "shards=2" in text
+              and "restore bit-exact" in text,
+              f"launch.serve --shards 2 serves on {cards} cards: "
+              f"{text[-2000:]}")
+        what = ("served on cuda:0 and cuda:1, the snapshot round trip "
+                "bit-exact")
+    else:
+        check(out.returncode != 0 and "exceeds the 1 visible device" in text,
+              f"launch.serve --shards 2 refused on one card: {text[-2000:]}")
+        what = "refused: " + [ln for ln in text.splitlines()
+                              if "exceeds" in ln][-1].strip()
+    print(f"[sharded] (d) launch.serve --shards 2 with {cards} card(s): "
+          f"{what} ({time.perf_counter() - h0:.1f} s, a subprocess)")
+
+
+def dots_child(root: str) -> int:
+    """Phase 16 (e), in its own process (``--remat-dots DIR``, with
+    ``CUBLAS_WORKSPACE_CONFIG`` set): under
+    ``torch.use_deterministic_algorithms(True)``, ``DOTS_STEPS`` steps of
+    ``TRAIN_ARCH`` at full width and depth (bf16, batch ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ``) from one seed with remat "full", then "dots"; prints
+    one JSON line: the losses, whether they and the final parameters are
+    bitwise equal, step ms and peak GiB of each."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import trainer as tr
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = configs.get(TRAIN_ARCH)
+    if TRAIN_REDUCED:
+        base = base.reduced()
+    runs = {}
+    for remat in ("full", "dots"):
+        cfg = base.replace(remat=remat)
+        t = tr.Trainer(cfg, tr.TrainerConfig(
+            steps=DOTS_STEPS, ckpt_every=10**6, log_every=10**6, seed=SEED,
+            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            ckpt_dir=os.path.join(root, remat)), OptimizerConfig(
+                peak_lr=TRAIN_LR, warmup_steps=1, total_steps=DOTS_STEPS))
+        t.save = lambda *a, **kw: None  # no checkpoint: a comparison run
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out = t.run()
+        torch.cuda.synchronize()
+        runs[remat] = {
+            "losses": out["losses"],
+            "params": [p.detach().to("cpu", copy=True)
+                       for p in out["final_params"].parameters()],
+            "step_ms": [s * 1e3 for s in t.step_seconds],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "flash": ops.kernel_launches()["flash_attention"]}
+        del t, out
+    a, b = runs["full"], runs["dots"]
+    print(json.dumps({
+        "layers": base.n_layers, "width": base.d_model,
+        "same_losses": a["losses"] == b["losses"],
+        "same_params": same_leaves(a["params"], b["params"]),
+        **{f"{r}_{key}": runs[r][key] for r in runs
+           for key in ("losses", "step_ms", "peak_gib", "flash")}}))
+    return 0
+
+
+def sharded_dots(dev="cuda") -> None:
+    """Phase 16 (e): ``dots_child`` in a subprocess; the losses and the
+    parameters after the last step bitwise those of remat "full"."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": str(ROOT / "src")}
+    root = tempfile.mkdtemp(prefix="chip_smoke_dots_")
+    h0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--remat-dots", root], capture_output=True,
+                             text=True, timeout=600, env=env, cwd=ROOT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(out.returncode == 0, f"the remat dots child failed: "
+          f"{out.stderr[-2000:]}")
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    check(r["same_losses"] and r["same_params"], f"remat dots == full, "
+          f"bitwise: losses and final parameters: {r}")
+    ms = {m: float(np.median(r[f"{m}_step_ms"][1:])) for m in ("full",
+                                                               "dots")}
+    print(f"[sharded] (e) {TRAIN_ARCH} d {r['width']}, {r['layers']} layers,"
+          f" bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}, {DOTS_STEPS} steps "
+          f"under use_deterministic_algorithms (a subprocess, "
+          f"{time.perf_counter() - h0:.1f} s): remat dots == full bitwise "
+          f"(losses {r['dots_losses']}, every final parameter); step ms "
+          f"(median of steps 2-{DOTS_STEPS}) full {ms['full']:.1f}, dots "
+          f"{ms['dots']:.1f}; peak GiB full {r['full_peak_gib']:.2f}, dots "
+          f"{r['dots_peak_gib']:.2f}; flash_attention launches full "
+          f"{r['full_flash']}, dots {r['dots_flash']}")
+
+
+def sharded_path(S, W, X, y, Xq, iters, dev="cuda") -> dict:
+    """Phase 16: (a) the tenant-sharded engines, (b) the fleet, (c) the
+    row-sharded CP and the LM classifier on a mesh, (d) the launcher's
+    --shards, (e) remat "dots". Returns the launch counts of (a) and
+    (b), the path's sharded ticks and reads."""
+    t_phase = time.perf_counter()
+    counts = sharded_engines(S, W, iters, dev)
+    for name, c in sharded_fleet(dev).items():
+        counts[name] = counts.get(name, 0) + c
+    sharded_cp(X, y, Xq, dev)
+    sharded_launcher(dev)
+    sharded_dots(dev)
+    print(f"[sharded] phase 16 in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {counts}")
+    return counts
+
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -4585,12 +5071,17 @@ def main(argv=None) -> int:
     ap.add_argument("--train-resume", metavar="DIR",
                     help="phase 15 (c)'s child process (started by the "
                     "phase itself)")
+    ap.add_argument("--remat-dots", metavar="DIR",
+                    help="phase 16 (e)'s child process (started by the "
+                    "phase itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     if args.train_resume:
         return resume_child(args.train_resume)
+    if args.remat_dots:
+        return dots_child(args.remat_dots)
     t_start = time.perf_counter()
 
     from repro_torch.data.synthetic import make_classification
@@ -4653,6 +5144,8 @@ def main(argv=None) -> int:
     by_path["recurrent_frontends"] = fronts_path()
     torch.cuda.empty_cache()
     by_path["train"] = train_path()
+    torch.cuda.empty_cache()
+    by_path["sharded"] = sharded_path(S, W, Xb, yb, Xq, args.iters)
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

@@ -3,15 +3,18 @@
 
 ``python -m repro_torch.analysis.audit [--device cuda|cpu] [--quick]
 [--out F]`` builds every engine configuration of the serving matrix
-(classification / regression x sliding / grow x ring / compact, one
-card: shards 1) plus the registry measures (knn, simplified_knn, kde,
+(classification / regression x sliding / grow x ring / compact x shards
+1 and 8) plus the registry measures (knn, simplified_knn, kde,
 lssvm, bootstrap, knn_regression), runs the checkers below on each, and
 writes a JSON report in the JAX audit's layout (``checks``, ``summary``,
 ``ok``, ``targets``; ``torch`` and ``device`` in place of ``jax`` and
 ``backend``). It exits nonzero on any violation. The JAX audit reads
 compiled HLO; eager PyTorch has none, so each invariant is checked where
 it shows at run time instead, on a small engine (``_S, _CAP, _DIM, _K,
-_CHUNK``, the JAX audit's shape).
+_CHUNK``, the JAX audit's shape). A target of 8 shards splits the 16
+tenants across 8 devices, two lanes a shard (the JAX audit's waiver: one
+lane a device is a degenerate batch): the visible cards where there are
+8, else 8 logical shards on the one device (``devices=[dev] * 8``).
 
 Checkers (name -> invariant -> the JAX checker it restates):
 
@@ -38,7 +41,16 @@ Checkers (name -> invariant -> the JAX checker it restates):
 * ``host-sync`` — on the card, the steady lifecycle runs under
   ``torch.cuda.set_sync_debug_mode("error")``: a synchronisation with the
   host raises. On the CPU it reports ``skipped``.
-* ``collective-freedom`` — ``skipped``: one card, no sharded tick.
+* ``collective-freedom`` — on a sharded target, the port's counterpart
+  of a tick whose HLO holds no collective: across an ``observe_many``
+  chunk no state leaf of one shard takes data from another (every
+  tensor a ``TorchDispatchMode`` sees carries the shards its inputs came
+  from; a leaf written from another shard's data is a violation), every
+  leaf keeps its storage and stays on its shard's device, and the chunk
+  is bitwise that of its ``shards=1`` twin (state gathered, p-values).
+  A hand kernel writes outside the dispatcher, so on the card the taint
+  follows the PyTorch ops around the kernels; the kernels' arguments are
+  one shard's by construction. ``skipped`` at one shard.
 * ``source-lint`` — ``repro_torch.analysis.lint`` over ``src/repro_torch``.
 
 The registry measures are exact-shape host-driven predictors with no
@@ -93,11 +105,12 @@ class AuditTarget:
     k: int = _K
     window: int | None = _CAP
     chunk: int = _CHUNK
+    shards: int = 1
     dense_waiver: str = ""
     inplace_waiver: str = ""
 
     def describe(self) -> dict:
-        d = {"name": self.name, "kind": self.kind, "shards": 1}
+        d = {"name": self.name, "kind": self.kind, "shards": self.shards}
         if self.kind == "engine":
             d.update(family=self.family, mode=self.mode,
                      layout=self.layout, n_sessions=self.n_sessions,
@@ -107,24 +120,36 @@ class AuditTarget:
         return d
 
 
+#: the audited shard counts (the JAX audit's, at two lanes a shard)
+SHARD_GRID = (1, 8)
+
+
 def engine_matrix(quick: bool = False) -> list:
-    """Engine targets: family x mode x layout (``quick`` drops grow +
-    compact, as the JAX audit's does)."""
+    """Engine targets: family x mode x layout x shards (``quick`` drops
+    grow + compact and the sharded targets, as the JAX audit's does)."""
     targets = []
     for family in ("classification", "regression"):
         for mode in ("sliding", "grow"):
             for layout in ("ring", "compact"):
-                if quick and (mode, layout) == ("grow", "compact"):
-                    continue
-                t = AuditTarget(name=f"{family}-{mode}-{layout}",
-                                kind="engine", family=family, mode=mode,
-                                layout=layout)
-                if layout == "compact":
-                    t.inplace_waiver = COMPACT_INPLACE_WAIVER
-                    if mode == "sliding":
-                        t.dense_waiver = COMPACT_WAIVER
-                targets.append(t)
+                for shards in SHARD_GRID:
+                    if quick and ((mode, layout) == ("grow", "compact")
+                                  or shards > 1):
+                        continue
+                    targets.append(_engine_target(family, mode, layout,
+                                                  shards))
     return targets
+
+
+def _engine_target(family, mode, layout, shards) -> AuditTarget:
+    name = f"{family}-{mode}-{layout}" + (f"-s{shards}" if shards > 1
+                                          else "")
+    t = AuditTarget(name=name, kind="engine", family=family, mode=mode,
+                    layout=layout, shards=shards)
+    if layout == "compact":
+        t.inplace_waiver = COMPACT_INPLACE_WAIVER
+        if mode == "sliding":
+            t.dense_waiver = COMPACT_WAIVER
+    return t
 
 
 def measure_matrix(quick: bool = False) -> list:
@@ -206,6 +231,23 @@ def _leaf_names(family: str) -> list:
              "nbr_a"])
 
 
+def shard_devices(device: torch.device, shards: int) -> list:
+    """``shards`` devices of ``device``'s kind: the visible cards where
+    there are that many, else ``shards`` logical shards on ``device``."""
+    from repro_torch.core.distributed import visible_devices
+    devs = visible_devices(device)
+    return devs[:shards] if len(devs) >= shards else [device] * shards
+
+
+def _leaf_tags(target) -> list:
+    """A state's leaf names in ``leaves()`` order (``name@shard`` on a
+    sharded target)."""
+    names = _leaf_names(target.family)
+    if target.shards == 1:
+        return names
+    return [f"{n}@{i}" for i in range(target.shards) for n in names]
+
+
 def _launches() -> dict:
     from repro_torch.kernels import ops
     return ops.kernel_launches()
@@ -227,11 +269,15 @@ class Artifact:
         self.engine_hook = engine_hook
         self._passes = None
 
-    def build_engine(self):
+    def build_engine(self, shards: int | None = None):
+        """The target's engine (``shards``: another shard count, the
+        collective check's one-shard twin)."""
         t = self.target
+        shards = t.shards if shards is None else shards
         kw = dict(n_sessions=t.n_sessions, capacity=t.capacity, dim=t.dim,
                   k=t.k, window=t.window if t.mode == "sliding" else None,
-                  layout=t.layout, device=self.device)
+                  layout=t.layout, device=self.device, shards=shards,
+                  devices=shard_devices(self.device, shards))
         if t.family == "classification":
             from repro_torch.serving.engine import ServingEngine
             eng = ServingEngine(n_labels=2, **kw)
@@ -315,8 +361,9 @@ def _result(name, target, status, violations=None, info=None) -> dict:
 def check_in_place(target: AuditTarget, art: Artifact) -> dict:
     eng = art.build_engine()
     state = eng.init_state()
-    names = _leaf_names(target.family)
-    order = sorted(range(len(names)), key=lambda i: names[i] != "D")
+    names = _leaf_tags(target)
+    order = sorted(range(len(names)),
+                   key=lambda i: names[i].split("@")[0] != "D")
 
     def ptrs(st):
         return [_storage(leaf) for leaf in st.leaves()]
@@ -349,7 +396,8 @@ def check_in_place(target: AuditTarget, art: Artifact) -> dict:
 @checker("dense-budget")
 def check_dense(target: AuditTarget, art: Artifact) -> dict:
     t = target
-    min_numel = t.n_sessions * t.capacity * t.capacity
+    # a sharded target's D is a shard's lanes: one shard's (S/N, cap, cap)
+    min_numel = t.n_sessions // t.shards * t.capacity * t.capacity
     eng = art.build_engine()
     state = eng.init_state()
     state, _ = eng.observe_many(state, *art.traffic(t.chunk, 0))  # warm-up
@@ -429,10 +477,87 @@ def check_host_sync(target: AuditTarget, art: Artifact) -> dict:
                    {"mode": "error"})
 
 
+class TaintRecorder(TorchDispatchMode):
+    """Follows which tenant shards' state each tensor's data came from:
+    ``taint`` maps a storage to the shards of the state it was computed
+    from, starting from ``owner`` (each state leaf's storage -> its
+    shard); an op's outputs carry the union of its inputs' shards (an
+    in-place op's output is one of its inputs, so its shards add up)."""
+
+    def __init__(self, owner: dict):
+        super().__init__()
+        self.taint = {k: {v} for k, v in owner.items()}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        flat_in, _ = tree_flatten((args, kwargs))
+        src = set()
+        for a in flat_in:
+            if isinstance(a, torch.Tensor) and a.numel():
+                src |= self.taint.get(_storage(a), set())
+        out = func(*args, **kwargs)
+        flat_out, _ = tree_flatten(out)
+        for o in flat_out:
+            if isinstance(o, torch.Tensor) and o.numel():
+                self.taint[_storage(o)] = set(src)
+        return out
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a.cpu(), b.cpu())
+
+
 @checker("collective-freedom")
 def check_collectives(target: AuditTarget, art: Artifact) -> dict:
-    return _result("collective-freedom", target, "skipped",
-                   info={"reason": "one card, no sharded tick"})
+    if target.shards == 1:
+        return _result("collective-freedom", target, "skipped",
+                       info={"reason": "one shard, no sharded tick"})
+    from repro_torch.core import distributed as dist
+    eng, twin = art.build_engine(), art.build_engine(shards=1)
+    state, tstate = eng.init_state(), twin.init_state()
+    state, _ = eng.observe_many(state, *art.traffic(target.chunk, 0))
+    tstate, _ = twin.observe_many(tstate, *art.traffic(target.chunk, 0))
+    ptrs = [_storage(leaf) for leaf in state.leaves()]
+    owner = {_storage(leaf): i for i, part in enumerate(state.parts)
+             for leaf in part.leaves()}
+    with TaintRecorder(owner) as rec:
+        state, p = eng.observe_many(state, *art.traffic(target.chunk, 1))
+    tstate, tp = twin.observe_many(tstate, *art.traffic(target.chunk, 1))
+    vs = []
+    for i, part in enumerate(state.parts):
+        dev = eng.mesh.flat()[i]
+        for name, leaf in zip(_leaf_names(target.family), part.leaves()):
+            other = sorted(rec.taint.get(_storage(leaf), set()) - {i})
+            if other:
+                vs.append({"kind": "cross-shard", "leaf": f"{name}@{i}",
+                           "line": f"state leaf {name} of shard {i} holds "
+                                   f"data of shard(s) {other}"})
+            if leaf.device != dev:
+                vs.append({"kind": "leaf-moved", "leaf": f"{name}@{i}",
+                           "line": f"state leaf {name} of shard {i} is on "
+                                   f"{leaf.device}, not {dev}"})
+    moved = [tag for tag, a, b in zip(_leaf_tags(target), ptrs,
+                                      (_storage(x) for x in state.leaves()))
+             if a != b]
+    if not target.inplace_waiver:  # the compact layout rebuilds leaves
+        vs += [{"kind": "leaf-reallocated", "leaf": tag,
+                "line": f"state leaf {tag} changed storage across a "
+                        "sharded chunk"} for tag in moved]
+    whole = dist.gather_tenants(state)
+    same = (_same_bits(p, tp) and all(
+        _same_bits(a, b) for a, b in zip(whole.leaves(), tstate.leaves())))
+    if not same:
+        vs.append({"kind": "twin-mismatch",
+                   "line": f"the {target.shards}-shard chunk differs from "
+                           "its one-shard twin (state or p-values)"})
+    info = {"shards": target.shards,
+            "devices": [str(d) for d in eng.mesh.flat()],
+            "storages_followed": len(rec.taint),
+            "leaves_reallocated": len(moved)}
+    return _result("collective-freedom", target, "fail" if vs else "pass",
+                   vs, info)
 
 
 def check_source_lint(src_root: str) -> dict:
@@ -525,8 +650,9 @@ def main(argv=None) -> int:
 
 
 __all__ = ["AuditTarget", "Artifact", "CHECKERS", "MEASURES",
-           "OpRecorder", "engine_matrix", "measure_matrix", "run_audit",
-           "format_summary", "main"]
+           "OpRecorder", "SHARD_GRID", "TaintRecorder", "engine_matrix",
+           "measure_matrix", "run_audit", "format_summary", "main",
+           "shard_devices"]
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ measures run on top of it.
   ``Pr[p <= eps] <= eps`` under exchangeability, small p for requests
   unlike the calibration traffic.
 
-Both run on ``device`` (cuda unless given); the reference's sharded form
-(``core/distributed.py``) is not ported yet.
+Both run on ``device`` (cuda unless given). ``ConformalLmClassifier.fit``
+takes a ``mesh`` (``core.distributed.Mesh``): over more than one device
+the calibration rows shard over its row axes and the queries over its
+query axis (``distributed.make_knn_pvalues_fn``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Any
 import torch
 
 from repro_torch._device import BIG, as_tensor, resolve
+from repro_torch.core import distributed as dist
 from repro_torch.core.measures import knn as knn_m
 from repro_torch.core.online import fsum
 from repro_torch.kernels import ref
@@ -36,18 +39,32 @@ class ConformalLmClassifier:
     k: int = 15
     device: Any = None
     _state: Any = field(default=None, repr=False)
+    _sharded_fn: Any = field(default=None, repr=False)
+    _mesh: Any = field(default=None, repr=False)
 
-    def fit(self, embeddings, labels, mesh=None):
-        """O(n^2) training phase (paper Section 3.1)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded fit needs core/distributed.py, not ported yet")
-        dev = resolve(self.device)
+    def fit(self, embeddings, labels, mesh=None,
+            cfg: dist.CpShardingConfig = dist.CpShardingConfig()):
+        """O(n^2) training phase (paper Section 3.1), on the mesh's first
+        device when a ``mesh`` is given (else on ``device``). A mesh of
+        more than one device then shards the state; one device takes the
+        plain path, as the reference's does."""
+        dev = mesh.flat()[0] if mesh is not None else resolve(self.device)
         self._state = knn_m.fit(as_tensor(embeddings, torch.float32, dev),
                                 as_tensor(labels, torch.int32, dev), k=self.k)
+        self._mesh, self._sharded_fn = None, None
+        if mesh is not None and mesh.size > 1:
+            self._mesh = mesh
+            self._state = dist.shard_knn_state(self._state, mesh, cfg)
+            self._sharded_fn = dist.make_knn_pvalues_fn(
+                mesh, k=self.k, simplified=False, n_labels=self.n_labels,
+                cfg=cfg)
         return self
 
     def pvalues(self, query_embeddings) -> torch.Tensor:
+        if self._sharded_fn is not None:
+            q = as_tensor(query_embeddings, torch.float32,
+                          self._mesh.flat()[0])
+            return self._sharded_fn(self._state, q)
         q = as_tensor(query_embeddings, torch.float32, self._state.X.device)
         return knn_m.pvalues_optimized(self._state, q, k=self.k,
                                        simplified=False,

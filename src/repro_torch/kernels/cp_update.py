@@ -57,10 +57,11 @@ def cp_knn_counts(X, y, sum_same, kth_same, X_test, alpha, *,
     lib = _build.load()
     out = torch.empty((S, m, n_labels), dtype=torch.int32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.rt_cp_knn_counts(
-        X.data_ptr(), X.stride(0), y.data_ptr(), sum_same.data_ptr(),
-        kth_same.data_ptr(), X_test.data_ptr(), X_test.stride(0),
-        alpha.data_ptr(), out.data_ptr(), S, n, m, p, n_labels, stream)
+    with torch.cuda.device(X.device):  # the launch goes to the current device
+        rc = lib.rt_cp_knn_counts(
+            X.data_ptr(), X.stride(0), y.data_ptr(), sum_same.data_ptr(),
+            kth_same.data_ptr(), X_test.data_ptr(), X_test.stride(0),
+            alpha.data_ptr(), out.data_ptr(), S, n, m, p, n_labels, stream)
     _build.check(rc, "cp_knn_counts")
     cp_knn_counts.launches += 1
     return out

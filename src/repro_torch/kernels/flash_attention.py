@@ -80,10 +80,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _build.load()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.rt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
-        H, Hkv, D, int(q.dtype == torch.bfloat16), int(causal),
-        int(window or 0), float(scale), float(softcap or 0.0), stream)
+    with torch.cuda.device(q.device):  # the launch goes to the current device
+        rc = lib.rt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, Hkv, D, int(q.dtype == torch.bfloat16), int(causal),
+            int(window or 0), float(scale), float(softcap or 0.0), stream)
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -59,11 +59,12 @@ def interval_sweep(X, a_prime, kth_dist, kth_label, live, X_test, a_test,
     lo = torch.empty((S, m, n), dtype=torch.float32, device=X.device)
     hi = torch.empty((S, m, n), dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.rt_interval_sweep(
-        X.data_ptr(), X.stride(0), a_prime.data_ptr(), kth_dist.data_ptr(),
-        kth_label.data_ptr(), live.data_ptr(), X_test.data_ptr(),
-        X_test.stride(0), a_test.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        S, m, n, p, k, -1.0 / k, stream)
+    with torch.cuda.device(X.device):  # the launch goes to the current device
+        rc = lib.rt_interval_sweep(
+            X.data_ptr(), X.stride(0), a_prime.data_ptr(), kth_dist.data_ptr(),
+            kth_label.data_ptr(), live.data_ptr(), X_test.data_ptr(),
+            X_test.stride(0), a_test.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            S, m, n, p, k, -1.0 / k, stream)
     _build.check(rc, "interval_sweep")
     interval_sweep.launches += 1
     return lo, hi
@@ -79,8 +80,9 @@ def sqd_sqrt(x: torch.Tensor) -> torch.Tensor:
     _check(x.device.type == "cuda" and x.dtype == torch.float32
            and x.is_contiguous(), "contiguous CUDA float32")
     out = torch.empty_like(x)
-    rc = _build.load().rt_sqd_sqrt(
-        x.data_ptr(), out.data_ptr(), x.numel(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        rc = _build.load().rt_sqd_sqrt(
+            x.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "sqd_sqrt")
     return out

@@ -106,11 +106,12 @@ def kde_rowsums(A: torch.Tensor, B: torch.Tensor, y_A: torch.Tensor | None,
         lib.rt_kde_scratch_bytes(m, n, p, L, int(not per_label), int(wide)),
         dtype=torch.uint8, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = lib.rt_kde_rowsums(
-        A.data_ptr(), B.data_ptr(), None if per_label else y_A.data_ptr(),
-        y_B.data_ptr(), scratch.data_ptr(), out.data_ptr(), m, n, p, L,
-        den if inv is None else inv, int(inv is not None), int(exclude_diag),
-        int(wide), stream)
+    with torch.cuda.device(A.device):  # the launch goes to the current device
+        rc = lib.rt_kde_rowsums(
+            A.data_ptr(), B.data_ptr(), None if per_label else y_A.data_ptr(),
+            y_B.data_ptr(), scratch.data_ptr(), out.data_ptr(), m, n, p, L,
+            den if inv is None else inv, int(inv is not None),
+            int(exclude_diag), int(wide), stream)
     _build.check(rc, "kde_rowsums")
     kde_rowsums.launches += 1
     return out
@@ -125,8 +126,9 @@ def kde_exp(x: torch.Tensor) -> torch.Tensor:
     _check(x.device.type == "cuda" and x.dtype == torch.float32
            and x.is_contiguous(), "contiguous CUDA float32")
     out = torch.empty_like(x)
-    rc = _build.load().rt_kde_expf(
-        x.data_ptr(), out.data_ptr(), x.numel(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        rc = _build.load().rt_kde_expf(
+            x.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "kde_exp")
     return out

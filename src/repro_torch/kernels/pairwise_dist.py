@@ -48,9 +48,10 @@ def pairwise_sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     out = torch.empty((S, m, n), dtype=torch.float32, device=A.device)
     norms = torch.empty(S * (m + n), dtype=torch.float32, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = lib.rt_pairwise_sq_dists(A.data_ptr(), A.stride(0), B.data_ptr(),
-                                  B.stride(0), norms.data_ptr(),
-                                  out.data_ptr(), S, m, n, p, stream)
+    with torch.cuda.device(A.device):  # the launch goes to the current device
+        rc = lib.rt_pairwise_sq_dists(A.data_ptr(), A.stride(0), B.data_ptr(),
+                                      B.stride(0), norms.data_ptr(),
+                                      out.data_ptr(), S, m, n, p, stream)
     _build.check(rc, "pairwise_sq_dists")
     pairwise_sq_dists.launches += 1
     return out

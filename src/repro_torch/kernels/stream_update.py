@@ -120,12 +120,13 @@ def stream_update_class(X, y, nbr_d, nbr_y, x_new, y_new, n, head, wrap,
     base = torch.empty((S, w), dtype=torch.float32, device=X.device)
     nd = torch.empty((S, w, k), dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.rt_stream_update_class(
-        X.data_ptr(), X.stride(0), y.data_ptr(), y.stride(0),
-        nbr_d.data_ptr(), nbr_d.stride(0), pD, sD0, sD1, pev,
-        x_new.data_ptr(), y_new.data_ptr(), n.data_ptr(), head.data_ptr(),
-        wrap.data_ptr(), d.data_ptr(), nd.data_ptr(), base.data_ptr(), S, w,
-        p, k, stream)
+    with torch.cuda.device(X.device):  # the launch goes to the current device
+        rc = lib.rt_stream_update_class(
+            X.data_ptr(), X.stride(0), y.data_ptr(), y.stride(0),
+            nbr_d.data_ptr(), nbr_d.stride(0), pD, sD0, sD1, pev,
+            x_new.data_ptr(), y_new.data_ptr(), n.data_ptr(),
+            head.data_ptr(), wrap.data_ptr(), d.data_ptr(), nd.data_ptr(),
+            base.data_ptr(), S, w, p, k, stream)
     _build.check(rc, "stream_update (class)")
     stream_update_class.launches += 1
     return d, nd, nbr_y, None, base
@@ -159,15 +160,16 @@ def stream_update_reg(X, y, nbr_d, nbr_y, x_new, y_new, n, head, wrap,
     ny = torch.empty((S, w, k), dtype=torch.float32, device=dev)
     na = torch.empty((S, w, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.rt_stream_update_reg(
-        X.data_ptr(), X.stride(0), y.data_ptr(), y.stride(0),
-        nbr_d.data_ptr(), nbr_d.stride(0), nbr_y.data_ptr(),
-        nbr_y.stride(0), nbr_a.data_ptr(), nbr_a.stride(0), paid, said, pD,
-        sD0, sD1, pev, x_new.data_ptr(), y_new.data_ptr(),
-        new_aid.data_ptr(), n.data_ptr(), head.data_ptr(), wrap.data_ptr(),
-        d.data_ptr(), nd.data_ptr(), ny.data_ptr(), na.data_ptr(),
-        ysum.data_ptr(),
-        S, w, p, k, stream)
+    with torch.cuda.device(X.device):  # the launch goes to the current device
+        rc = lib.rt_stream_update_reg(
+            X.data_ptr(), X.stride(0), y.data_ptr(), y.stride(0),
+            nbr_d.data_ptr(), nbr_d.stride(0), nbr_y.data_ptr(),
+            nbr_y.stride(0), nbr_a.data_ptr(), nbr_a.stride(0), paid, said, pD,
+            sD0, sD1, pev, x_new.data_ptr(), y_new.data_ptr(),
+            new_aid.data_ptr(), n.data_ptr(), head.data_ptr(), wrap.data_ptr(),
+            d.data_ptr(), nd.data_ptr(), ny.data_ptr(), na.data_ptr(),
+            ysum.data_ptr(),
+            S, w, p, k, stream)
     _build.check(rc, "stream_update (reg)")
     stream_update_reg.launches += 1
     return d, nd, ny, na, ysum

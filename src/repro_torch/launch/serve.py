@@ -32,8 +32,10 @@ with a keyed ``FaultPlan.random`` at ``--fault-rate``; ``--guard`` serves
 through a ``TickGuard`` (admission, poison-lane quarantine);
 ``--snapshot-dir`` ends with a snapshot round trip that exits 1 unless
 bit-exact (and, with ``--guard``, holds the guard's restore source).
-``--shards`` other than 1 is refused in these modes: tenant sharding
-across devices is not ported.
+``--shards N`` splits the tenants across N devices
+(``core.distributed``): N visible cards (``--device cpu`` has one
+device, so only 1 there), bitwise the ``--shards 1`` run; the snapshot
+round trip then goes through the ``AsyncShardedSaver`` on N blocks.
 
     python -m repro_torch.launch.serve --sessions 64 --steps 1100 \\
         --window 1024 --capacity 1024 --dim 30 --k 15 --guard \\
@@ -110,6 +112,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch._device import resolve
+from repro_torch.core.distributed import gather_tenants, visible_devices
 from repro_torch.core.lm_conformal import (ConformalOodDetector,
                                           sequence_embedding)
 from repro_torch.data.lm_pipeline import TokenStream
@@ -188,9 +191,9 @@ def _telemetry(args):
     return metrics, tracer
 
 
-def _check_shards(shards: int, sessions: int) -> None:
-    """``--shards`` against ``--sessions`` and the one card the port
-    serves on (tenant sharding across devices is not ported)."""
+def _check_shards(shards: int, sessions: int, device) -> None:
+    """``--shards`` against ``--sessions`` and the visible devices of
+    ``--device``'s kind (the engines raise ``ValueError`` for the same)."""
     if shards < 1:
         raise SystemExit("--shards must be >= 1")
     if shards == 1:
@@ -199,9 +202,11 @@ def _check_shards(shards: int, sessions: int) -> None:
         raise SystemExit(
             f"--sessions {sessions} is not divisible by --shards "
             f"{shards}; pad the session count")
-    raise SystemExit(
-        f"--shards {shards} exceeds the 1 visible device(s): tenant "
-        "sharding across devices is not ported; serve with --shards 1")
+    n = len(visible_devices(device))
+    if shards > n:
+        raise SystemExit(
+            f"--shards {shards} exceeds the {n} visible device(s); serve "
+            "with at most that many shards")
 
 
 def _chaos_traffic(args, xs, ys, taus, *, mode):
@@ -306,15 +311,17 @@ def _snapshot_roundtrip(args, state, eng, metrics, tracer) -> int:
             metrics=metrics)
     store = SessionStore(args.snapshot_dir, metrics=metrics, tracer=tracer,
                          injector=injector)
-    if injector is not None:
-        saver = AsyncShardedSaver(store, 1, metrics=metrics, seed=args.seed)
+    if args.shards > 1 or injector is not None:
+        saver = AsyncShardedSaver(store, max(args.shards, 1),
+                                  metrics=metrics, seed=args.seed)
         saver.save(args.steps, state, meta=eng.meta())
         saver.close()
     else:
         store.save(args.steps, state, meta=eng.meta(), blocking=True)
     eng2, state2, step = store.restore_engine(device=eng.device)
-    same = (type(eng2) is type(eng) and all(
-        torch.equal(a, b) for a, b in zip(state.leaves(), state2.leaves())))
+    whole, whole2 = (gather_tenants(s) for s in (state, state2))
+    same = (type(eng2) is type(eng) and eng2.shards == eng.shards and all(
+        torch.equal(a, b) for a, b in zip(whole.leaves(), whole2.leaves())))
     print(f"[serve] snapshot@step {step} -> restore "
           f"{'bit-exact' if same else 'MISMATCH'}")
     return 0 if same else 1
@@ -324,11 +331,11 @@ def serve_sessions(args) -> int:
     S, T, dim = args.sessions, args.steps, args.dim
     if T < 2:
         raise SystemExit("--steps must be >= 2 (tick 0 is the warm-up)")
-    _check_shards(args.shards, S)
+    _check_shards(args.shards, S, args.device)
     kind = "regression" if args.regression else "classification"
     metrics, tracer = _telemetry(args)
     tele = dict(instrument=True, metrics=metrics, tracer=tracer,
-                device=args.device)
+                device=args.device, shards=args.shards)
     if args.regression:
         eng = RegressionServingEngine(
             n_sessions=S, capacity=args.capacity, dim=dim, k=args.k,
@@ -342,8 +349,12 @@ def serve_sessions(args) -> int:
         xs, ys, taus, drifted = class_drift_traffic(args.seed, S, T, dim,
                                                     args.drift)
     on_card = eng.device.type == "cuda"
+    metrics.gauge("serve_shards", mode=kind).set(args.shards)
+    where = (eng.device if eng.mesh is None
+             else ", ".join(str(d) for d in eng.mesh.flat()))
     print(f"[serve] {kind} engine: {S} sessions x cap {args.capacity} "
-          f"(window={args.window}, k={args.k}, dim={dim}) on {eng.device}")
+          f"(window={args.window}, k={args.k}, dim={dim}, "
+          f"shards={args.shards}) on {where}")
     _chaos_traffic(args, xs, ys, taus, mode=kind)
     state = eng.init_state()
     drv, guard = _maybe_guard(args, eng, state, metrics, tracer)
@@ -351,26 +362,36 @@ def serve_sessions(args) -> int:
     state, p = drv.observe(state, xs[0], ys[0], taus[0])  # warm-up tick
     ops.reset_launch_counts()
     ticks_ms = []
+    # one card's events time a tick; shards on several cards: the host
+    # clock around the tick and a synchronisation of every card
+    cards = ([] if not on_card else
+             list(dict.fromkeys(eng.mesh.flat() if eng.mesh is not None
+                                else [eng.device])))
+    events = len(cards) == 1
     t0 = time.perf_counter()
     for t in range(1, T):
-        if on_card:
+        if events:
             e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
             e0.record()
         else:
             h0 = time.perf_counter()
         state, p = drv.observe(state, xs[t], ys[t], taus[t])
-        if on_card:
+        if events:
             e1.record()
             e1.synchronize()
             ticks_ms.append(e0.elapsed_time(e1))
         else:
+            for d in cards:
+                torch.cuda.synchronize(d)
             ticks_ms.append((time.perf_counter() - h0) * 1e3)
         pvals[t] = p.cpu().numpy()
     dt = time.perf_counter() - t0
     metrics.gauge("serve_wall_s", mode=kind).set(dt)
     metrics.gauge("serve_session_steps_per_s", mode=kind).set(
         S * (T - 1) / dt)
-    clock = "CUDA events" if on_card else "host clock, CPU"
+    clock = ("CUDA events" if events else
+             f"host clock, {len(cards)} cards" if on_card else
+             "host clock, CPU")
     print(f"[serve] {S * (T - 1) / dt:.1f} session-steps/s over {T - 1} "
           f"ticks; tick p50 {np.percentile(ticks_ms, 50):.3f} ms, p99 "
           f"{np.percentile(ticks_ms, 99):.3f} ms ({clock})")
@@ -792,9 +813,10 @@ def main(argv=None) -> int:
                     "here (exit 1 unless bit-exact); with --guard, a first "
                     "snapshot is the quarantine's restore source")
     ap.add_argument("--shards", type=int, default=1,
-                    help="--replay: N per-shard engines on the one device "
-                    "with merged metrics; other modes: tenant sharding "
-                    "across devices, not ported (only 1 is served)")
+                    help="shard the tenant axis across N devices (sessions "
+                    "modes: N visible cards, bitwise --shards 1; --replay: "
+                    "N per-shard engines on the one device with merged "
+                    "metrics)")
     ap.add_argument("--metrics-out", default="",
                     help="write the end-of-run metrics snapshot (the one "
                     "the report prints) to this JSON file")

@@ -21,16 +21,19 @@ For training, as in the reference: the full-sequence blocks return the
 MoE's load-balancing loss beside ``x`` (zero for a block without an MoE),
 summed in f32 through the stack; each block's input passes
 ``boundary.grad_compressed_boundary`` (active only inside the trainer's
-``compressed_boundaries()``); and with ``cfg.remat == "full"`` a block
-whose parameters require a gradient runs under
+``compressed_boundaries()``); and with ``cfg.remat`` ``"full"`` or
+``"dots"`` a block whose parameters require a gradient runs under
 ``torch.utils.checkpoint`` while grad is enabled, so its activations are
-recomputed in the backward pass (serving never enters it).
+recomputed in the backward pass (serving never enters it). ``"dots"``
+saves the products without a batch dimension and recomputes the rest
+(``DOTS_POLICY``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_m
@@ -203,19 +206,42 @@ def init_layer_stack(generator: torch.Generator, cfg: ArchConfig,
         for kind, length in pattern_runs(cfg.pattern))
 
 
+_aten = torch.ops.aten
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: the port's reading of the reference's
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``. A
+    projection's ``einsum`` (``"bsd,dhk->bshk"``) emits ``aten.bmm`` with
+    a batch of one, and a ``matmul`` of ``(B, S, d)`` by ``(d, f)``
+    folds into ``aten.mm``: products without a batch dimension, saved.
+    The attention's scores (``"bgrk,bsgk->bgrs"``) and the MoE's
+    ``bmm`` over experts carry one and are recomputed, as is everything
+    else, the ``flash_attention`` Function included."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.PREFER_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat(fn, cfg: ArchConfig, p: nn.Module, x: torch.Tensor):
     """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` is
-    ``"full"``, grad is enabled and ``p`` (the layer's parameters) or
-    ``x`` requires a gradient: the reference's ``_remat`` around each
-    layer. Otherwise ``fn`` itself."""
+    ``"full"`` or ``"dots"`` (``dots_policy`` selects what is saved),
+    grad is enabled and ``p`` (the layer's parameters) or ``x`` requires
+    a gradient: the reference's ``_remat`` around each layer. Otherwise
+    ``fn`` itself."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if not (x.requires_grad or next(p.parameters()).requires_grad):
         return fn
+    if cfg.remat == "dots":
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                dots_policy))
     if cfg.remat != "full":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: the port rematerialises whole layers "
-            "only ('full' or 'none')")
+        raise ValueError(f"remat={cfg.remat!r}: one of 'full', 'dots', "
+                         "'none'")
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
@@ -252,4 +278,4 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
 __all__ = ["init_block", "apply_block_full", "apply_block_decode",
            "pattern_runs", "init_layer_stack", "apply_stack_full",
            "apply_stack_decode", "init_stack_cache", "init_block_cache",
-           "apply_norm", "remat", "ATTN_KINDS"]
+           "apply_norm", "remat", "dots_policy", "ATTN_KINDS"]

@@ -33,7 +33,7 @@ from typing import Any
 
 import torch
 
-from repro_torch._device import resolve
+from repro_torch.core import distributed as dist
 from repro_torch.core import engine_utils
 from repro_torch.regression import session as sess_m
 from repro_torch.regression.stream import RegStreamState
@@ -54,14 +54,17 @@ class RegressionServingEngine:
     and its baseline, bit-identical to "ring"; instrument, metrics,
     tracer, sync_timing: telemetry, as on ``serving.ServingEngine``;
     device: ``cuda`` by default (raises without a GPU; ``"cpu"`` runs
-    the plain PyTorch path).
+    the plain PyTorch path); shards, devices: tenant sharding across
+    devices, as on ``serving.ServingEngine`` (reads: ``intervals`` and
+    ``pvalues`` shard by shard).
     """
 
     def __init__(self, *, n_sessions: int, capacity: int, dim: int, k: int,
                  window: int | None = None, dtype=torch.float32,
                  donate: bool = True, layout: str = "ring",
                  instrument: bool = False, metrics=None, tracer=None,
-                 sync_timing: bool = False, device=None):
+                 sync_timing: bool = False, device=None, shards: int = 1,
+                 devices=None):
         if window is not None and window > capacity:
             raise ValueError(f"window {window} exceeds capacity {capacity}")
         if window is not None and window < 1:
@@ -70,7 +73,14 @@ class RegressionServingEngine:
             raise ValueError(f"capacity {capacity} < k {k}")
         if layout not in ("ring", "compact"):
             raise ValueError(f"unknown layout {layout!r}")
-        self.device = resolve(device)
+        if shards > 1 and n_sessions % shards != 0:
+            raise ValueError(
+                f"n_sessions {n_sessions} not divisible by shards "
+                f"{shards}; pad with inactive lanes "
+                "(core.distributed.pad_tenant_count)")
+        self.shards = shards
+        self.mesh, self.device = engine_utils.placement(shards, device,
+                                                         devices)
         self.n_sessions = n_sessions
         self.capacity = capacity
         self.dim = dim
@@ -93,15 +103,23 @@ class RegressionServingEngine:
                 engine="regression", metrics=metrics, tracer=tracer,
                 sync=sync_timing, n_of=lambda s: s.n,
                 head_of=lambda s: s.head, wrap_of=lambda s: s.wrap)
+            if self.mesh is not None:
+                self.telemetry.devices = self.mesh.flat()
 
     # -- state --------------------------------------------------------------
 
     def init_state(self) -> RegStreamState:
         """Empty batched states; sliding engines confine each ring to the
-        ``[:window]`` block (``wrap == window``)."""
-        return sess_m.init(self.capacity, self.dim, self.k,
-                           n_sessions=self.n_sessions, dtype=self.dtype,
-                           wrap=self._wmax, device=self.device)
+        ``[:window]`` block (``wrap == window``). With ``shards > 1`` a
+        ``TenantSharded`` state, each shard built on its device."""
+        return engine_utils.init_state(self, lambda S, dev: sess_m.init(
+            self.capacity, self.dim, self.k, n_sessions=S, dtype=self.dtype,
+            wrap=self._wmax, device=dev))
+
+    def shard_state(self, state):
+        """``state`` laid out as this engine serves it: split across its
+        tenant mesh, or gathered onto its one device."""
+        return engine_utils.shard_state(self, state)
 
     # -- serving ------------------------------------------------------------
 
@@ -148,10 +166,11 @@ class RegressionServingEngine:
         with engine_utils.timed(self, "grow", tenants=self.n_sessions,
                                 capacity=self.capacity * factor,
                                 signature=self.capacity):
-            out = sess_m.grow(state, factor)
+            out = engine_utils.grow(self, state, factor, sess_m.grow)
         self.capacity = out.capacity
         if self._wmax is not None:
-            out.wrap = torch.full_like(out.wrap, self._wmax)
+            for part in dist.parts_of(out):
+                part.wrap = torch.full_like(part.wrap, self._wmax)
         return out
 
     def _queries(self, X_test) -> torch.Tensor:
@@ -168,8 +187,10 @@ class RegressionServingEngine:
         dim)`` per tenant or ``(m, dim)`` shared by all."""
         X_test = self._queries(X_test)
         with self._timed_read("intervals", X_test) as tm:
-            return tm.sync(sess_m.intervals(state, X_test, k=self.k,
-                                            epsilon=epsilon))
+            return tm.sync(engine_utils.read(
+                self, lambda st, xq: sess_m.intervals(st, xq, k=self.k,
+                                                      epsilon=epsilon),
+                state, X_test))
 
     def pvalues(self, state: RegStreamState, X_test,
                 t_query) -> torch.Tensor:
@@ -179,7 +200,10 @@ class RegressionServingEngine:
                                   device=self.device)
         X_test = self._queries(X_test)
         with self._timed_read("pvalues", X_test) as tm:
-            return tm.sync(sess_m.pvalues(state, X_test, t_query, k=self.k))
+            return tm.sync(engine_utils.read(
+                self, lambda st, xq, tq: sess_m.pvalues(st, xq, tq,
+                                                        k=self.k),
+                state, X_test, t_query))
 
     def _timed_read(self, op: str, X_test):
         return engine_utils.timed(
@@ -198,19 +222,22 @@ class RegressionServingEngine:
             "k": self.k,
             "window": self.window,
             "dtype": str(self.dtype).removeprefix("torch."),
+            "shards": self.shards,
         }
 
     @classmethod
-    def from_meta(cls, meta: dict[str, Any],
-                  device=None) -> "RegressionServingEngine":
+    def from_meta(cls, meta: dict[str, Any], device=None,
+                  devices=None) -> "RegressionServingEngine":
+        """The engine of a snapshot's meta; ``shards`` as in
+        ``ServingEngine.from_meta``."""
         meta = dict(meta)
         mode = meta.pop("mode", "regression")
         if mode != "regression":
             raise ValueError(f"not a regression-engine meta: mode={mode!r}")
         meta.pop("n_labels", None)  # classification-era keys
-        meta.pop("shards", None)  # the JAX engine's tenant sharding
         meta["dtype"] = getattr(torch, meta.get("dtype", "float32"))
-        return cls(**meta, device=device)
+        place = engine_utils.meta_shards(meta, device, devices)
+        return cls(**meta, **place)
 
 
 __all__ = ["RegressionServingEngine"]

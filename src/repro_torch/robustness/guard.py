@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import distributed as dist
 from repro_torch.regression.session import repad as repad_reg
 from repro_torch.serving.session import repad as repad_cls
 
@@ -108,9 +109,13 @@ class TickGuard:
         def nan(t):
             return torch.isnan(t).flatten(1).any(1)
 
-        if self._classification:
-            return nonfinite(state.knn.X) | nan(state.knn.best)
-        return nonfinite(state.X) | nonfinite(state.y) | nan(state.nbr_d)
+        def flags(st):
+            if self._classification:
+                return nonfinite(st.knn.X) | nan(st.knn.best)
+            return nonfinite(st.X) | nonfinite(st.y) | nan(st.nbr_d)
+
+        return torch.cat([flags(part).to(self.engine.device)
+                          for part in dist.parts_of(state)])
 
     def observe(self, state, x, y, tau, active=None):
         """Guarded one-tick ``observe``; the engine's contract."""
@@ -208,8 +213,10 @@ class TickGuard:
         if not all(bool(torch.isfinite(v).all())
                    for v in lane_state.leaves() if v.is_floating_point()):
             return state
-        for dst, src in zip(state.leaves(), lane_state.leaves()):
-            dst[lane].copy_(src[0])
+        part, i = ((state, lane) if not isinstance(state, dist.TenantSharded)
+                   else state.locate(lane))
+        for dst, src in zip(part.leaves(), lane_state.leaves()):
+            dst[i].copy_(src[0])
         eng.reset_occupancy()
         self.quarantined.discard(lane)
         self._restores += 1

@@ -37,7 +37,7 @@ from typing import Any
 
 import torch
 
-from repro_torch._device import resolve
+from repro_torch.core import distributed as dist
 from repro_torch.core import engine_utils
 from repro_torch.serving import session as sess_m
 from repro_torch.serving.session import Session
@@ -64,7 +64,16 @@ class ServingEngine:
     sync_timing: synchronise inside each timed operation, so the times
     are device-true instead of enqueue times (off on the serving path);
     device: where the state lives, ``cuda`` by default (raises without a
-    GPU; ``"cpu"`` runs the plain PyTorch path).
+    GPU; ``"cpu"`` runs the plain PyTorch path);
+    shards: split the tenant axis across this many devices
+    (``core.distributed``): the state is a ``TenantSharded``, each tick
+    runs every shard's unmodified step on its own device and moves no
+    byte between shards, bitwise the one-device engine (tested). Needs
+    ``n_sessions % shards == 0`` (pad with inactive lanes:
+    ``distributed.pad_tenant_count``) and that many visible cards of
+    ``device``'s kind unless ``devices`` names them;
+    devices: the shards' devices in order (may repeat one device: logical
+    shards, as the CPU tests and the one-card smoke run them).
     """
 
     def __init__(self, *, n_sessions: int, capacity: int, dim: int, k: int,
@@ -72,7 +81,7 @@ class ServingEngine:
                  dtype=torch.float32, donate: bool = True,
                  layout: str = "ring", instrument: bool = False,
                  metrics=None, tracer=None, sync_timing: bool = False,
-                 device=None):
+                 device=None, shards: int = 1, devices=None):
         if window is not None and window > capacity:
             raise ValueError(f"window {window} exceeds capacity {capacity}")
         if window is not None and window < 1:
@@ -81,7 +90,14 @@ class ServingEngine:
             raise ValueError(f"capacity {capacity} < k {k}")
         if layout not in ("ring", "compact"):
             raise ValueError(f"unknown layout {layout!r}")
-        self.device = resolve(device)
+        if shards > 1 and n_sessions % shards != 0:
+            raise ValueError(
+                f"n_sessions {n_sessions} not divisible by shards "
+                f"{shards}; pad with inactive lanes "
+                "(core.distributed.pad_tenant_count)")
+        self.shards = shards
+        self.mesh, self.device = engine_utils.placement(shards, device,
+                                                         devices)
         self.n_sessions = n_sessions
         self.capacity = capacity
         self.dim = dim
@@ -105,15 +121,24 @@ class ServingEngine:
                 engine="classification", metrics=metrics, tracer=tracer,
                 sync=sync_timing, n_of=lambda s: s.knn.n,
                 head_of=lambda s: s.head, wrap_of=lambda s: s.wrap)
+            if self.mesh is not None:
+                self.telemetry.devices = self.mesh.flat()
 
     # -- state --------------------------------------------------------------
 
     def init_state(self) -> Session:
         """Empty batched sessions; sliding engines confine each ring to
-        the ``[:window]`` block (``wrap == window``)."""
-        return sess_m.init(self.capacity, self.dim, self.k,
-                           n_sessions=self.n_sessions, dtype=self.dtype,
-                           wrap=self._wmax, device=self.device)
+        the ``[:window]`` block (``wrap == window``). With ``shards > 1``
+        a ``TenantSharded`` state, each shard built on its device."""
+        return engine_utils.init_state(self, lambda S, dev: sess_m.init(
+            self.capacity, self.dim, self.k, n_sessions=S, dtype=self.dtype,
+            wrap=self._wmax, device=dev))
+
+    def shard_state(self, state):
+        """``state`` laid out as this engine serves it: split across its
+        tenant mesh, or gathered onto its one device (a restore, a state
+        of another engine)."""
+        return engine_utils.shard_state(self, state)
 
     def taus(self, generator: torch.Generator | None = None) -> torch.Tensor:
         """One tie-breaking uniform per tenant slot for this tick."""
@@ -165,10 +190,11 @@ class ServingEngine:
         with engine_utils.timed(self, "grow", tenants=self.n_sessions,
                                 capacity=self.capacity * factor,
                                 signature=self.capacity):
-            out = sess_m.grow(state, factor)
+            out = engine_utils.grow(self, state, factor, sess_m.grow)
         self.capacity = out.capacity
         if self._wmax is not None:
-            out.wrap = torch.full_like(out.wrap, self._wmax)
+            for part in dist.parts_of(out):
+                part.wrap = torch.full_like(part.wrap, self._wmax)
         return out
 
     def predict(self, state: Session, X_test) -> torch.Tensor:
@@ -184,8 +210,10 @@ class ServingEngine:
                                            self.capacity),
                                 tenants=self.n_sessions,
                                 capacity=self.capacity) as tm:
-            return tm.sync(sess_m.predict_pvalues(
-                state, X_test, k=self.k, n_labels=self.n_labels))
+            return tm.sync(engine_utils.read(
+                self, lambda st, xq: sess_m.predict_pvalues(
+                    st, xq, k=self.k, n_labels=self.n_labels),
+                state, X_test))
 
     # -- snapshot metadata --------------------------------------------------
 
@@ -199,14 +227,21 @@ class ServingEngine:
             "n_labels": self.n_labels,
             "window": self.window,
             "dtype": str(self.dtype).removeprefix("torch."),
+            "shards": self.shards,
         }
 
     @classmethod
-    def from_meta(cls, meta: dict[str, Any], device=None) -> "ServingEngine":
+    def from_meta(cls, meta: dict[str, Any], device=None,
+                  devices=None) -> "ServingEngine":
+        """The engine of a snapshot's meta. Its ``shards`` is kept where
+        that many devices exist (``devices``, else the visible ones of
+        ``device``'s kind) and ``n_sessions`` divides, else the engine
+        serves on one device, as the reference's does (bitwise the
+        same)."""
         meta = dict(meta)
-        meta.pop("shards", None)  # the JAX engine's tenant sharding
         meta["dtype"] = getattr(torch, meta.get("dtype", "float32"))
-        return cls(**meta, device=device)
+        place = engine_utils.meta_shards(meta, device, devices)
+        return cls(**meta, **place)
 
 
 __all__ = ["ServingEngine"]

@@ -23,8 +23,11 @@ linear order, every leaf padded with its inert fill; ``grow`` is
     fleet.retire("bob")                        # the lane returns to its pool
 
 Tenants past the last bucket stay in the last pool, whose engine grows as
-before. Tenant sharding across devices (the JAX fleet's ``shards``) is
-not ported.
+before. ``shards=N`` tenant-shards every pool engine across N devices
+(``core.distributed``; ``devices=`` names them, else N visible cards):
+``pool_sessions`` rounds up to a multiple of N, a lane write lands on
+its shard's device, and the served p-values are bitwise those of the
+one-device fleet (tested).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve
+from repro_torch.core import distributed as dist
 from repro_torch.regression import stream as reg_stream
 from repro_torch.regression.engine import RegressionServingEngine
 from repro_torch.regression.session import repad as repad_reg
@@ -64,16 +68,25 @@ class _Pool:
         self.free: list[int] = list(range(S - 1, -1, -1))
         self.lane_tenant: dict[int, Any] = {}
 
+    def _locate(self, lane: int):
+        """``(state or shard, lane in it)`` of pool lane ``lane``."""
+        if isinstance(self.state, dist.TenantSharded):
+            return self.state.locate(lane)
+        return self.state, lane
+
     def set_lane(self, lane: int, lane_state) -> None:
-        """Copy a one-lane state into lane ``lane``, in place."""
-        for dst, src in zip(self.state.leaves(), lane_state.leaves()):
-            dst[lane].copy_(src[0])
+        """Copy a one-lane state into lane ``lane``, in place (onto its
+        shard's device)."""
+        part, i = self._locate(lane)
+        for dst, src in zip(part.leaves(), lane_state.leaves()):
+            dst[i].copy_(src[0])
         self.engine.reset_occupancy()
 
     def get_lane(self, lane: int):
         """Lane ``lane`` as a one-lane state (views of the pool's)."""
-        return type(self.state).from_leaves(
-            [leaf[lane:lane + 1] for leaf in self.state.leaves()])
+        part, i = self._locate(lane)
+        return type(part).from_leaves(
+            [leaf[i:i + 1] for leaf in part.leaves()])
 
 
 class Fleet:
@@ -86,7 +99,9 @@ class Fleet:
     bucket bounds (``None``: powers of two); cap_min, cap_max: the
     bucket range, ``cap_min`` every new tenant's capacity (>= k);
     cost_ratio: each bucket's top-to-bottom modelled cost; pool_sessions:
-    lanes per pool engine (a full pool spills into a sibling); metrics: optional
+    lanes per pool engine, rounded up to a multiple of ``shards`` (a
+    full pool spills into a sibling); shards, devices: tenant-shard every
+    pool engine (``ServingEngine``'s); metrics: optional
     ``MetricsRegistry``; guard: check observe inputs on the host (finite
     features, label in range, tau in [0, 1]); a rejected tenant's tick
     is not run, its state stays bitwise unchanged and its p-value is NaN
@@ -97,19 +112,21 @@ class Fleet:
                  mode: str = "classification", cost_model=None,
                  cap_min: int = 32, cap_max: int = 4096,
                  cost_ratio: float = 2.0, pool_sessions: int = 64,
-                 dtype=torch.float32, metrics=None,
-                 guard: bool = False, device=None):
+                 dtype=torch.float32, shards: int = 1, devices=None,
+                 metrics=None, guard: bool = False, device=None):
         if mode not in ("classification", "regression"):
             raise ValueError(f"unknown fleet mode {mode!r}")
         if cap_min < k:
             raise ValueError(f"cap_min {cap_min} < k {k}")
-        self.device = resolve(device)
+        self.shards = shards
+        self.devices = devices
+        self.device = resolve(devices[0] if devices else device)
         self.dim = dim
         self.k = k
         self.n_labels = n_labels
         self.mode = mode
         self.dtype = dtype
-        self.pool_sessions = pool_sessions
+        self.pool_sessions = -(-pool_sessions // shards) * shards
         self.metrics = metrics
         self.guard = guard
         if cost_model is not None:
@@ -128,7 +145,8 @@ class Fleet:
     def _make_engine(self, capacity: int):
         kw = dict(n_sessions=self.pool_sessions, capacity=capacity,
                   dim=self.dim, k=self.k, window=None, dtype=self.dtype,
-                  device=self.device)
+                  device=self.device, shards=self.shards,
+                  devices=self.devices)
         if self.mode == "classification":
             return ServingEngine(n_labels=self.n_labels, **kw)
         return RegressionServingEngine(**kw)

@@ -20,6 +20,11 @@ clones the state on the device in tenant blocks (so the next in-place
 tick cannot reach it), and a worker thread copies the blocks to pinned
 host memory on a stream of its own and commits them, retrying transient
 write errors on a keyed backoff.
+
+A tenant-sharded state (``core.distributed.TenantSharded``) saves in the
+same format, its shards concatenated in lane order: a snapshot does not
+record how it was sharded beyond the meta's ``shards``, and restores
+onto any shard count (``engine.shard_state``), bit for bit.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import torch
 
 from repro_torch._device import BIG
 from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.core import distributed as dist
 from repro_torch.core.online import OnlineKnnState
 from repro_torch.regression.engine import RegressionServingEngine
 from repro_torch.regression.stream import RegStreamState
@@ -42,7 +48,7 @@ from repro_torch.serving.session import Session
 
 
 def _treedef(state) -> str:
-    t = type(state)
+    t = type(dist.parts_of(state)[0])
     return f"{t.__module__}.{t.__qualname__}"
 
 
@@ -140,13 +146,15 @@ class SessionStore:
     def save(self, step: int, state, *, meta: dict | None = None,
              blocking: bool = False) -> None:
         """Snapshot ``state`` (a ``Session`` or a ``RegStreamState``);
-        ``meta`` (``engine.meta()``) rides in the manifest. In the
+        ``meta`` (``engine.meta()``) rides in the manifest; a
+        tenant-sharded state is gathered to the host first. In the
         background by default: call ``wait()`` before exit."""
-        self._timed(
-            "snapshot_save",
-            lambda: self._store.save(step, state.leaves(),
-                                     treedef=_treedef(state),
-                                     blocking=blocking, extra=meta or {}))
+        def save():
+            whole = dist.gather_tenants(state, "cpu")
+            self._store.save(step, whole.leaves(), treedef=_treedef(state),
+                             blocking=blocking, extra=meta or {})
+
+        self._timed("snapshot_save", save)
 
     def wait(self) -> None:
         self._store.wait()
@@ -179,13 +187,17 @@ class SessionStore:
 
         return self._timed("snapshot_restore", restore)
 
-    def restore_engine(self, step: int | None = None, device=None):
+    def restore_engine(self, step: int | None = None, device=None,
+                       devices=None):
         """``(engine, state, step)`` from a snapshot saved with
         ``meta=engine.meta()`` (of either package): a ``ServingEngine``,
         or a ``RegressionServingEngine`` when the meta's mode is
         regression, on ``device`` (``cuda`` by default). Tenants,
-        capacity and dim come from the saved arrays; k, n_labels, window
-        and dtype from the meta."""
+        capacity and dim come from the saved arrays; k, n_labels, window,
+        dtype and shards from the meta: a sharded snapshot restores
+        sharded where that many devices exist (``devices``, else the
+        visible ones) and the tenant count divides, else on one device
+        (``engine.from_meta``)."""
         state, step, meta = self.restore(step, device=device)
         if "k" not in meta:
             raise ValueError(
@@ -202,21 +214,23 @@ class SessionStore:
         meta = {**meta, "n_sessions": int(state.D.shape[0]),
                 "capacity": int(state.D.shape[-1]), "dim": int(X.shape[-1])}
         cls = RegressionServingEngine if regression else ServingEngine
-        engine = cls.from_meta(meta, device=state.D.device)
-        return engine, _fit_ring_modulus(engine, state), step
+        engine = cls.from_meta(meta, device=state.D.device, devices=devices)
+        state = _fit_ring_modulus(engine, state)
+        return engine, engine.shard_state(state), step
 
 
 class AsyncShardedSaver:
     """Snapshots written off the serving loop, through a ``SessionStore``.
 
     ``save(step, state)`` clones the state on the device in ``shards``
-    tenant blocks (the clones are the snapshot: the next in-place tick
-    cannot change them), records a CUDA event after the clones and
-    queues them. A worker thread waits on that event on a stream of its
-    own, copies the blocks into pinned host buffers there (so the copies
-    overlap the next ticks), and commits the full state through the
-    store's atomic write. The queue holds at most ``depth`` snapshots
-    (backpressure instead of unbounded device memory).
+    tenant blocks (a tenant-sharded state: one block a shard, on its
+    device; the clones are the snapshot: the next in-place tick cannot
+    change them), records a CUDA event after each block's clones and
+    queues them. A worker thread waits on those events on a stream of
+    its own a device, copies the blocks into pinned host buffers there
+    (so the copies overlap the next ticks), and commits the full state
+    through the store's atomic write. The queue holds at most ``depth``
+    snapshots (backpressure instead of unbounded device memory).
 
     A transient write error (``OSError``, the chaos harness's
     ``TransientWriteError`` among them) is retried up to ``retries``
@@ -255,35 +269,49 @@ class AsyncShardedSaver:
         """Queue a snapshot of ``state`` (blocks only when ``depth``
         snapshots are already in flight)."""
         self._check_err()
-        leaves = state.leaves()
-        S = leaves[0].shape[0]
-        cuts = [S * i // self.shards for i in range(self.shards + 1)]
-        blocks = [[leaf[cuts[i]:cuts[i + 1]].clone() for leaf in leaves]
-                  for i in range(self.shards)]
-        ready = None
-        if leaves[0].is_cuda:
-            ready = torch.cuda.Event()
-            ready.record()
-        self._q.put((step, type(state), blocks, cuts, ready, meta))
+        if isinstance(state, dist.TenantSharded):
+            blocks = [[leaf.clone() for leaf in part.leaves()]
+                      for part in state.parts]
+            cuts = state.cuts
+        else:
+            leaves = state.leaves()
+            S = leaves[0].shape[0]
+            cuts = [S * i // self.shards for i in range(self.shards + 1)]
+            blocks = [[leaf[cuts[i]:cuts[i + 1]].clone() for leaf in leaves]
+                      for i in range(self.shards)]
+        ready = []
+        for block in blocks:
+            ev = None
+            if block[0].is_cuda:
+                with torch.cuda.device(block[0].device):
+                    ev = torch.cuda.Event()
+                    ev.record()
+            ready.append(ev)
+        self._q.put((step, type(dist.parts_of(state)[0]), blocks, cuts,
+                     ready, meta))
 
     @staticmethod
     def _to_host(blocks, cuts, ready) -> list:
         """The blocks assembled into full host leaves. On the card: one
         pinned buffer a leaf, filled block by block on the worker's own
-        stream after the clones' ``ready`` event."""
-        if ready is None:
+        stream of the block's device after its clones' ``ready`` event."""
+        if all(ev is None for ev in ready):
             return [torch.cat(ls) for ls in zip(*blocks)]
-        dev = blocks[0][0].device
-        stream = torch.cuda.Stream(device=dev)
-        with torch.cuda.stream(stream):
-            stream.wait_event(ready)
-            host = [torch.empty((cuts[-1],) + tuple(leaf.shape[1:]),
-                                dtype=leaf.dtype, pin_memory=True)
-                    for leaf in blocks[0]]
-            for i, block in enumerate(blocks):
+        host = [torch.empty((cuts[-1],) + tuple(leaf.shape[1:]),
+                            dtype=leaf.dtype, pin_memory=True)
+                for leaf in blocks[0]]
+        streams = {}
+        for i, (block, ev) in enumerate(zip(blocks, ready)):
+            dev = block[0].device
+            if dev not in streams:
+                streams[dev] = torch.cuda.Stream(device=dev)
+            stream = streams[dev]
+            with torch.cuda.stream(stream):
+                stream.wait_event(ev)
                 for h, leaf in zip(host, block):
                     h[cuts[i]:cuts[i + 1]].copy_(leaf, non_blocking=True)
-        stream.synchronize()
+        for stream in streams.values():
+            stream.synchronize()
         return host
 
     def _commit_with_retry(self, step: int, full, meta) -> None:

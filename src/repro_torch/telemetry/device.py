@@ -103,25 +103,36 @@ class TickStats:
     sync). ``drain()`` flushes, copies the accumulator to host ints,
     publishes them to ``metrics`` as ``engine_<stat>_total`` counters
     (``engine_<stat>`` gauges for the watermarks) and resets it.
+
+    A tenant-sharded engine records each shard's slice with ``shard=i``
+    (on that shard's device); ``drain`` then keeps one row a shard in
+    mesh order in ``shard_vals`` and merges the rows as ticks merge:
+    the counters summed, the watermarks' max.
     """
 
     def __init__(self, metrics=None, *, engine: str = "classification"):
         self.metrics = metrics
         self.engine = engine
         self.flush_every = FLUSH_EVERY
-        self._acc: torch.Tensor | None = None
-        self._pending: dict[tuple[int, int], list] = {}
+        self._acc: dict = {}  # shard (None: unsharded) -> stat vector
+        self._pending: dict[tuple, list] = {}
         self._n_pending = 0
         self.totals: dict[str, int] = {k: 0 for k in STAT_KEYS}
+        # the last drain's per-shard rows (sharded engines only): one
+        # {stat: int} dict a shard, in mesh order
+        self.shard_vals: list[dict[str, int]] = []
 
-    def fold(self, vec: torch.Tensor) -> None:
-        self._acc = vec if self._acc is None else combine(self._acc, vec)
+    def fold(self, vec: torch.Tensor, shard: int | None = None) -> None:
+        acc = self._acc.get(shard)
+        self._acc[shard] = vec if acc is None else combine(acc, vec)
 
-    def record(self, pre: torch.Tensor, window: int, actives) -> None:
+    def record(self, pre: torch.Tensor, window: int, actives,
+               shard: int | None = None) -> None:
         """Keep one chunk for the next ``flush``: ``pre (3, S)`` its
         pre-chunk ``n``, ``head``, ``wrap`` and ``actives (T, S)`` bool,
-        neither changed afterwards."""
-        key = (int(window), actives.shape[0])
+        neither changed afterwards; ``shard``: the tenant shard they are
+        the slice of."""
+        key = (shard, int(window), actives.shape[0])
         self._pending.setdefault(key, []).append((pre, actives))
         self._n_pending += 1
         if self._n_pending >= self.flush_every:
@@ -129,31 +140,45 @@ class TickStats:
 
     def flush(self) -> None:
         """Fold the recorded chunks' stats, one ``chunk_stats`` a group
-        of chunks with the same window and length."""
-        for (window, _), chunks in self._pending.items():
+        of chunks with the same shard, window and length."""
+        for (shard, window, _), chunks in self._pending.items():
             pre = torch.stack([c[0] for c in chunks])  # (C, 3, S)
             acts = torch.stack([c[1] for c in chunks])  # (C, T, S)
             self.fold(chunk_stats(pre[:, 0], pre[:, 1], pre[:, 2], window,
-                                  acts))
+                                  acts), shard)
         self._pending = {}
         self._n_pending = 0
 
     def reset(self) -> None:
         """Discard the pending chunks, the accumulator and the totals
         unpublished."""
-        self._acc = None
+        self._acc = {}
         self._pending = {}
         self._n_pending = 0
         self.totals = {k: 0 for k in STAT_KEYS}
+        self.shard_vals = []
+
+    def _merged(self) -> list[int]:
+        """The accumulator as host ints; sharded rows merged in mesh
+        order (sum, then the max at ``_MAX_MASK_IDX``)."""
+        if None in self._acc:
+            return [int(v) for v in self._acc[None].tolist()]
+        rows = [[int(v) for v in self._acc[i].tolist()]
+                for i in sorted(self._acc)]
+        self.shard_vals = [dict(zip(STAT_KEYS, row)) for row in rows]
+        merged = [sum(col) for col in zip(*rows)]
+        for i in _MAX_MASK_IDX:
+            merged[i] = max(row[i] for row in rows)
+        return merged
 
     def drain(self) -> dict[str, int]:
         """Flush, sync, publish and reset; returns this drain's host
         values."""
         self.flush()
-        if self._acc is None:
+        if not self._acc:
             return {k: 0 for k in STAT_KEYS}
-        vals = dict(zip(STAT_KEYS, (int(v) for v in self._acc.tolist())))
-        self._acc = None
+        vals = dict(zip(STAT_KEYS, self._merged()))
+        self._acc = {}
         for k, v in vals.items():
             if k in _MAX_KEYS:
                 self.totals[k] = max(self.totals[k], v)

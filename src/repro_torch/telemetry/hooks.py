@@ -13,7 +13,8 @@ asynchronous, so by default it is the enqueue time, as the JAX
 package's dispatch time is. ``sync=True`` makes it device-true: the
 engines pass each operation's output through the yielded handle's
 ``sync()``, which synchronises the current stream inside the timed
-region and stamps the record's ``dispatch_s``.
+region (of every device in ``devices``, a tenant-sharded engine's mesh)
+and stamps the record's ``dispatch_s``.
 """
 from __future__ import annotations
 
@@ -32,21 +33,23 @@ class _TimedHandle:
     """Yielded by ``EngineTelemetry.timed``; carries late record fields.
 
     ``sync(value)`` passes ``value`` through; with ``sync=True`` it first
-    synchronises the current CUDA stream (when ``value`` is on a card)
-    and stamps ``dispatch_s``.
+    synchronises the current CUDA stream of each of ``devices`` (default:
+    ``value``'s, when it is on a card) and stamps ``dispatch_s``.
     """
 
-    __slots__ = ("_sync", "_t0", "late")
+    __slots__ = ("_sync", "_t0", "_devices", "late")
 
-    def __init__(self, sync_enabled: bool, t0: float):
+    def __init__(self, sync_enabled: bool, t0: float, devices=None):
         self._sync = sync_enabled
         self._t0 = t0
+        self._devices = devices
         self.late: dict[str, Any] = {}
 
     def sync(self, value):
         if self._sync:
             if isinstance(value, torch.Tensor) and value.is_cuda:
-                torch.cuda.current_stream(value.device).synchronize()
+                for dev in dict.fromkeys(self._devices or [value.device]):
+                    torch.cuda.current_stream(dev).synchronize()
             self.late["dispatch_s"] = time.perf_counter() - self._t0
         return value
 
@@ -65,6 +68,8 @@ class EngineTelemetry:
         self.metrics = metrics if metrics is not None else get_registry()
         self.tracer = tracer
         self.sync = sync
+        #: every device ``sync`` waits for (a tenant-sharded engine's mesh)
+        self.devices = None
         self._accessors = (n_of, head_of, wrap_of)
         self.ticks = (TickStats(self.metrics, engine=engine)
                       if n_of is not None else None)
@@ -104,19 +109,21 @@ class EngineTelemetry:
             ann = torch.profiler.record_function(f"repro.{op}")
         with ann:
             t0 = time.perf_counter()
-            handle = _TimedHandle(self.sync, t0)
+            handle = _TimedHandle(self.sync, t0, self.devices)
             yield handle
             wall = time.perf_counter() - t0
         self.record_op(op, wall, compile_flag=compile_flag, ticks=ticks,
                        tenants=tenants, capacity=capacity,
                        dispatch_s=handle.late.get("dispatch_s"))
 
-    def record_chunk(self, state, window: int, actives) -> None:
+    def record_chunk(self, state, window: int, actives,
+                     shard: int | None = None) -> None:
         """Copy the pre-chunk ``n``/``head``/``wrap`` of ``state`` and the
         ``(T, S)`` active mask on the device (two launches) for the tick
-        stats. Call before the chunk's first tick."""
+        stats. Call before the chunk's first tick; a tenant-sharded
+        engine calls it a shard, with ``shard`` its index."""
         pre = torch.stack([f(state) for f in self._accessors])
-        self.ticks.record(pre, window, actives.clone())
+        self.ticks.record(pre, window, actives.clone(), shard)
 
     def drain(self) -> dict[str, int]:
         """Publish the accumulated device tick stats (one host sync)."""

@@ -64,7 +64,8 @@ records pay their true (larger) sojourn.
 ``shards > 1`` replays contiguous tenant groups against per-shard
 engines on the one device, each with its own registry, merged into the
 report (the multi-process collection shape). It is not the
-device-sharded ``Fleet(shards>1)``, which the port does not have.
+device-sharded engine (``ServingEngine(shards=N)``, ``Fleet(shards=N)``,
+``core.distributed``), which splits one engine's tenants across devices.
 """
 from __future__ import annotations
 

@@ -255,7 +255,7 @@ def test_cpu_audit_exits_zero_and_ok(cpu_report):
     assert {"checks", "summary", "ok", "targets", "torch", "device"} <= \
         set(rep)
     assert rep["device"] == "cpu" and rep["summary"]["fail"] == 0
-    assert rep["matrix"] == {"engine_targets": 8, "measure_targets": 6,
+    assert rep["matrix"] == {"engine_targets": 16, "measure_targets": 6,
                              "quick": False}
 
 
@@ -276,7 +276,8 @@ def test_cpu_audit_statuses(cpu_report):
             else "pass")
         assert status[("steady-state", name)] == "pass"
         assert status[("host-sync", name)] == "skipped"
-        assert status[("collective-freedom", name)] == "skipped"
+        assert status[("collective-freedom", name)] == (
+            "pass" if t["shards"] > 1 else "skipped")
 
 
 def test_quick_audit_matrix(tmp_path):

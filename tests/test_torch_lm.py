@@ -352,9 +352,13 @@ def test_lm_classifier_pvalues():
                                   _counts(want, 70)[~ties])
     assert torch.equal(clf.prediction_sets(queries, 0.2),
                        torch.from_numpy(got > 0.2))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        lmc.ConformalLmClassifier(n_labels=3, device="cpu").fit(
-            emb, y, mesh=object())
+    # a mesh of one device takes the plain path (the reference's rule);
+    # sharded meshes: tests/test_torch_distributed.py
+    from repro_torch.core import distributed as dist
+    one = lmc.ConformalLmClassifier(n_labels=3, k=5).fit(
+        emb, y, mesh=dist.make_mesh((1, 1), ("data", "model"), ["cpu"]))
+    assert one._sharded_fn is None
+    assert torch.equal(one.pvalues(queries), clf.pvalues(queries))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -418,6 +418,6 @@ def test_serve_replay_refusals(tmp_path):
             serve.main(["--replay", "loadgen:steady", "--sessions", "3",
                         "--steps", "8", "--shards", shards, "--device",
                         "cpu"])
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="exceeds the 1 visible device"):
         serve.main(["--sessions", "4", "--steps", "4", "--shards", "2",
                     "--device", "cpu"])

@@ -9,8 +9,10 @@ one ``TokenStream`` batch (with the front ends' ``patch_embeds`` /
 backward is ``flash_attention_bwd``, the MoE's router gets its gradient
 through the top-K weights and the load-balancing loss, the recurrences
 through their scans. Then the same loss with ``remat="full"``
-(``torch.utils.checkpoint`` around each layer) gives bitwise the same
-gradients.
+(``torch.utils.checkpoint`` around each layer) and ``remat="dots"``
+(the products without a batch dimension saved, the rest recomputed)
+gives bitwise the same gradients, and the ``dots`` gradients hold the
+same tolerance against JAX's taken with ``remat="dots"``.
 """
 import numpy as np
 import pytest
@@ -51,8 +53,11 @@ def test_train_step_loss_and_grads_against_jax(arch):
     jl, jg = jax.value_and_grad(lambda q: jlm.train_step_loss(
         q, jc, {k: jnp.asarray(v) for k, v in b.items()}))(jp)
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    jgd = jax.grad(lambda q: jlm.train_step_loss(
+        q, jc.replace(remat="dots"),
+        {k: jnp.asarray(v) for k, v in b.items()}))(jp)
     grads = []
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         p = convert.lm_params_from_numpy(jax.tree.map(np.asarray, jp),
                                          c.replace(remat=remat),
                                          device="cpu")
@@ -61,12 +66,15 @@ def test_train_step_loss_and_grads_against_jax(arch):
         loss.backward()
         grads.append(convert.lm_params_to_numpy(p, grads=True))
         np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-6)
-    got, tree = jax.tree.flatten(grads[0])
-    want, jtree = jax.tree.flatten(jax.tree.map(np.asarray, jg))
-    assert tree == jtree
-    for a, w in zip(got, want):
-        assert a.shape == w.shape
-        assert float(np.abs(a - w).max()) <= (
-            1e-4 * float(np.abs(w).max()) + 1e-7)
-    for a, r in zip(got, jax.tree.leaves(grads[1])):
-        np.testing.assert_array_equal(a, r)
+    for g, jgrads in ((grads[0], jg), (grads[2], jgd)):
+        got, tree = jax.tree.flatten(g)
+        want, jtree = jax.tree.flatten(jax.tree.map(np.asarray, jgrads))
+        assert tree == jtree
+        for a, w in zip(got, want):
+            assert a.shape == w.shape
+            assert float(np.abs(a - w).max()) <= (
+                1e-4 * float(np.abs(w).max()) + 1e-7)
+    got = jax.tree.leaves(grads[0])
+    for other in grads[1:]:
+        for a, r in zip(got, jax.tree.leaves(other)):
+            np.testing.assert_array_equal(a, r)
