@@ -258,7 +258,20 @@ exits non-zero without a result line:
    subprocess under ``use_deterministic_algorithms``, 3 qwen2-1.5b steps
    (full width and depth, bf16, 8 x 512) with remat "dots" bitwise those
    of "full" (losses and every final parameter), step ms and peak GiB of
-   each. The launches of (a) and (b) count under ``sharded``.
+   each. The launches of (a) and (b) count under ``sharded``;
+17. the dry run (``launch.dryrun``, ``sharding/``, ``analysis.flops``):
+   (a) ``--all --both-meshes`` in this process (the FLOP counts in
+   ``DRYRUN_JOBS`` worker processes), every architecture x its shapes x
+   the 16x16 and 2x16x16 meshes built on ``meta``: every cell ``ok`` or
+   ``skipped``, the ``ok`` cells exactly the reference's grid, the time;
+   (b) one qwen2-1.5b train step on the card at phase 15's shape (bf16, 8
+   x 512, remat ``full``, a 1 x 1 mesh) under ``FlopCounter``: its FLOPs,
+   transcendentals and products == the same step's count on ``meta``,
+   exactly, with ``flash_attention`` launched twice a layer (the forward
+   and the recompute), counted by its formula; (c) that step's counted
+   argument bytes (the rules' placements on the 1 x 1 mesh) == the
+   storage bytes of the parameters, optimizer state and batch the card
+   holds. The launches of (b) count under ``dryrun``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -5059,6 +5072,140 @@ def sharded_path(S, W, X, y, Xq, iters, dev="cuda") -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run (launch/dryrun.py, sharding/, analysis/flops.py)
+# ---------------------------------------------------------------------------
+
+DRYRUN_JOBS = 8  # worker processes of (a)'s FLOP counts: the host's cores
+
+
+def dryrun_grid() -> None:
+    """Phase 17 (a): the whole grid on ``meta``; every cell ``ok`` or
+    ``skipped`` and the ``ok`` cells the reference's grid."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        out = os.path.join(d, "dryrun.json")
+        rc = dryrun.main(["--all", "--both-meshes", "--jobs",
+                          str(DRYRUN_JOBS), "--out", out])
+        with open(out) as f:
+            cells = json.load(f)
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"dryrun --all --both-meshes exit 0 (got {rc})")
+    status = {}
+    for c in cells:
+        status[c["status"]] = status.get(c["status"], 0) + 1
+    check(set(status) <= {"ok", "skipped"}, f"dryrun cells ok or skipped: "
+          f"{status}")
+    grid = {(a, s, m) for a in configs.names()
+            for s in configs.get(a).shapes for m in ("16x16", "2x16x16")}
+    ok = {(c["arch"], c["shape"], c["mesh"]) for c in cells
+          if c["status"] == "ok"}
+    check(ok == grid, f"dryrun ok cells == the reference's grid "
+          f"({len(ok)} vs {len(grid)})")
+    check(all(c["flops_global"] > 0 and c["memory"]["argument_bytes"] > 0
+              for c in cells if c["status"] == "ok"),
+          "dryrun: every ok cell counted FLOPs and bytes")
+    print(f"[dryrun] (a) --all --both-meshes in {secs:.1f} s "
+          f"({DRYRUN_JOBS} counting processes): {len(cells)} cells, "
+          f"{status}")
+
+
+def dryrun_step(dev="cuda") -> dict:
+    """Phase 17 (b), (c): a qwen2-1.5b train step on the card against its
+    count on ``meta``. Returns the step's launch counts."""
+    from repro_torch import configs
+    from repro_torch.analysis.flops import FlopCounter
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import batch_struct, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.sharding import batch_pspecs, param_pspecs
+
+    cfg = configs.get(TRAIN_ARCH)
+    shape = ShapeSpec("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ocfg = OptimizerConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, ocfg)
+
+    def cell(device):
+        params = lm.init_lm(SEED, cfg, device=device).requires_grad_(True)
+        batch = batch_struct(cfg, shape, device)
+        if device != "meta":
+            g = torch.Generator(device=device).manual_seed(SEED)
+            for t in batch.values():
+                t.copy_(torch.randint(0, cfg.vocab_size, t.shape,
+                                      generator=g, device=device))
+        return params, init_opt_state(params, ocfg), batch
+
+    def counted(args):
+        with FlopCounter() as c:
+            step(*args)
+        return c
+
+    mesh = make_mesh((1, 1), ("data", "model"), [torch.device(dev)])
+    args = cell(dev)
+    specs = (param_pspecs(args[0], mesh), param_pspecs(args[1], mesh),
+             batch_pspecs(args[2], mesh))
+    counted_bytes = dryrun.cell_bytes(cfg, shape, "train", args, specs,
+                                      mesh)["argument_bytes"]
+    storages = {}
+    for t in (*args[0].parameters(), *args[1]["mu"].values(),
+              *(v for nu in args[1]["nu"].values() for v in nu.values()),
+              args[1]["step"], *args[2].values()):
+        storages[t.untyped_storage().data_ptr()] = \
+            t.untyped_storage().nbytes()
+    held = sum(storages.values())
+    check(counted_bytes == held, f"dryrun (c): counted argument bytes "
+          f"{counted_bytes} == the card's storages {held}")
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = counted(args)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = ops.kernel_launches()
+    del args
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta = counted(cell("meta"))
+    meta_s = time.perf_counter() - t0
+    flash = counts["flash_attention"]
+    check(flash == 2 * cfg.n_layers, f"dryrun (b): flash_attention launched "
+          f"twice a layer ({flash})")
+    check(all(n == 0 for k, n in counts.items() if k != "flash_attention"),
+          "dryrun (b): no other kernel on the step")
+    for what in ("flops", "transcendental", "matmul"):
+        a, b = getattr(card, what), getattr(meta, what)
+        check(a == b, f"dryrun (b): the card's {what} {a!r} == meta's {b!r}")
+    attn = card.by_op["flash_attention"]
+    print(f"[dryrun] (b) {TRAIN_ARCH} step {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"(remat {cfg.remat}): card {card.flops:.6e} FLOPs "
+          f"({card.matmul:.6e} in products, {card.transcendental:.6e} "
+          f"transcendental; flash_attention {attn:.6e} by its formula, "
+          f"{flash} launches) == meta, exactly; step {card_s:.2f} s on the "
+          f"card under the counter, the meta count {meta_s:.2f} s; (c) "
+          f"argument bytes {counted_bytes} == the card's storages")
+    return counts
+
+
+def dryrun_path(dev="cuda") -> dict:
+    """Phase 17: (a) the grid, (b) and (c) the qwen2 step. Returns the
+    launch counts of (b)."""
+    t_phase = time.perf_counter()
+    dryrun_grid()
+    counts = dryrun_step(dev)
+    print(f"[dryrun] phase 17 in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=1024,
@@ -5146,6 +5293,8 @@ def main(argv=None) -> int:
     by_path["train"] = train_path()
     torch.cuda.empty_cache()
     by_path["sharded"] = sharded_path(S, W, Xb, yb, Xq, args.iters)
+    torch.cuda.empty_cache()
+    by_path["dryrun"] = dryrun_path()
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

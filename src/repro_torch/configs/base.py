@@ -1,11 +1,14 @@
 """Architecture configuration schema, the port's own copy.
 
-Counterpart of ``repro/configs/base.py``: the fields, ``resolved_head_dim``,
-``padded_vocab_size``, ``pattern``, ``n_params()`` and ``reduced()`` are
-the same, so a config names the same shapes in both packages. The
-sharding fields of the reference (parallelism, microbatching, remat,
-layer scans) have no meaning in the port, which runs on one card; they are
-kept so that a reader can hold the two dataclasses side by side.
+Counterpart of ``repro/configs/base.py``: the fields, ``LM_SHAPES``,
+``shape_by_name``, ``resolved_head_dim``, ``padded_vocab_size``,
+``pattern``, ``strategy_for``, ``n_params()``, ``active_params()`` and
+``reduced()`` are the same, so a config names the same shapes in both
+packages. The sharding fields (parallelism and its per-shape overrides,
+the microbatch target) are read by the dry run (``launch/dryrun.py``,
+``sharding/``), which places each architecture on the production meshes
+by arithmetic; ``remat`` is read by the train step; ``scan_layers`` has
+no meaning in the port, whose layers are a Python loop.
 """
 from __future__ import annotations
 
@@ -21,6 +24,21 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", 4_096, 256, "train"),
+    ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    ShapeSpec("long_500k", 524_288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeSpec:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
 
 
 @dataclass(frozen=True)
@@ -101,6 +119,12 @@ class ArchConfig:
 
     source: str = ""  # provenance note
 
+    def strategy_for(self, shape_name: str) -> str:
+        for name, strat in self.parallelism_overrides:
+            if name == shape_name:
+                return strat
+        return self.parallelism
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -158,6 +182,19 @@ class ArchConfig:
             total += 2 * d  # norms
         return int(total)
 
+    def active_params(self) -> int:
+        """Active (per-token) parameters: an MoE counts its top-k experts
+        only."""
+        if self.moe.n_experts == 0:
+            return self.n_params()
+        mo = self.moe
+        n_moe_layers = sum(
+            1 for k in self.pattern
+            if k in ("attn", "attn_local") and self.moe.n_experts > 0)
+        inactive = (mo.n_experts - mo.n_experts_per_token)
+        return int(self.n_params()
+                   - n_moe_layers * inactive * 3 * self.d_model * mo.d_ff)
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -203,4 +240,5 @@ def _pattern_period(pat: tuple) -> int:
     return len(pat)
 
 
-__all__ = ["ArchConfig", "MoeConfig", "MlaConfig", "ShapeSpec"]
+__all__ = ["ArchConfig", "MoeConfig", "MlaConfig", "ShapeSpec", "LM_SHAPES",
+           "shape_by_name"]

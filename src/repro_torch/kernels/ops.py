@@ -11,8 +11,9 @@ per-tenant form and keeps the launch counts, ``stream_update``'s per mode
 ``kde_rowsums`` takes the unbatched ``(m, p)`` form of the batch measures;
 ``flash_attention`` the ``(B, S, H, D)`` layout of the LM substrate (bf16
 or f32 on the card), through a ``torch.autograd.Function`` whose forward
-is the kernel's single launch (the plain version on the CPU) and whose
-backward is ``flash_attention_bwd`` on both devices.
+is the kernel's single launch (the plain version on the CPU and on
+``meta``, the dry run's device) and whose backward is
+``flash_attention_bwd`` on every device.
 
 The bootstrap measure's forest (``boot_fit_forest``, ``boot_forest_predict``)
 is plain PyTorch on the device it is given (``boot_forest.py``): numpy in
@@ -22,7 +23,10 @@ the bytes it copies to the card.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch._device import resolve
 from repro_torch.kernels import boot_forest as _boot
@@ -48,9 +52,24 @@ KERNELS = {
     "flash_attention": _flash,
 }
 
-# past this many score elements per (batch, head), a CPU tensor takes the
-# chunked online-softmax version, so long sequences stay memory-bounded
+# past this many score elements per (batch, head), a CPU or meta tensor
+# takes the chunked online-softmax version, so long sequences stay
+# memory-bounded
 _DENSE_SCORE_LIMIT = DENSE_SCORE_LIMIT
+# the devices on which flash_attention runs its plain version: the CPU, and
+# ``meta`` (the dry run's shapes-only tensors), where no kernel can launch
+_PLAIN_DEVICES = ("cpu", "meta")
+
+
+def flop_counter():
+    """The innermost active ``analysis.flops.FlopCounter``, or None: it
+    counts a flash_attention call at its boundary (the kernel's launch is
+    invisible to it). A dispatch mode, so the autograd engine's device
+    threads (a checkpoint's recomputation on the card) see it too."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "counts_attention", False):
+            return mode
+    return None
 
 
 def kernel_launches() -> dict[str, int]:
@@ -151,18 +170,33 @@ def stream_tick(X, y, nbr_d, nbr_y, x_new, y_new, n, *, mode, head=None,
                           new_aid=new_aid)
 
 
+def _plain_attention(q, k, v, **kw):
+    """The plain version's route off the card: dense, or past
+    ``_DENSE_SCORE_LIMIT`` score elements chunked; on ``meta``, which holds
+    no memory to bound, as one block of every query and key."""
+    if q.shape[1] * k.shape[1] <= _DENSE_SCORE_LIMIT:
+        return _ref.flash_attention(q, k, v, **kw)
+    if q.device.type == "meta":
+        kw = dict(kw, block_q=q.shape[1], block_k=k.shape[1])
+    return _ref.chunked_attention(q, k, v, **kw)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The kernel (or on the CPU the plain version) forward;
-    ``flash_attention_bwd`` backward, from the saved operands."""
+    """The kernel (or on the CPU and ``meta`` the plain version) forward;
+    ``flash_attention_bwd`` backward, from the saved operands. Under an
+    active ``flop_counter()`` the forward counts by its formula, whichever
+    route runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, softcap):
         kw = dict(causal=causal, window=window, scale=scale, softcap=softcap)
-        if (q.device.type == "cpu"
-                and q.shape[1] * k.shape[1] > _DENSE_SCORE_LIMIT):
-            out = _ref.chunked_attention(q, k, v, **kw)
-        else:
-            out = _flash(q, k, v, **kw)
+        counter = flop_counter()
+        with (contextlib.nullcontext() if counter is None
+              else counter.attention(q, k, v, **kw)):
+            if q.device.type in _PLAIN_DEVICES:
+                out = _plain_attention(q, k, v, **kw)
+            else:  # the kernel, or it raises
+                out = _flash(q, k, v, **kw)
         if any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(q, k, v)
             ctx.kw = kw
@@ -180,9 +214,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                     softcap=None):
     """Attention ``(B, Sq, H, D)`` over ``k, v (B, Skv, Hkv, D)``, as
     ``repro/kernels/ops.py::flash_attention`` routes it: the kernel on the
-    card; on the CPU the plain dense version, or the chunked one past
-    ``_DENSE_SCORE_LIMIT`` score elements. Differentiable in ``q, k, v``
-    (``flash_attention_bwd``)."""
+    card; on the CPU and on ``meta`` the plain dense version, or the
+    chunked one past ``_DENSE_SCORE_LIMIT`` score elements.
+    Differentiable in ``q, k, v`` (``flash_attention_bwd``)."""
     return _FlashAttention.apply(q, k, v, causal, window, scale, softcap)
 
 

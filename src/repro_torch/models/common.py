@@ -3,7 +3,10 @@
 Counterpart of ``repro/models/common.py``. Parameters keep the JAX shapes
 and are applied with ``torch.einsum``; the initialisers draw from an
 explicit ``torch.Generator`` (they cannot give ``jax.random``'s numbers:
-tests carry the JAX weights across with ``serving.convert``).
+tests carry the JAX weights across with ``serving.convert``). On the
+``meta`` device, where no generator exists, ``META_DRAWS`` stands in for
+one: the initialisers then draw nothing and return empty ``meta``
+tensors of the same shapes and dtypes (the dry run's models).
 """
 from __future__ import annotations
 
@@ -59,11 +62,33 @@ def frozen(tree) -> nn.Module:
                           for k, v in tree.items()})
 
 
+class _MetaDraws:
+    """The generator of a ``meta`` build: ``device`` is ``meta`` and the
+    initialisers draw nothing from it (``torch.Generator(device="meta")``
+    does not exist)."""
+
+    device = torch.device("meta")
+
+
+META_DRAWS = _MetaDraws()
+
+
+def uniform(shape, generator) -> torch.Tensor:
+    """f32 uniform draws on [0, 1) on ``generator``'s device (an empty
+    ``meta`` tensor from ``META_DRAWS``)."""
+    if generator is META_DRAWS:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=generator, device=generator.device,
+                      dtype=torch.float32)
+
+
 def dense_init(shape, dtype, generator: torch.Generator,
                scale: float | None = None) -> torch.Tensor:
     """Truncated normal on [-2, 2] at fan-in scale (``1/sqrt(fan_in)``
     unless ``scale``), drawn in f32 by the inverse CDF, cast to
     ``dtype``."""
+    if generator is META_DRAWS:
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = math.prod(shape[:-1]) if len(shape) >= 2 else (
         shape[0] if shape else 1)
     std = scale if scale is not None else fan_in ** -0.5
@@ -81,6 +106,8 @@ def expert_init(shape, dtype, generator: torch.Generator) -> torch.Tensor:
     one expert at a time: the f32 draw's temporaries never exceed one
     expert's size (deepseek-v2's ``w_gate`` is 5 GB in f32 whole)."""
     out = torch.empty(shape, dtype=dtype, device=generator.device)
+    if generator is META_DRAWS:
+        return out
     std = math.prod(shape[:-1]) ** -0.5
     for e in range(shape[0]):
         out[e] = dense_init(shape[1:], dtype, generator, scale=std)
@@ -88,6 +115,8 @@ def expert_init(shape, dtype, generator: torch.Generator) -> torch.Tensor:
 
 
 def embed_init(shape, dtype, generator: torch.Generator) -> torch.Tensor:
+    if generator is META_DRAWS:
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.randn(shape, generator=generator, device=generator.device,
                        dtype=torch.float32).to(dtype)
 
@@ -161,6 +190,7 @@ def softcap(logits, cap: float | None):
     return cap * torch.tanh(logits / cap)
 
 
-__all__ = ["frozen", "ParamTree", "dense_init", "expert_init", "embed_init",
+__all__ = ["frozen", "ParamTree", "META_DRAWS", "uniform", "dense_init",
+           "expert_init", "embed_init",
            "rms_norm", "layer_norm", "act_fn", "rope_frequencies",
            "apply_rope", "sinusoidal_positions", "softcap"]

@@ -35,8 +35,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_m
 from repro_torch.models import blocks as blk
-from repro_torch.models.common import (dense_init, embed_init, frozen,
-                                       sinusoidal_positions)
+from repro_torch.models.common import (META_DRAWS, dense_init, embed_init,
+                                       frozen, sinusoidal_positions)
 
 POS_DEC = 32_768  # learned decoder positions: the largest assigned shape
 Z_LOSS_COEF = 1e-4
@@ -110,10 +110,15 @@ def init_lm(generator: torch.Generator | int, cfg: ArchConfig,
     with an int, on ``device``: cuda unless given). The embedding is scaled
     by ``d ** -0.5`` (unit-variance tied logits at init), over the padded
     vocabulary. An encoder-decoder also gets its encoder, its per-layer
-    cross-attention and its learned decoder positions."""
+    cross-attention and its learned decoder positions.
+
+    On ``device="meta"`` the seed is unused: every leaf is an empty
+    ``meta`` tensor (no memory, nothing drawn) of a real init's shape,
+    dtype and name, the dry run's stand-in for the weights."""
     if not isinstance(generator, torch.Generator):
-        generator = torch.Generator(device=resolve(device)).manual_seed(
-            int(generator))
+        dev = resolve(device)
+        generator = (META_DRAWS if dev.type == "meta" else
+                     torch.Generator(device=dev).manual_seed(int(generator)))
     dtype = dtype_of(cfg.param_dtype)
     embed = embed_init((cfg.padded_vocab_size, cfg.d_model), dtype,
                        generator) * (cfg.d_model ** -0.5)

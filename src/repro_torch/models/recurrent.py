@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import act_fn, dense_init, frozen
+from repro_torch.models.common import act_fn, dense_init, frozen, uniform
 
 _CHUNK = 256
 _NEG = -1e30
@@ -106,8 +106,7 @@ def init_rglru_block(generator: torch.Generator, cfg: ArchConfig,
     dev = generator.device
     # lam so that a = sigmoid(lam)^c covers [0.9, 0.999] (Griffin's init)
     c = 8.0
-    u = 0.9 + (0.999 - 0.9) * torch.rand((w,), generator=generator,
-                                         device=dev, dtype=torch.float32)
+    u = 0.9 + (0.999 - 0.9) * uniform((w,), generator)
     lam = torch.log(u ** (1.0 / c) / (1.0 - u ** (1.0 / c)))
     return frozen({
         "w_in": dense_init((d, w), dtype, generator),
