@@ -5077,11 +5077,17 @@ def sharded_path(S, W, X, y, Xq, iters, dev="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 DRYRUN_JOBS = 8  # worker processes of (a)'s FLOP counts: the host's cores
+# the mesh whose dense cells (a) also counts by census, for phase 18 (c):
+# the 2 x 16 x 16 mesh's take minutes a cell (DTensor's planner), so the
+# smoke leaves them to ``python -m repro_torch.launch.dryrun``
+CENSUS_MESH = "16x16"
 
 
-def dryrun_grid() -> None:
-    """Phase 17 (a): the whole grid on ``meta``; every cell ``ok`` or
-    ``skipped`` and the ``ok`` cells the reference's grid."""
+def dryrun_grid() -> list:
+    """Phase 17 (a): the whole grid on ``meta`` (the dense cells' censuses
+    in the same workers, read by phase 18 (c)); every cell ``ok`` or
+    ``skipped`` and the ``ok`` cells the reference's grid. Returns the
+    cells."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
 
@@ -5089,7 +5095,8 @@ def dryrun_grid() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
         out = os.path.join(d, "dryrun.json")
         rc = dryrun.main(["--all", "--both-meshes", "--jobs",
-                          str(DRYRUN_JOBS), "--out", out])
+                          str(DRYRUN_JOBS), "--census", CENSUS_MESH,
+                          "--out", out])
         with open(out) as f:
             cells = json.load(f)
     secs = time.perf_counter() - t0
@@ -5111,6 +5118,7 @@ def dryrun_grid() -> None:
     print(f"[dryrun] (a) --all --both-meshes in {secs:.1f} s "
           f"({DRYRUN_JOBS} counting processes): {len(cells)} cells, "
           f"{status}")
+    return cells
 
 
 def dryrun_step(dev="cuda") -> dict:
@@ -5195,14 +5203,328 @@ def dryrun_step(dev="cuda") -> dict:
     return counts
 
 
-def dryrun_path(dev="cuda") -> dict:
+def dryrun_path(dev="cuda") -> tuple:
     """Phase 17: (a) the grid, (b) and (c) the qwen2 step. Returns the
-    launch counts of (b)."""
+    launch counts of (b) and the grid's cells."""
     t_phase = time.perf_counter()
-    dryrun_grid()
+    cells = dryrun_grid()
     counts = dryrun_step(dev)
     print(f"[dryrun] phase 17 in {time.perf_counter() - t_phase:.1f} s; "
           f"launches {counts}")
+    return counts, cells
+
+
+# ---------------------------------------------------------------------------
+# phase 18: sharded training over a process group, and the census
+# (launch/train.py, sharding/, runtime/trainer.py, analysis/census.py)
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 5  # (a)'s steps a mesh
+SHARD_MAX = 4  # at most this many cards for (a)'s (N, 1) and (1, N)
+SHARD_LOSS_RTOL = 1e-3
+CENSUS_TEMP_RTOL = 0.1
+
+
+def shard_train(shape, root, census: bool = False) -> dict:
+    """Phase 18 (a): ``launch.train`` at phase 15's shape for
+    ``SHARD_STEPS`` steps on a ``shape`` mesh, one process a card (no
+    checkpoint). Returns ``{"losses", "launches", "census", "s"}``."""
+    d, m = shape
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            TRAIN_ARCH, "--steps", str(SHARD_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--lr",
+            str(TRAIN_LR), "--seed", str(SEED), "--ckpt-every", "0",
+            "--log-every", "1", "--data-axis", str(d), "--model-axis",
+            str(m), "--ckpt-dir", os.path.join(root, f"ck{d}x{m}")]
+    if TRAIN_REDUCED:
+        argv.append("--reduced")
+    out_json = os.path.join(root, f"census{d}x{m}.json")
+    if census:
+        argv += ["--census-out", out_json]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    h0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, env=env,
+                       cwd=ROOT, timeout=600)
+    secs = time.perf_counter() - h0
+    check(r.returncode == 0, f"sharded train ({d}, {m}) exit 0: "
+          f"{r.stderr[-3000:]}")
+    lines = {ln.split(" ", 2)[1]: ln.split(" ", 2)[2]
+             for ln in r.stdout.splitlines()
+             if ln.startswith("[train] losses ")
+             or ln.startswith("[train] launches ")}
+    step_s = [float(m.group(1)) for m in re.finditer(r"'sec': ([0-9.]+)",
+                                                     r.stdout)]
+    res = {"losses": json.loads(lines["losses"]),
+           "launches": json.loads(lines["launches"]), "s": secs,
+           "step_ms": 1e3 * float(np.median(step_s[1:] or step_s))}
+    if census:
+        with open(out_json) as f:
+            res["census"] = json.load(f)
+    return res
+
+
+def fake_census(shape) -> dict:
+    """The census of (a)'s sharded step on ``meta`` over a fake group of
+    ``prod(shape)`` ranks (the cards' collective forms)."""
+    from repro_torch import configs
+    from repro_torch.analysis.census import Census
+    from repro_torch.launch.mesh import fake_device_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.boundary import compressed_boundaries
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.activation import activation_mesh
+
+    cfg = configs.get(TRAIN_ARCH)
+    if TRAIN_REDUCED:
+        cfg = cfg.reduced()
+    ocfg = OptimizerConfig(peak_lr=TRAIN_LR, end_lr=TRAIN_LR / 10,
+                           warmup_steps=max(1, SHARD_STEPS // 20),
+                           total_steps=SHARD_STEPS)
+    mesh = fake_device_mesh(shape, ("data", "model"), "cuda")
+    p = lm.init_lm(SEED, cfg, device="meta")
+    p, o = rules.distribute_state(p, init_opt_state(p, ocfg), mesh)
+    p.requires_grad_(True)
+    b = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                        device="meta") for k in ("tokens", "labels")}
+    b = rules.distribute(b, rules.batch_pspecs(b, mesh), mesh)
+    with compressed_boundaries(), activation_mesh(mesh), Census() as c:
+        out = make_train_step(cfg, ocfg, mesh=mesh)(p, o, b)
+    res = c.result()
+    del out
+    return res
+
+
+# the census keys a card's run and ``meta``'s share exactly (the plain
+# traffic is ``meta``'s alone: there the plain attention runs inside the
+# kernel's boundary)
+_CENSUS_EXACT = ("collective_bytes", "device_hbm_bytes_flash_adjusted",
+                 "hlo_ops", "temp_bytes", "peak_bytes")
+
+
+def sharded_train_path(root: str, dev="cuda") -> dict:
+    """Phase 18 (a): the sharded trainer on ``(1, 1)`` == the unsharded
+    trainer's losses bitwise; on ``(N, 1)`` and ``(1, N)`` (N the visible
+    cards, at most ``SHARD_MAX``) within ``SHARD_LOSS_RTOL`` of them,
+    ``flash_attention`` launched on every rank's blocks, and the NCCL
+    run's census == the fake group's on ``meta``. Returns the launches
+    the phase counted (the unsharded run's and rank 0's)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.blocks import ATTN_KINDS
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import trainer as tr
+
+    cfg = configs.get(TRAIN_ARCH)
+    if TRAIN_REDUCED:
+        cfg = cfg.reduced()
+    ocfg = OptimizerConfig(peak_lr=TRAIN_LR, end_lr=TRAIN_LR / 10,
+                           warmup_steps=max(1, SHARD_STEPS // 20),
+                           total_steps=SHARD_STEPS)
+    tcfg = tr.TrainerConfig(steps=SHARD_STEPS, ckpt_every=0,
+                            ckpt_dir=os.path.join(root, "plain"),
+                            log_every=100, seed=SEED, batch=TRAIN_BATCH,
+                            seq_len=TRAIN_SEQ)
+    ops.reset_launch_counts()
+    h0 = time.perf_counter()
+    want = tr.Trainer(cfg, tcfg, ocfg, device=dev).run()["losses"]
+    plain_s = time.perf_counter() - h0
+    counts = dict(ops.kernel_launches())
+    torch.cuda.empty_cache()
+    per_step = sum(k in ATTN_KINDS for k in cfg.pattern) * (
+        2 if cfg.remat == "full" else 1)
+    one = shard_train((1, 1), root)
+    first_diff = next((i for i, (a, b) in enumerate(zip(one["losses"], want))
+                       if a != b), None)
+    check(first_diff is None, f"sharded (a): (1, 1) losses == the unsharded "
+          f"trainer's bitwise (first difference at step {first_diff}: "
+          f"{one['losses']} vs {want})")
+    check(one["launches"]["flash_attention"] == per_step * SHARD_STEPS,
+          f"sharded (a): (1, 1) flash_attention launches "
+          f"{one['launches']['flash_attention']} == {per_step} a step")
+    counts["flash_attention"] += one["launches"]["flash_attention"]
+    print(f"[sharded-train] {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ}, remat "
+          f"{cfg.remat}, {SHARD_STEPS} steps: unsharded in-process "
+          f"{plain_s:.1f} s, (1, 1) launcher {one['s']:.1f} s (step p50 "
+          f"{one['step_ms']:.1f} ms, host clock); losses "
+          f"{one['losses']} == unsharded, bitwise; flash_attention "
+          f"{one['launches']['flash_attention']} launches")
+    n = min(torch.cuda.device_count(), SHARD_MAX)
+    for shape in ([(n, 1), (1, n)] if n >= 2 else []):
+        run = shard_train(shape, root, census=True)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], want))
+        check(gap <= SHARD_LOSS_RTOL, f"sharded (a): {shape} losses within "
+              f"{SHARD_LOSS_RTOL} of one card's (max relative gap {gap:.3e})")
+        check(run["launches"]["flash_attention"] == per_step * SHARD_STEPS,
+              f"sharded (a): {shape} rank 0 launched flash_attention on its "
+              f"blocks {run['launches']['flash_attention']} times")
+        fake = fake_census(shape)
+        for k in _CENSUS_EXACT:
+            a, b = run["census"][k], json.loads(json.dumps(fake[k]))
+            check(a == b, f"sharded (a): {shape} the NCCL run's {k} == the "
+                  f"fake group's on meta: " + str(census_diff(a, b)
+                                                  if isinstance(a, dict)
+                                                  else (a, b)))
+        print(f"[sharded-train] {shape}: {run['s']:.1f} s for {SHARD_STEPS} "
+              f"steps + one under the census (step p50 {run['step_ms']:.1f} "
+              f"ms, host clock); losses {run['losses']}, max gap "
+              f"{gap:.3e}; rank 0 "
+              f"flash_attention {run['launches']['flash_attention']} "
+              f"launches on its blocks; census == meta's: collectives "
+              f"{run['census']['collective_bytes']}, adjusted traffic "
+              f"{run['census']['device_hbm_bytes_flash_adjusted']:.6e} B, "
+              f"temp {run['census']['temp_bytes']} B, peak "
+              f"{run['census']['peak_bytes']} B")
+    if n < 2:
+        print(f"[sharded-train] (N, 1) and (1, N): {torch.cuda.device_count()}"
+              " visible card(s), not run")
+    return counts
+
+
+def census_step(dev="cuda") -> dict:
+    """Phase 18 (b): phase 17 (b)'s one-card qwen2 step under the census
+    on the card and on ``meta``: the two == on the counted keys; the
+    step's peak bytes on ``meta`` within ``CENSUS_TEMP_RTOL`` of the
+    card's ``max_memory_allocated`` less its arguments; ``t_compute`` and
+    ``t_memory`` of ``roofline_terms`` each at most the step's device
+    time. Returns the step's launch counts."""
+    from repro_torch import configs
+    from repro_torch.analysis.census import Census, roofline_terms
+    from repro_torch.analysis.flops import FlopCounter
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import batch_struct, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+
+    cfg = configs.get(TRAIN_ARCH)
+    shape = ShapeSpec("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ocfg = OptimizerConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, ocfg)
+
+    def cell(device):
+        params = lm.init_lm(SEED, cfg, device=device).requires_grad_(True)
+        batch = batch_struct(cfg, shape, device)
+        if device != "meta":
+            g = torch.Generator(device=device).manual_seed(SEED)
+            for t in batch.values():
+                t.copy_(torch.randint(0, cfg.vocab_size, t.shape,
+                                      generator=g, device=device))
+        return params, init_opt_state(params, ocfg), batch
+
+    args = cell(dev)
+    out = step(*args)  # warm: cuBLAS handles and workspaces
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with Census() as card:
+        out = step(*args)
+    torch.cuda.synchronize()
+    peak_card = torch.cuda.max_memory_allocated() - base
+    got = card.result()
+    del out
+    counts = dict(ops.kernel_launches())
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: step(*args), 3)
+    del args
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta_args = cell("meta")
+    with Census() as meta:
+        out = step(*meta_args)
+    want = meta.result()
+    del out
+    meta_s = time.perf_counter() - t0
+    for k in _CENSUS_EXACT:
+        diff = {op: (card.bytes_by_op.get(op), meta.bytes_by_op.get(op))
+                for op in set(card.bytes_by_op) | set(meta.bytes_by_op)
+                if card.bytes_by_op.get(op) != meta.bytes_by_op.get(op)}
+        check(got[k] == want[k], f"census (b): the card's {k} == meta's "
+              f"(ops card/meta {census_diff(got['hlo_ops'], want['hlo_ops'])}"
+              f"; bytes by op card/meta {diff})")
+    gap = abs(want["peak_bytes"] - peak_card) / peak_card
+    check(gap <= CENSUS_TEMP_RTOL, f"census (b): meta's peak "
+          f"{want['peak_bytes']} B within {CENSUS_TEMP_RTOL:.0%} of the "
+          f"card's max_memory_allocated less its arguments {peak_card} B "
+          f"(gap {gap:.2%})")
+    meta_args = cell("meta")
+    with FlopCounter() as fc:
+        out = step(*meta_args)
+    del out, meta_args
+    roof = roofline_terms(fc.flops, want["device_hbm_bytes_flash_adjusted"],
+                          want["collective_bytes"], 1)
+    step_s = ms / 1e3
+    for k in ("t_compute_s", "t_memory_s"):
+        check(roof[k] <= step_s, f"census (b): roofline {k} {roof[k]:.4f} s "
+              f"<= the step's {step_s:.4f} s on the card")
+    print(f"[census] (b) {TRAIN_ARCH} step {TRAIN_BATCH} x {TRAIN_SEQ} on the "
+          f"card == meta on {', '.join(_CENSUS_EXACT)}; collectives "
+          f"{want['collective_bytes']}; traffic "
+          f"{want['device_hbm_bytes']:.6e} B plain, "
+          f"{want['device_hbm_bytes_flash_adjusted']:.6e} B adjusted; peak: "
+          f"meta {want['peak_bytes']} B, card {peak_card} B (gap {gap:.2%}); "
+          f"temp_bytes {want['temp_bytes']} B; step {ms:.2f} ms on the card, "
+          f"roofline compute {roof['t_compute_s'] * 1e3:.2f} ms, memory "
+          f"{roof['t_memory_s'] * 1e3:.2f} ms ({roof['dominant']}); meta "
+          f"census {meta_s:.1f} s")
+    return counts
+
+
+def census_diff(a: dict, b: dict) -> dict:
+    """The keys on which two censuses' dicts differ, with both values."""
+    return {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+            if a.get(k) != b.get(k)}
+
+
+def census_grid(cells: list) -> None:
+    """Phase 18 (c): phase 17 (a)'s cells that run sharded (the dense
+    decoders', internvl's) on ``CENSUS_MESH`` carry the census keys; every
+    other cell keeps them ``null`` and says why."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    dense = [c for c in cells if c["status"] == "ok"
+             and c["mesh"] == CENSUS_MESH
+             and dryrun.sharded(configs.get(c["arch"])) is None]
+    archs = {c["arch"] for c in dense}
+    check(len(dense) == 16 and {"qwen2_1_5b", "gemma3_1b", "qwen3_1_7b",
+                                "granite_34b"} <= archs,
+          f"census (c): the dense decoders' and internvl's 16 cells on "
+          f"{CENSUS_MESH}, got {len(dense)} ({sorted(archs)})")
+    for c in cells:
+        if c["status"] != "ok":
+            continue
+        filled = all(c[k] is not None for k in dryrun.CENSUS_KEYS) and \
+            c["memory"]["temp_bytes"] is not None
+        check(filled == (c in dense), f"census (c): {c['arch']} x "
+              f"{c['shape']} x {c['mesh']} census keys "
+              f"{'filled' if filled else 'null'}: {c['census']}")
+    secs = sum(c["census_s"] for c in dense)
+    print(f"[census] (c) {len(dense)} sharded cells on {CENSUS_MESH}: "
+          f"{secs:.1f} s of census in phase 17 (a)'s workers; "
+          + "; ".join(f"{c['arch']} {c['shape']}: coll "
+                      f"{sum(c['collective_bytes'].values()):.4e} B, temp "
+                      f"{c['memory']['temp_bytes']} B, {c['census_s']:.1f} s"
+                      for c in dense))
+
+
+def sharded_train_phase(cells: list, dev="cuda") -> dict:
+    """Phase 18: (a) the sharded trainer, (b) the census of a one-card
+    step, (c) the census keys of the dry run's dense cells."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as root:
+        counts = sharded_train_path(root, dev)
+    torch.cuda.empty_cache()
+    for k, n in census_step(dev).items():
+        counts[k] += n
+    census_grid(cells)
+    print(f"[sharded-train] phase 18 in {time.perf_counter() - t_phase:.1f}"
+          f" s; launches {counts}")
     return counts
 
 
@@ -5294,7 +5616,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["sharded"] = sharded_path(S, W, Xb, yb, Xq, args.iters)
     torch.cuda.empty_cache()
-    by_path["dryrun"] = dryrun_path()
+    by_path["dryrun"], cells = dryrun_path()
+    torch.cuda.empty_cache()
+    by_path["sharded_train"] = sharded_train_phase(cells)
     for row in table:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()

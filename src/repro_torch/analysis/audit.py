@@ -47,8 +47,10 @@ Checkers (name -> invariant -> the JAX checker it restates):
   tensor a ``TorchDispatchMode`` sees carries the shards its inputs came
   from; a leaf written from another shard's data is a violation), every
   leaf keeps its storage and stays on its shard's device, and the chunk
-  is bitwise that of its ``shards=1`` twin (state gathered, p-values).
-  A hand kernel writes outside the dispatcher, so on the card the taint
+  is bitwise that of its ``shards=1`` twin (state gathered, p-values),
+  and ``analysis.census.Census`` counts no collective in it (the
+  reference's own reading of the HLO). A hand kernel writes outside the
+  dispatcher, so on the card the taint
   follows the PyTorch ops around the kernels; the kernels' arguments are
   one shard's by construction. ``skipped`` at one shard.
 * ``source-lint`` — ``repro_torch.analysis.lint`` over ``src/repro_torch``.
@@ -74,6 +76,7 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch._device import resolve
 from repro_torch.analysis import lint as lint_m
+from repro_torch.analysis.census import Census
 
 #: engine-matrix shape, the JAX audit's
 _S, _CAP, _DIM, _K, _CHUNK = 16, 32, 4, 3, 4
@@ -522,10 +525,13 @@ def check_collectives(target: AuditTarget, art: Artifact) -> dict:
     ptrs = [_storage(leaf) for leaf in state.leaves()]
     owner = {_storage(leaf): i for i, part in enumerate(state.parts)
              for leaf in part.leaves()}
-    with TaintRecorder(owner) as rec:
+    with Census() as census, TaintRecorder(owner) as rec:
         state, p = eng.observe_many(state, *art.traffic(target.chunk, 1))
     tstate, tp = twin.observe_many(tstate, *art.traffic(target.chunk, 1))
-    vs = []
+    # the reference's reading: no collective in the tick's program
+    vs = [{"kind": "collective", "line": f"the sharded chunk ran {kind} "
+           f"({nbytes:.0f} bytes)"}
+          for kind, nbytes in census.collective_bytes.items()]
     for i, part in enumerate(state.parts):
         dev = eng.mesh.flat()[i]
         for name, leaf in zip(_leaf_names(target.family), part.leaves()):
@@ -554,6 +560,7 @@ def check_collectives(target: AuditTarget, art: Artifact) -> dict:
                            "its one-shard twin (state or p-values)"})
     info = {"shards": target.shards,
             "devices": [str(d) for d in eng.mesh.flat()],
+            "collective_bytes": dict(census.collective_bytes),
             "storages_followed": len(rec.taint),
             "leaves_reallocated": len(moved)}
     return _result("collective-freedom", target, "fail" if vs else "pass",

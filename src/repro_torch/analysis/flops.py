@@ -291,7 +291,7 @@ class FlopCounter(TorchDispatchMode):
     conventions: ``flops``, ``transcendental``, ``matmul`` (the products'
     share of ``flops``) and ``by_op`` (flops by op name)."""
 
-    counts_attention = True  # ``kops.flop_counter()`` finds it
+    counts_attention = True  # ``kops.attention_observers()`` finds it
 
     def __init__(self):
         super().__init__()

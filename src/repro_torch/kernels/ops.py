@@ -13,7 +13,13 @@ per-tenant form and keeps the launch counts, ``stream_update``'s per mode
 or f32 on the card), through a ``torch.autograd.Function`` whose forward
 is the kernel's single launch (the plain version on the CPU and on
 ``meta``, the dry run's device) and whose backward is
-``flash_attention_bwd`` on every device.
+``flash_attention_bwd`` on every device. DTensor operands (a sharded
+program's) placed over batch and heads only run that Function on each
+rank's block (``_local_route``): no row or head needs another rank's, so
+the result is exact; where the rules shard q's heads but replicate k and
+v (GQA with fewer kv heads than the model axis), a rank passes the kv
+heads its global q heads map to. Any other placement raises on the card
+and runs the plain version on the DTensors on the CPU and ``meta``.
 
 The bootstrap measure's forest (``boot_fit_forest``, ``boot_forest_predict``)
 is plain PyTorch on the device it is given (``boot_forest.py``): numpy in
@@ -61,15 +67,14 @@ _DENSE_SCORE_LIMIT = DENSE_SCORE_LIMIT
 _PLAIN_DEVICES = ("cpu", "meta")
 
 
-def flop_counter():
-    """The innermost active ``analysis.flops.FlopCounter``, or None: it
-    counts a flash_attention call at its boundary (the kernel's launch is
-    invisible to it). A dispatch mode, so the autograd engine's device
-    threads (a checkpoint's recomputation on the card) see it too."""
-    for mode in reversed(_get_current_dispatch_mode_stack()):
-        if getattr(mode, "counts_attention", False):
-            return mode
-    return None
+def attention_observers() -> list:
+    """The active dispatch modes that count a flash_attention call at its
+    boundary (``analysis.flops.FlopCounter``, ``analysis.census.Census``:
+    the kernel's launch is invisible to them), innermost last. Dispatch
+    modes, so the autograd engine's device threads (a checkpoint's
+    recomputation on the card) see them too."""
+    return [mode for mode in _get_current_dispatch_mode_stack()
+            if getattr(mode, "counts_attention", False)]
 
 
 def kernel_launches() -> dict[str, int]:
@@ -183,20 +188,23 @@ def _plain_attention(q, k, v, **kw):
 
 class _FlashAttention(torch.autograd.Function):
     """The kernel (or on the CPU and ``meta`` the plain version) forward;
-    ``flash_attention_bwd`` backward, from the saved operands. Under an
-    active ``flop_counter()`` the forward counts by its formula, whichever
-    route runs."""
+    ``flash_attention_bwd`` backward, from the saved operands. Each of
+    ``attention_observers()`` counts the forward at its boundary, whichever
+    route runs (one that yields a list gets the output appended)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, softcap):
         kw = dict(causal=causal, window=window, scale=scale, softcap=softcap)
-        counter = flop_counter()
-        with (contextlib.nullcontext() if counter is None
-              else counter.attention(q, k, v, **kw)):
+        with contextlib.ExitStack() as stack:
+            held = [stack.enter_context(m.attention(q, k, v, **kw))
+                    for m in attention_observers()]
             if q.device.type in _PLAIN_DEVICES:
                 out = _plain_attention(q, k, v, **kw)
             else:  # the kernel, or it raises
                 out = _flash(q, k, v, **kw)
+            for h in held:
+                if isinstance(h, list):
+                    h.append(out)
         if any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(q, k, v)
             ctx.kw = kw
@@ -210,13 +218,82 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _local_plan(q, k, v):
+    """How each rank computes a DTensor attention from its own blocks:
+    ``(kv_heads, k_grad_placements)``, ``kv_heads`` the ``(start, stop)``
+    of the local kv heads its local q heads read (None: all of them), or
+    None where the placements split a sequence or the head dim (or mix
+    in a partial sum). q's heads may shard over one mesh dim where k and
+    v stay whole: that dim's kv gradient is then a partial sum."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    if not (isinstance(k, DTensor) and isinstance(v, DTensor)) or \
+            k.device_mesh != q.device_mesh or k.placements != v.placements:
+        return None
+    H, Hkv = q.shape[2], k.shape[2]
+    rep = H // Hkv
+    grad, sliced = list(k.placements), None
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if pq == pk and (pq.is_replicate() or pq.is_shard(0)
+                         or pq.is_shard(2)):
+            continue
+        if pq.is_shard(2) and pk.is_replicate() and sliced is None:
+            sliced, grad[i] = i, Partial()
+            continue
+        return None
+    if sliced is None:
+        return None, tuple(grad)
+    if any(p.is_shard(2) for j, p in enumerate(q.placements) if j != sliced):
+        return None
+    mesh = q.device_mesh
+    n_local = H // mesh.size(sliced)
+    h0 = mesh.get_local_rank(sliced) * n_local
+    if n_local % rep == 0:
+        return (h0 // rep, (h0 + n_local) // rep), tuple(grad)
+    if rep % n_local == 0:  # every local q head reads one kv head
+        return (h0 // rep, h0 // rep + 1), tuple(grad)
+    return None
+
+
+def _local_route(q, k, v, plan, kw):
+    """``_FlashAttention`` on this rank's blocks, the result a DTensor
+    placed as q."""
+    from torch.distributed.tensor import DTensor
+
+    heads, grad = plan
+    kl = k.to_local(grad_placements=grad)
+    vl = v.to_local(grad_placements=grad)
+    if heads is not None:
+        kl = kl[:, :, heads[0]:heads[1]].contiguous()
+        vl = vl[:, :, heads[0]:heads[1]].contiguous()
+    out = _FlashAttention.apply(q.to_local(), kl, vl, kw["causal"],
+                                kw["window"], kw["scale"], kw["softcap"])
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False, shape=q.shape,
+                              stride=q.stride())
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                     softcap=None):
     """Attention ``(B, Sq, H, D)`` over ``k, v (B, Skv, Hkv, D)``, as
     ``repro/kernels/ops.py::flash_attention`` routes it: the kernel on the
     card; on the CPU and on ``meta`` the plain dense version, or the
     chunked one past ``_DENSE_SCORE_LIMIT`` score elements.
-    Differentiable in ``q, k, v`` (``flash_attention_bwd``)."""
+    Differentiable in ``q, k, v`` (``flash_attention_bwd``). DTensors
+    placed over batch and heads run on each rank's blocks; other
+    placements raise on the card."""
+    from repro_torch.sharding.activation import is_dtensor
+
+    if is_dtensor(q):
+        kw = dict(causal=causal, window=window, scale=scale, softcap=softcap)
+        plan = _local_plan(q, k, v)
+        if plan is not None:
+            return _local_route(q, k, v, plan, kw)
+        if q.device.type not in _PLAIN_DEVICES:
+            raise ValueError(
+                "flash_attention kernel: DTensor placements q "
+                f"{tuple(q.placements)}, k {tuple(k.placements)} split a "
+                "sequence or the head dim; shard batch and heads only")
     return _FlashAttention.apply(q, k, v, causal, window, scale, softcap)
 
 

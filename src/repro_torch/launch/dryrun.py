@@ -25,15 +25,31 @@ memory, no card) and counts:
 * ``tokens_per_step``, ``n_params``, ``active_params``: as the
   reference's.
 
-The keys a compiler fills are ``null``: ``device_hbm_bytes``,
-``device_hbm_bytes_flash_adjusted``, ``collective_bytes``, ``hlo_ops``,
-``xla_cost_flops_per_device_loopbody_once``, ``memory.temp_bytes``,
-``lower_s`` and ``compile_s``. Nothing here estimates them.
+* ``device_hbm_bytes``, ``device_hbm_bytes_flash_adjusted``,
+  ``collective_bytes``, ``hlo_ops`` and ``memory.temp_bytes`` (with
+  ``memory.peak_bytes`` beside it): ``analysis.census.Census`` over rank
+  0's run of the sharded step, a DTensor program over a fake process
+  group of 256 or 512 ranks on the production mesh
+  (``launch.mesh.make_production_device_mesh``, DTensor's collective
+  forms of the cards) with ``meta`` blocks, the train step's microbatch
+  body run once and multiplied (``census_s`` its host seconds). Its
+  argument and output bytes, read from the local blocks, must equal the
+  placements' arithmetic above, or the cell fails. The dense decoders
+  and internvl's vision stub run it (``sharded``); the other families'
+  cells keep these keys
+  ``null`` and say why under ``census``. ``--census 16x16`` counts the
+  16 x 16 mesh's only (a 2 x 16 x 16 cell takes minutes: DTensor plans
+  its three-dim redistributions by a graph search).
+
+``xla_cost_flops_per_device_loopbody_once``, ``lower_s`` and
+``compile_s`` stay ``null``: they are a compiler's (its cost analysis of
+one loop body, its lowering and compile times), and eager PyTorch
+compiles nothing.
 
 Usage (no card needed):
     python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes]
-        [--jobs N] [--out results.json]
+        [--jobs N] [--census {all,16x16}] [--out results.json]
 """
 from __future__ import annotations
 
@@ -57,11 +73,11 @@ from repro_torch.sharding.activation import (BATCH_AXES, activation_mesh,
 from repro_torch.sharding.rules import (device_bytes, named,
                                         reference_cache_leaves)
 
-# the reference's keys that only a compiler fills
-COMPILER_KEYS = ("device_hbm_bytes", "device_hbm_bytes_flash_adjusted",
-                 "collective_bytes", "hlo_ops",
-                 "xla_cost_flops_per_device_loopbody_once", "lower_s",
-                 "compile_s")
+# the reference's keys that a compiler fills; the census fills the first four
+CENSUS_KEYS = ("device_hbm_bytes", "device_hbm_bytes_flash_adjusted",
+               "collective_bytes", "hlo_ops")
+COMPILER_KEYS = CENSUS_KEYS + ("xla_cost_flops_per_device_loopbody_once",
+                               "lower_s", "compile_s")
 _LOGITS_SPEC = (BATCH_AXES, None, "model")  # the reference's lm_logits pin
 
 
@@ -141,6 +157,101 @@ def _count_cell(arch: str, shape_name: str, multi_pod: bool) -> tuple:
             count_flops(kind, fn, args))
 
 
+def sharded(cfg) -> str | None:
+    """None where the census runs ``cfg``'s cells sharded; else why not
+    (the op that stopped a reduced step of the family on a fake ``(2,
+    2)`` mesh, or what its run showed)."""
+    mixed = "a plain tensor beside a DTensor"
+    if cfg.moe.n_experts:
+        return ("the MoE's dispatch groups (one a data-parallel shard in "
+                "the reference) are not ported, and its dispatch stops at "
+                f"aten.searchsorted ({mixed}, models/mlp.py)")
+    if cfg.is_encoder_decoder:
+        return (f"the encoder stops at aten.add ({mixed}: its sinusoidal "
+                "positions, models/lm.py::encode)")
+    if {"mlstm", "slstm"} & set(cfg.pattern):
+        return (f"the mLSTM stops at aten.where ({mixed}: its causal "
+                "mask, models/recurrent.py)")
+    if "rglru" in cfg.pattern:
+        return ("the RG-LRU runs sharded (a reduced step on 4 gloo "
+                "processes equals the unsharded one), but DTensor gathers "
+                "the scan's operands at every chunk (6.7e12 bytes a device "
+                "at prefill_32k on 16x16): its sharded form is the next "
+                "slice")
+    return None
+
+
+def place_args(kind: str, args, specs, mesh) -> tuple:
+    """A cell's ``meta`` arguments as DTensors on ``mesh`` placed by their
+    specs (``input_specs``); the parameters in place."""
+    from repro_torch.sharding.rules import (distribute, distribute_params,
+                                            distribute_state)
+
+    if kind == "train":
+        params, opt, batch = args
+        params, opt = distribute_state(params, opt, mesh)
+        return params, opt, distribute(batch, specs[2], mesh)
+    if kind == "prefill":
+        params, batch = args
+        distribute_params(params, mesh)
+        return params, distribute(batch, specs[1], mesh)
+    params, tokens, cache, index = args
+    distribute_params(params, mesh)
+    tokens = distribute({"tokens": tokens}, specs[1], mesh)["tokens"]
+    placed = distribute(reference_cache_leaves(cache), specs[2], mesh)
+    for i, run in enumerate(cache["self"]):
+        for j, layer in enumerate(run):
+            for name in layer:
+                layer[name] = placed[f"self.{i}.{name}"][j]
+    for name in cache.get("cross", {}):
+        cache["cross"][name] = placed[f"cross.{name}"]
+    return params, tokens, cache, index
+
+
+def census_cell(arch: str, shape_name: str, multi_pod: bool,
+                device_type: str = "cuda") -> dict:
+    """The census keys of one cell's sharded step (rank 0 of a fake group
+    on the production mesh), its local argument and output bytes and
+    ``census_s``."""
+    from repro_torch.analysis.census import Census
+    from repro_torch.launch.mesh import make_production_device_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.sharding.rules import local_bytes
+
+    t0 = time.time()
+    cfg, shape = cfgs.get(arch), shape_by_name(shape_name)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    dmesh = make_production_device_mesh(multi_pod=multi_pod,
+                                        device_type=device_type)
+    kind, fn, args, specs = cell_fn_and_args(cfg, shape_name, mesh)
+    args = place_args(kind, args, specs, dmesh)
+    arg_bytes = sum(local_bytes(t) for t in arg_trees(kind, args))
+    strategy = resolve_strategy(cfg, shape.name, mesh)
+    with activation_mesh(dmesh, strategy), Census() as c:
+        if kind == "train":
+            k = default_microbatches(
+                cfg, shape, mesh,
+                target_tokens_per_device=cfg.microbatch_target_tokens)
+            step = make_train_step(cfg, OptimizerConfig(), k, mesh=dmesh)
+            out = step(*args, repeat=c.repeat)
+        else:
+            out = fn(*args)
+    if kind == "train":
+        out_bytes = (local_bytes(out[0]) + local_bytes(out[1])
+                     + 4 * len(out[2]))
+    elif kind == "prefill":
+        out_bytes = local_bytes({"logits": out})
+    else:
+        out_bytes = local_bytes({"logits": out[0]}) + local_bytes(
+            reference_cache_leaves(out[1]))
+    res = c.result()
+    del out
+    return {**res, "argument_bytes": int(arg_bytes),
+            "output_bytes": int(out_bytes),
+            "census_s": round(time.time() - t0, 2)}
+
+
 def _work(arch: str, shape_name: str) -> int:
     """A count's rough cost, to start the longest first: the sLSTM runs
     one step a token, the rest a few ops a layer."""
@@ -150,33 +261,50 @@ def _work(arch: str, shape_name: str) -> int:
     return cfg.n_layers * steps
 
 
-def count_all(cells, jobs: int) -> dict:
+def _census_job(arch: str, shape_name: str, multi_pod: bool) -> tuple:
+    return (arch, shape_name, multi_pod), census_cell(arch, shape_name,
+                                                      multi_pod)
+
+
+def count_all(cells, jobs: int, census: tuple = (False, True)) -> tuple:
     """The FLOP counts of ``cells`` (``(arch, shape, multi_pod)``), each
-    ``flops_key`` once, over ``jobs`` worker processes. A count that
-    raises is left out (its cell recounts in ``run_cell`` and reports the
-    failure there)."""
-    todo = {}
+    ``flops_key`` once, and the census of each cell ``sharded`` runs on a
+    mesh in ``census`` (its ``multi_pod`` values), over ``jobs`` worker
+    processes: ``(flops by key, census by cell)``. A job that raises is
+    left out (its cell redoes it in ``run_cell`` and reports the failure
+    there)."""
+    todo, sharded_cells = {}, []
     for arch, shape, mp in cells:
-        if shape in cfgs.get(arch).shapes:
+        cfg = cfgs.get(arch)
+        if shape in cfg.shapes:
             todo.setdefault(flops_key(arch, shape, mp), (arch, shape, mp))
-    order = sorted(todo.values(), key=lambda c: -_work(c[0], c[1]))
-    out = {}
+            if mp in census and sharded(cfg) is None:
+                sharded_cells.append((arch, shape, mp))
+    jobs_list = [(-_work(c[0], c[1]), _count_cell, c) for c in todo.values()]
+    jobs_list += [(-_work(c[0], c[1]) * 4, _census_job, c)
+                  for c in sharded_cells]
+    jobs_list.sort(key=lambda j: j[0])
+    flops, counted = {}, {}
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=jobs, mp_context=ctx) as ex:
-        for fut in [ex.submit(_count_cell, *c) for c in order]:
+        futs = [(fn, ex.submit(fn, *c)) for _, fn, c in jobs_list]
+        for fn, fut in futs:
             try:
-                key, counts = fut.result()
+                key, res = fut.result()
             except Exception:  # noqa: BLE001 — run_cell reports it
                 traceback.print_exc()
                 continue
-            out[key] = counts
-    return out
+            (flops if fn is _count_cell else counted)[key] = res
+    return flops, counted
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
-             flops_cache: dict | None = None, verbose: bool = True) -> dict:
+             flops_cache: dict | None = None, verbose: bool = True,
+             census: bool = True, census_cache: dict | None = None) -> dict:
     """One cell's record. ``flops_cache`` (a dict shared across calls)
-    keeps a FLOP count an (arch, shape, microbatches)."""
+    keeps a FLOP count an (arch, shape, microbatches), ``census_cache``
+    the censuses ``count_all`` made; ``census=False`` leaves the census
+    keys ``null``."""
     cfg = cfgs.get(arch)
     if shape_name not in cfg.shapes:
         return {"arch": arch, "shape": shape_name,
@@ -194,6 +322,19 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         cache[key] = count_flops(kind, fn, args)
     flops = cache[key]
     tokens = shape.global_batch * (shape.seq_len if kind != "decode" else 1)
+    counted, why = {}, sharded(cfg)
+    if census and why is None:
+        counted = (census_cache or {}).get((arch, shape_name, multi_pod)) \
+            or census_cell(arch, shape_name, multi_pod)
+        for k in ("argument_bytes", "output_bytes"):
+            if counted[k] != memory[k]:
+                raise ValueError(
+                    f"{k}: the local blocks hold {counted[k]}, the "
+                    f"placements {memory[k]}")
+    elif census:
+        why = f"not run sharded: {why}"
+    else:
+        why = "not counted on this mesh (--census)"
     res = {
         "arch": arch,
         "shape": shape_name,
@@ -202,8 +343,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "status": "ok",
         "flops_global": float(flops["flops"]),
         "transcendental_global": float(flops["transcendental"]),
-        **{k: None for k in COMPILER_KEYS},
-        "memory": {**memory, "temp_bytes": None},
+        **{k: counted.get(k) for k in COMPILER_KEYS},
+        "memory": {**memory, "temp_bytes": counted.get("temp_bytes"),
+                   "peak_bytes": counted.get("peak_bytes")},
+        "census": why or "ok",
+        "census_s": counted.get("census_s"),
         "tokens_per_step": tokens,
         "n_params": cfg.n_params(),
         "active_params": cfg.active_params(),
@@ -215,6 +359,16 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
               f"args/dev={memory['argument_bytes'] / 2**30:.2f}GiB "
               f"out/dev={memory['output_bytes'] / 2**30:.2f}GiB "
               f"({res['count_s']:.1f}s)")
+        if counted:
+            flash = counted["device_hbm_bytes_flash_adjusted"] / 2**30
+            print(f"[census] {arch} x {shape_name} x {res['mesh']}: "
+                  f"hbm/dev={counted['device_hbm_bytes'] / 2**30:.2f}GiB "
+                  f"(flash {flash:.2f}) "
+                  f"coll/dev={counted['collective_bytes']} "
+                  f"temp={counted['temp_bytes'] / 2**30:.2f}GiB "
+                  f"({counted['census_s']:.1f}s)")
+        else:
+            print(f"[census] {arch} x {shape_name} x {res['mesh']}: {why}")
     return res
 
 
@@ -227,7 +381,13 @@ def main(argv=None) -> int:
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--jobs", type=int, default=1,
-                    help="worker processes for the FLOP counts")
+                    help="worker processes for the FLOP counts and the "
+                    "censuses")
+    ap.add_argument("--census", choices=("all", "16x16"),
+                    default="all",
+                    help="the meshes whose dense cells the census counts "
+                    "(the 2x16x16 mesh's take minutes each: DTensor plans "
+                    "its three-dim redistributions by a graph search)")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -242,12 +402,16 @@ def main(argv=None) -> int:
         meshes = [False, True]
 
     cells = [(a, s, mp) for a in archs for s in shapes for mp in meshes]
-    flops_cache = count_all(cells, args.jobs) if args.jobs > 1 else {}
+    counted = (False, True) if args.census == "all" else (False,)
+    flops_cache, census_cache = (count_all(cells, args.jobs, counted)
+                                 if args.jobs > 1 else ({}, {}))
     results, failed = [], 0
     for arch, shape, mp in cells:
         try:
             results.append(run_cell(arch, shape, multi_pod=mp,
-                                    flops_cache=flops_cache))
+                                    flops_cache=flops_cache,
+                                    census=mp in counted,
+                                    census_cache=census_cache))
         except Exception as e:  # noqa: BLE001 — report, keep going
             failed += 1
             traceback.print_exc()

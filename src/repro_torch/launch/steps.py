@@ -16,10 +16,16 @@ The dry run's helpers follow the reference's: ``default_microbatches``,
 build a cell's arguments on ``meta`` with their placements
 (``sharding.rules``) beside them. ``lower_cell`` has no counterpart:
 eager PyTorch lowers nothing, and the dry run counts a cell's bytes from
-the placements and its FLOPs from a run on ``meta``. The reference's mesh
-branch of ``make_train_step`` (gradients constrained to the parameters'
-sharding) has none either: a ``mesh`` raises, and the dry run calls the
-step without one.
+the placements and its FLOPs from a run on ``meta``.
+
+With a ``mesh`` (a ``DeviceMesh``) ``make_train_step`` is the reference's
+mesh branch: the parameters, optimizer state and batch are DTensors
+(``sharding.rules.distribute``), and each microbatch's gradients and the
+f32 accumulator are redistributed to their parameters' placements, so a
+data-parallel gradient's partial sum is reduced there (a reduce-scatter
+where the parameter is sharded), not later. A microbatch is each rank's
+own slice of its batch rows (no rows move); the loss is a replicated
+scalar before ``backward``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from repro_torch.models import lm
 from repro_torch.optim import OptimizerConfig, apply_updates, init_opt_state
 from repro_torch.sharding import (batch_pspecs, cache_pspecs, dp_axes,
                                   param_pspecs)
+from repro_torch.sharding.activation import is_dtensor, replicated_like
 from repro_torch.sharding.rules import reference_cache_leaves
 
 
@@ -57,15 +64,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
     ``FlopCounter`` then counts the whole step from one slice, as the
     reference's counter multiplies its scan over microbatches (the dry
     run's count of a train cell)."""
-    if mesh is not None:
-        raise ValueError("the port trains on one device: no mesh")
+    if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+        raise ValueError(f"mesh must be a torch.distributed DeviceMesh, "
+                         f"got {type(mesh).__name__}")
     if microbatches < 1:
         raise ValueError(f"microbatches {microbatches} < 1")
 
     def grads_of(params, batch):
         loss = lm.train_step_loss(params, cfg, batch)
+        if mesh is not None:
+            loss = _replicated(loss)
         loss.backward()
-        return loss.detach(), _grads(params)
+        grads = _grads(params)
+        if mesh is not None:
+            grads = shard_like_params(params, grads)
+        return loss.detach(), grads
 
     def train_step(params, opt_state, batch, repeat=None):
         if not any(p.requires_grad for p in params.parameters()):
@@ -79,15 +92,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
                 raise ValueError(f"batch {B} is not a multiple of "
                                  f"{microbatches} microbatches")
             b = B // microbatches
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            # the f32 accumulator, placed like the parameters
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in params.named_parameters()}
-            acc = {"loss": torch.zeros(
-                (), dtype=torch.float32,
-                device=next(iter(grads.values())).device)}
+            first = next(iter(grads.values()))
+            acc = {"loss": replicated_like(torch.zeros(
+                (), dtype=torch.float32, device=first.device), first)}
 
             def body(i):
-                mb = {k: t[i * b:(i + 1) * b] for k, t in batch.items()}
+                mb = {k: _rows(t, i, microbatches, b)
+                      for k, t in batch.items()}
                 l, g = grads_of(params, mb)
                 acc["loss"] = acc["loss"] + l
                 for n, t in g.items():
@@ -101,11 +115,48 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
                     body(0)
             loss = acc["loss"] / microbatches
             grads = {n: t / microbatches for n, t in grads.items()}
+        if mesh is not None:
+            loss = loss.to_local()  # replicated: every rank's whole value
         params, opt_state, stats = apply_updates(params, grads, opt_state,
                                                  opt_cfg)
         return params, opt_state, {"loss": loss, **stats}
 
     return train_step
+
+
+def _replicated(t):
+    """A DTensor (a partial sum, or sharded) replicated on its mesh."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = t.device_mesh
+    want = (Replicate(),) * mesh.ndim
+    return t if tuple(t.placements) == want else t.redistribute(mesh, want)
+
+
+def shard_like_params(params, grads: dict) -> dict:
+    """Each DTensor gradient redistributed to its parameter's placements
+    (the reference's ``shard_like_params``)."""
+    out = {}
+    for n, p in params.named_parameters():
+        g = grads[n]
+        if tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        out[n] = g
+    return out
+
+
+def _rows(t, i: int, n: int, b: int):
+    """Microbatch ``i`` of ``n`` of a batch leaf: rows ``i * b`` to ``(i
+    + 1) * b``; of a DTensor, each rank's ``i``-th slice of its own rows,
+    placed as the whole."""
+    if not is_dtensor(t):
+        return t[i * b:(i + 1) * b]
+    from torch.distributed.tensor import DTensor
+
+    loc = t.to_local()
+    bl = loc.shape[0] // n
+    return DTensor.from_local(loc[i * bl:(i + 1) * bl], t.device_mesh,
+                              t.placements, run_check=False)
 
 
 def default_microbatches(cfg: ArchConfig, shape: ShapeSpec, mesh,
@@ -240,6 +291,7 @@ def cell_fn_and_args(cfg: ArchConfig, shape_name: str, mesh,
     return kind, make_serve_step(cfg), args, specs
 
 
-__all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
+__all__ = ["make_train_step", "shard_like_params", "make_prefill_step",
+           "make_serve_step",
            "default_microbatches", "batch_struct", "resolve_strategy",
            "input_specs", "cell_fn_and_args"]

@@ -17,9 +17,16 @@ so the cache holds only the ``kv_lora``-wide latents and the rope key.
 
 Weights keep the JAX shapes (``wq (d, h, hd)``, ``wo (h, hd, d)``) and
 activations the ``(B, S, H, D)`` layout. The reference's sharding
-constraints and barriers are the identity off a mesh and are left out.
+constraints stand where it has them (``sharding.activation.constrain``:
+the identity on a plain tensor, a redistribution of a sharded program's
+DTensor): the Megatron-SP all-gather of the sequence before the
+projections, heads over ``"model"`` after them and on the attention's
+output. Its ``optimization_barrier`` stops XLA fusing across the gather;
+eager PyTorch fuses nothing, so the port has none.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -28,8 +35,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (apply_rope, dense_init, frozen,
                                        rms_norm, softcap)
+from repro_torch.sharding.activation import (BATCH_AXES, constrain,
+                                            gathered, is_dtensor,
+                                            replicated_like)
 
 NEG_INF = -1e30
+
+# tensor-parallel layouts: heads shard over "model" (nothing where the head
+# count does not divide: MQA's K/V stay replicated)
+_HEADS_TP = (BATCH_AXES, None, "model", None)
 
 
 def init_attention(generator: torch.Generator, cfg: ArchConfig,
@@ -65,13 +79,21 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
 
 
 def _project_qkv(p, x, cfg: ArchConfig, positions, theta):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    # the Megatron-SP all-gather: the sequence whole before the projections
+    x = constrain(x, (BATCH_AXES, None, None))
+    # a sharded program gathers each weight over the data axes (FSDP) and,
+    # where the heads cannot shard, over the head_dim it keeps sharded at
+    # rest (``gathered``)
+    q = constrain(torch.einsum("bsd,dhk->bshk", x, gathered(p["wq"], (2,))),
+                  _HEADS_TP)
+    k = constrain(torch.einsum("bsd,dhk->bshk", x, gathered(p["wk"], (2,))),
+                  _HEADS_TP)
+    v = constrain(torch.einsum("bsd,dhk->bshk", x, gathered(p["wv"], (2,))),
+                  _HEADS_TP)
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + gathered(p["bq"], (1,))
+        k = k + gathered(p["bk"], (1,))
+        v = v + gathered(p["bv"], (1,))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -87,7 +109,22 @@ def attention_full(p, x, cfg: ArchConfig, *, positions, window: int = 0,
     out = kops.flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
         window=window or None, softcap=cfg.attn_logit_softcap or None)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = constrain(out, _HEADS_TP)
+    return torch.einsum("bshk,hkd->bsd", out, gathered(p["wo"], (1,)))
+
+
+def _grouped(q, kv: int):
+    """``q (B, 1, H, hd)`` ready to fold its heads into ``kv`` groups: a
+    sharded program's heads are gathered where ``kv`` does not divide over
+    the mesh dims that shard them (the fold would split a sharded
+    dimension unevenly)."""
+    if not is_dtensor(q):
+        return q
+    n = math.prod(q.device_mesh.size(i) for i, pl in enumerate(q.placements)
+                  if pl.is_shard(2))
+    if kv % n == 0:
+        return q
+    return constrain(q, (BATCH_AXES, None, None, None))
 
 
 def attention_decode(p, x, cfg: ArchConfig, cache: dict, index: int,
@@ -106,7 +143,7 @@ def attention_decode(p, x, cfg: ArchConfig, cache: dict, index: int,
 
     h, kv = cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
-    qh = q.reshape(B, kv, h // kv, hd)  # fold the group into q
+    qh = _grouped(q, kv).reshape(B, kv, h // kv, hd)  # fold the group in
     logits = torch.einsum("bgrk,bsgk->bgrs", qh.float(),
                           cache["k"].float()) * (hd ** -0.5)
     logits = softcap(logits, cfg.attn_logit_softcap or None)
@@ -114,11 +151,14 @@ def attention_decode(p, x, cfg: ArchConfig, cache: dict, index: int,
     mask = kpos <= index
     if window:
         mask &= kpos > index - window
-    logits = torch.where(mask, logits, NEG_INF)
+    logits = torch.where(replicated_like(mask, logits), logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrs,bsgk->bgrk", probs, cache["v"].float())
-    out = out.reshape(B, 1, h, hd).to(x.dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    # heads over "model" where they divide, as the full pass pins them (a
+    # sharded program's head_dim, split with the cache's, comes back whole)
+    out = constrain(out.reshape(B, 1, h, hd).to(x.dtype), _HEADS_TP)
+    return torch.einsum("bshk,hkd->bsd", out,
+                        gathered(p["wo"], (1,))), cache
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +228,7 @@ def mla_full(p, x, cfg: ArchConfig, *, positions, theta: float = 10_000.0):
     m = cfg.mla
     B, S, _ = x.shape
     h = cfg.n_heads
+    x = constrain(x, (BATCH_AXES, None, None))  # the SP all-gather
     q_nope, q_rope = _mla_query(p, x, cfg, positions, theta)
     c_kv, k_rope = _mla_latent(p, x, cfg, positions, theta)
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])

@@ -27,6 +27,13 @@ summed in f32 through the stack; each block's input passes
 recomputed in the backward pass (serving never enters it). ``"dots"``
 saves the products without a batch dimension and recomputes the rest
 (``DOTS_POLICY``).
+
+The reference's layout constraints stand where it has them
+(``sharding.activation.constrain``, the identity on a plain tensor): a
+block's input and output in the Megatron-SP layout (``SP_SPEC``), and,
+for a sharded program's DTensors, the attention and MLP outputs too,
+whose partial sums are reduce-scattered before the residual (so their
+gradients come back gathered, not split along the sequence).
 """
 from __future__ import annotations
 
@@ -41,8 +48,15 @@ from repro_torch.models import mlp as mlp_m
 from repro_torch.models import recurrent as rec_m
 from repro_torch.models.boundary import grad_compressed_boundary
 from repro_torch.models.common import frozen, layer_norm, rms_norm
+from repro_torch.sharding.activation import (BATCH_AXES, constrain,
+                                            replicated_like)
 
 ATTN_KINDS = ("attn", "attn_local", "dense_ffn_attn")
+# Megatron-style sequence parallelism: the residual stream between blocks
+# lives sharded (batch over the data axes, sequence over "model"); a
+# sharded program gathers it before attention and the MLP and
+# reduce-scatters it after
+SP_SPEC = (BATCH_AXES, "model", None)
 # the recurrent kinds: the name of the block's parameters
 _RECURRENT = {"rglru": "rec", "mlstm": "block", "slstm": "block"}
 
@@ -111,7 +125,8 @@ def _attn_kwargs(cfg: ArchConfig, kind: str):
 
 
 def _zero_aux(x) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.float32, device=x.device)
+    return replicated_like(
+        torch.zeros((), dtype=torch.float32, device=x.device), x)
 
 
 def _ffn(p, x, cfg: ArchConfig, decode: bool = False):
@@ -123,6 +138,7 @@ def _ffn(p, x, cfg: ArchConfig, decode: bool = False):
         f, aux = mlp_m.moe(p["moe"], h, cfg, decode=decode)
     else:
         f, aux = mlp_m.mlp(p["mlp"], h, cfg.act), None
+    f = constrain(f, SP_SPEC)  # the partial sum reduce-scattered
     if cfg.post_norms:
         f = apply_norm(p["post_mlp"], f, cfg)
     return x + f, aux
@@ -147,9 +163,11 @@ def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions,
     """Full-sequence block application (train / prefill). Returns ``(x,
     aux)``, ``aux`` the MoE's load-balancing loss (f32, zero without
     one)."""
-    x = grad_compressed_boundary(x)
+    x = constrain(x, SP_SPEC)
+    x = grad_compressed_boundary(x, SP_SPEC)
     if kind in _RECURRENT:
-        return _recurrent(p, x, cfg, kind, "full")[0], _zero_aux(x)
+        x = _recurrent(p, x, cfg, kind, "full")[0]
+        return constrain(x, SP_SPEC), _zero_aux(x)
     window, theta = _attn_kwargs(cfg, kind)
     h = apply_norm(p["ln1"], x, cfg)
     if cfg.mla is not None:
@@ -158,9 +176,14 @@ def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions,
     else:
         a = attn_m.attention_full(p["attn"], h, cfg, positions=positions,
                                   window=window, causal=causal, theta=theta)
+    # a sharded program's output projection is a partial sum over the
+    # heads: reduce-scattered to the SP layout here, so its gradient comes
+    # back whole (an all-gather) rather than split along the sequence
+    a = constrain(a, SP_SPEC)
     if cfg.post_norms:
         a = apply_norm(p["post_attn"], a, cfg)
     x, aux = _ffn(p, x + a, cfg)
+    x = constrain(x, SP_SPEC)  # the reduce-scatter back to the SP layout
     return x, _zero_aux(x) if aux is None else aux
 
 

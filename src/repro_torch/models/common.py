@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.activation import replicated_like
+
 
 class ParamTree(nn.Module):
     """A dict node that holds both tensors and sub-dicts (the MoE layer's
@@ -167,8 +169,8 @@ def apply_rope(x, positions, theta: float = 10000.0):
     int; f32 angles and math, cast back."""
     inv = rope_frequencies(x.shape[-1], theta, x.device)
     ang = positions[..., None].float() * inv  # (B, S, D/2)
-    sin = torch.sin(ang)[:, :, None, :]
-    cos = torch.cos(ang)[:, :, None, :]
+    sin = replicated_like(torch.sin(ang)[:, :, None, :], x)
+    cos = replicated_like(torch.cos(ang)[:, :, None, :], x)
     x1 = x[..., 0::2].float()
     x2 = x[..., 1::2].float()
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

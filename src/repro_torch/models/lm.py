@@ -37,6 +37,9 @@ from repro_torch.models import attention as attn_m
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import (META_DRAWS, dense_init, embed_init,
                                        frozen, sinusoidal_positions)
+from repro_torch.sharding.activation import (BATCH_AXES, constrain,
+                                            gathered, is_dtensor,
+                                            replicated_like)
 
 POS_DEC = 32_768  # learned decoder positions: the largest assigned shape
 Z_LOSS_COEF = 1e-4
@@ -137,18 +140,33 @@ def init_lm(generator: torch.Generator | int, cfg: ArchConfig,
 
 
 def embed_tokens(params, cfg: ArchConfig, tokens):
-    x = F.embedding(tokens, params["embed"]).to(dtype_of(cfg.dtype))
+    # a sharded table is gathered over its feature dim first (DTensor's
+    # masked lookup mis-sizes its mask when the table's features and the
+    # tokens' rows shard over one axis)
+    table = constrain(params["embed"], ("model", None))
+    x = F.embedding(tokens, table).to(dtype_of(cfg.dtype))
     if cfg.embed_scale:  # sqrt(d) rounded to the activation dtype first
         x = x * x.new_full((), cfg.d_model ** 0.5)
-    return x
+    # batch over the data axes (sequence over data where batch cannot)
+    return constrain(x, (BATCH_AXES, None, None))
 
 
 def lm_logits(params, cfg: ArchConfig, x):
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    logits = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+    # a sharded program's head: the sequence whole (the SP all-gather) and
+    # the weight whole over the data axes, its vocab over "model"
+    x = constrain(x, (BATCH_AXES, None, None))
+    logits = torch.einsum("bsd,dv->bsv", x, gathered(head).to(x.dtype))
     if cfg.padded_vocab_size != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30  # pad ids are never predicted
-    return logits
+        # pad ids are never predicted
+        if is_dtensor(logits):  # a vocab-sharded block: the same fill
+            pad = torch.arange(cfg.padded_vocab_size,
+                               device=logits.device) >= cfg.vocab_size
+            logits = logits.masked_fill(replicated_like(pad, logits), -1e30)
+        else:  # an explicit fill: one op on every device, meta included
+            logits[..., cfg.vocab_size:].fill_(-1e30)
+    # the f32-bound logits stay vocab-sharded in a sharded program
+    return constrain(logits, (BATCH_AXES, None, "model"))
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -175,14 +193,62 @@ def forward(params, cfg: ArchConfig, batch):
     return lm_logits(params, cfg, hidden_forward(params, cfg, batch)[0])
 
 
+def _vocab_sharded(logits) -> bool:
+    return is_dtensor(logits) and any(
+        p.is_shard(logits.dim() - 1) for p in logits.placements)
+
+
+def _lse(logits):
+    """``logsumexp`` over the last (vocab) dimension. On vocab-sharded
+    DTensor logits it is taken as ``torch.logsumexp`` computes it, a max
+    and a sum of exponentials, each reduced over the vocab's ranks (a
+    partial max and a partial sum), so no rank gathers the logits."""
+    if not _vocab_sharded(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    return torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+
+
+def _gold(logits, labels):
+    """Each token's label logit, ``logits (B, S, V)`` at ``labels (B, S)``:
+    a gather. On DTensor logits each rank gathers from its own block (its
+    rows, and where the vocab is sharded its vocab block, zero where the
+    label lies in another's), and the vocab blocks' values are summed: one
+    nonzero term, exact."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, V = logits.device_mesh, logits.shape[-1]
+    vocab = [i for i, p in enumerate(logits.placements)
+             if p.is_shard(logits.dim() - 1)]
+    rows = tuple(Replicate() if i in vocab else p
+                 for i, p in enumerate(logits.placements))
+    local = logits.to_local()
+    lab = replicated_like(labels, logits)
+    lab = lab.redistribute(mesh, rows).to_local().long()
+    block, v0 = V, 0
+    for i in vocab:  # mesh order: the vocab's row-major split
+        block //= mesh.size(i)
+        v0 += mesh.get_local_rank(i) * block
+    idx = lab - v0
+    inside = (idx >= 0) & (idx < local.shape[-1])
+    g = torch.gather(local, -1, idx.clamp(0, local.shape[-1] - 1)[..., None])
+    g = torch.where(inside, g[..., 0], torch.zeros((), dtype=g.dtype,
+                                                    device=g.device))
+    part = tuple(Partial() if i in vocab else p for i, p in enumerate(rows))
+    g = DTensor.from_local(g, mesh, part, run_check=False)
+    return g.redistribute(mesh, rows) if vocab else g
+
+
 def cross_entropy(logits, labels, mask=None):
     """Mean token cross entropy with the z-loss, in f32: ``lse - gold +
     Z_LOSS_COEF * lse ** 2`` a token, ``gold`` the label's logit (a
     gather: the same value as the reference's masked reduce), the mean
     over ``mask`` where given (``sum / max(sum(mask), 1)``)."""
     logits_f = logits.float()
-    lse = torch.logsumexp(logits_f, dim=-1)
-    gold = torch.gather(logits_f, -1, labels.long()[..., None])[..., 0]
+    lse = _lse(logits_f)
+    gold = _gold(logits_f, labels)
     per_tok = (lse - gold) + Z_LOSS_COEF * lse ** 2
     if mask is None:
         return torch.mean(per_tok)
@@ -197,20 +263,23 @@ def chunked_cross_entropy(params, cfg: ArchConfig, h, labels, mask=None):
     exist for one chunk at a time, forward and backward."""
     B, S, _ = h.shape
     c = min(_CE_CHUNK, S)
-    mask = (torch.ones((B, S), dtype=torch.float32, device=h.device)
+    mask = (replicated_like(torch.ones((B, S), dtype=torch.float32,
+                                       device=h.device), h)
             if mask is None else mask.float())
 
     def chunk(hx, lx, mx):
         logits = lm_logits(params, cfg, hx).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lx.long()[..., None])[..., 0]
+        lse = _lse(logits)
+        gold = _gold(logits, lx)
         return torch.sum((lse - gold + Z_LOSS_COEF * lse ** 2) * mx)
 
     run = chunk
     if torch.is_grad_enabled() and h.requires_grad:
         run = lambda *a: checkpoint(chunk, *a, use_reentrant=False)  # noqa: E731
-    tot = torch.zeros((), dtype=torch.float32, device=h.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    tot = replicated_like(torch.zeros((), dtype=torch.float32,
+                                      device=h.device), h)
+    cnt = replicated_like(torch.zeros((), dtype=torch.float32,
+                                      device=h.device), h)
     for s0 in range(0, S, c):
         mx = mask[:, s0:s0 + c]
         tot = tot + run(h[:, s0:s0 + c], labels[:, s0:s0 + c], mx)

@@ -36,6 +36,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import act_fn, dense_init, expert_init, frozen
+from repro_torch.sharding.activation import BATCH_AXES, constrain, gathered
+
+_HIDDEN_TP = (BATCH_AXES, None, "model")  # the MLP hidden over "model"
 
 
 # ---------------------------------------------------------------------------
@@ -53,9 +56,12 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp(p, x, act: str = "silu"):
-    g = act_fn(act)(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"])
-    return torch.einsum("bsf,fd->bsd", g * u, p["w_down"])
+    x = constrain(x, (BATCH_AXES, None, None))  # the SP all-gather
+    g = act_fn(act)(constrain(
+        torch.einsum("bsd,df->bsf", x, gathered(p["w_gate"])), _HIDDEN_TP))
+    u = constrain(torch.einsum("bsd,df->bsf", x, gathered(p["w_up"])),
+                  _HIDDEN_TP)
+    return torch.einsum("bsf,fd->bsd", g * u, gathered(p["w_down"]))
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,15 @@ leaves; any other module's leaves are its named parameters, a plain dict
 its tensors. The update is taken in f32 and cast to the parameter's
 dtype, written into the parameters in place. Plain PyTorch: the
 reference has no kernel here.
+
+A sharded program's leaves are DTensors (``sharding.rules``): the
+moments are placed like their parameters and the gradients arrive placed
+so too (``launch/steps.py``), so a full-moment update runs on each rank's
+blocks in the reference's order of operations, elementwise, and writes
+the parameters' blocks in place. ``global_norm`` sums each rank's blocks'
+squares (a leaf a rank holds a copy of counts on one rank only) and
+all-reduces the total once: the clip's one reduction. A factored moment's
+means cross blocks, so it runs through DTensor's ops.
 """
 from __future__ import annotations
 
@@ -75,6 +84,43 @@ def _stacked(leaf) -> torch.Tensor:
     return torch.stack(leaf) if isinstance(leaf, list) else leaf
 
 
+def _dt(leaf):
+    """The DTensor behind a leaf (a stacked leaf's first layer), or
+    None."""
+    from torch.distributed.tensor import DTensor
+
+    t = leaf[0] if isinstance(leaf, list) else leaf
+    return t if isinstance(t, DTensor) else None
+
+
+def _placed(leaf) -> tuple:
+    """A DTensor leaf's placements; a stacked leaf's shard dims move one
+    up, as the stacked tensor's."""
+    from torch.distributed.tensor import Shard
+
+    out = _dt(leaf).placements
+    if isinstance(leaf, list):
+        out = [Shard(p.dim + 1) if p.is_shard() else p for p in out]
+    return tuple(out)
+
+
+def _local(leaf) -> torch.Tensor:
+    """This rank's block of a DTensor leaf (a stacked leaf's layers'
+    blocks stacked)."""
+    if isinstance(leaf, list):
+        return torch.stack([t.to_local() for t in leaf])
+    return leaf.to_local()
+
+
+def _owned(dt) -> bool:
+    """Whether this rank counts a DTensor's block in a sum over ranks: it
+    sits at coordinate 0 of every mesh dim the tensor is replicated
+    over."""
+    mesh = dt.device_mesh
+    return all(mesh.get_local_rank(i) == 0
+               for i, p in enumerate(dt.placements) if p.is_replicate())
+
+
 def init_opt_state(params, cfg: OptimizerConfig) -> dict:
     mu, nu = {}, {}
     for name, leaf in param_leaves(params).items():
@@ -93,10 +139,27 @@ def init_opt_state(params, cfg: OptimizerConfig) -> dict:
 
 
 def global_norm(grads: dict) -> torch.Tensor:
-    """``sqrt`` of the f32 sum of squares over the leaves, in order."""
-    total = 0
+    """``sqrt`` of the f32 sum of squares over the leaves, in order. Over
+    DTensor leaves each rank sums its blocks' squares (a replicated block
+    on one rank only) and one all-reduce adds the ranks' totals; the
+    result is a plain tensor, the same on every rank."""
+    first = _dt(next(iter(grads.values())))
+    if first is None:
+        total = 0
+        for g in grads.values():
+            total = total + torch.sum(torch.square(_stacked(g).float()))
+        return torch.sqrt(total)
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+
+    total = torch.zeros((), dtype=torch.float32,
+                        device=first.to_local().device)
     for g in grads.values():
-        total = total + torch.sum(torch.square(_stacked(g).float()))
+        if _owned(_dt(g)):
+            total = total + torch.sum(torch.square(_local(g).float()))
+    if first.device_mesh.size() > 1:
+        total = funcol.wait_tensor(
+            funcol.all_reduce(total, "sum", dist.group.WORLD))
     return torch.sqrt(total)
 
 
@@ -121,7 +184,9 @@ def apply_updates(params, grads, opt_state: dict, cfg: OptimizerConfig):
     module's parameter names (a dict's keys) to its gradient. Writes the
     new parameters into ``params`` and returns ``(params, opt_state,
     stats)``, ``stats`` the step's ``lr``, ``grad_norm`` and ``step``."""
-    step = opt_state["step"] + 1
+    step = opt_state["step"]
+    step_dt = _dt(step)
+    step = (step if step_dt is None else step_dt.to_local()) + 1
     lr = lr_schedule(cfg, step)
     gl = leaf_grads(params, grads)
     gnorm = global_norm(gl)
@@ -132,9 +197,17 @@ def apply_updates(params, grads, opt_state: dict, cfg: OptimizerConfig):
 
     mu, nu = {}, {}
     for name, leaf in param_leaves(params).items():
+        m, v = opt_state["mu"][name], opt_state["nu"][name]
+        local = _dt(leaf) is not None and _dt(m) is not None and \
+            "full" in v and \
+            _placed(leaf) == _placed(gl[name]) == m.placements \
+            == v["full"].placements
+        if local:
+            _update_local(leaf, gl[name], m, v, name, scale, lr, c1, c2,
+                          cfg, mu, nu)
+            continue
         p = _stacked(leaf)
         g = _stacked(gl[name]).float() * scale
-        m, v = opt_state["mu"][name], opt_state["nu"][name]
         m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g
         if "full" in v:
             v_new = {"full": cfg.b2 * v["full"].float()
@@ -163,7 +236,45 @@ def apply_updates(params, grads, opt_state: dict, cfg: OptimizerConfig):
         mu[name] = m_new.to(m.dtype)
         nu[name] = {k: v_new[k].to(v[k].dtype) for k in v}
     stats = {"lr": lr, "grad_norm": gnorm, "step": step}
+    if step_dt is not None:
+        from torch.distributed.tensor import DTensor
+
+        step = DTensor.from_local(step, step_dt.device_mesh,
+                                  step_dt.placements, run_check=False)
     return params, {"mu": mu, "nu": nu, "step": step}, stats
+
+
+def _update_local(leaf, g_leaf, m, v, name, scale, lr, c1, c2, cfg, mu,
+                  nu) -> None:
+    """``apply_updates``' full-moment step on this rank's blocks of one
+    DTensor leaf, in its order of operations: the parameters' blocks are
+    written in place, the new moments go into ``mu`` / ``nu`` as DTensors
+    placed as the old."""
+    from torch.distributed.tensor import DTensor
+
+    p = _local(leaf)
+    g = _local(g_leaf).float() * scale
+    m_l, v_l = m.to_local(), v["full"].to_local()
+    m_new = cfg.b1 * m_l.float() + (1 - cfg.b1) * g
+    v_new = cfg.b2 * v_l.float() + (1 - cfg.b2) * g * g
+    v_hat = v_new / c2
+    update = (m_new / c1) / (torch.sqrt(v_hat) + cfg.eps)
+    if p.dim() >= 2:  # decoupled weight decay on matrices only
+        update = update + cfg.weight_decay * p.float()
+    p_new = (p.float() - lr * update).to(p.dtype)
+    if isinstance(leaf, list):
+        for t, new in zip(leaf, p_new.unbind(0)):
+            t.to_local().copy_(new)
+    else:
+        leaf.to_local().copy_(p_new)
+
+    def like(t, old):
+        return DTensor.from_local(t, old.device_mesh, old.placements,
+                                  run_check=False, shape=old.shape,
+                                  stride=old.stride())
+
+    mu[name] = like(m_new.to(m.dtype), m)
+    nu[name] = {"full": like(v_new.to(v["full"].dtype), v["full"])}
 
 
 __all__ = ["OptimizerConfig", "init_opt_state", "apply_updates",

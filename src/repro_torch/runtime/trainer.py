@@ -1,5 +1,5 @@
 """The fault-tolerant training loop, the port's copy of
-``repro/runtime/trainer.py`` on one card (no mesh):
+``repro/runtime/trainer.py``, on one card or sharded over a mesh:
 
 * checkpoint / restart: the parameters and the optimizer state as one
   flat leaf list (``state_leaves``: the parameters in the module's order,
@@ -18,10 +18,25 @@
 Each step runs inside ``compressed_boundaries()``, as the reference's
 runs under ``activation_mesh``: the block boundaries round their
 cotangents to bf16. The final state is saved blocking at the end, or, if
-the last periodic save was of that step, that write is waited for.
+the last periodic save was of that step, that write is waited for;
+``ckpt_every <= 0`` saves nothing.
+
+With a ``mesh`` (a ``DeviceMesh``, or a ``core.distributed.Mesh`` that
+``launch.mesh.device_mesh`` turns into one; the process group is the
+caller's, one process a device) the parameters and the optimizer state
+are DTensors placed by the sharding rules (``param_pspecs``), each step
+is ``make_train_step``'s mesh branch under ``activation_mesh(mesh)``,
+and every rank draws the whole global batch from the one ``TokenStream``
+(the reference's single-host stream; a stream per host would draw other
+tokens) and keeps its block (``batch_pspecs``), so a sharded run trains
+on the reference's batches. A checkpoint holds whole leaves, gathered
+from every rank and written by rank 0 in the store's format; a restore
+reads them whole and places them on the *current* mesh, so a step saved
+on one mesh resumes on another (the reference's elastic restore).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -30,6 +45,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve
 from repro_torch.checkpoint import CheckpointStore
@@ -39,6 +55,8 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm
 from repro_torch.models.boundary import compressed_boundaries
 from repro_torch.optim import OptimizerConfig, init_opt_state
+from repro_torch.sharding import rules
+from repro_torch.sharding.activation import activation_mesh
 
 TREEDEF = "repro_torch.runtime.trainer:params+adamw"
 
@@ -80,15 +98,36 @@ def state_names(params, opt_state: dict) -> list:
     return out + ["step"]
 
 
+def _is_mesh(x) -> bool:
+    return hasattr(x, "mesh_dim_names") or hasattr(x, "axis_names")
+
+
 class Trainer:
+    """``Trainer(cfg, tcfg, opt_cfg, device=..., mesh=...)``; the
+    reference's order ``Trainer(cfg, tcfg, mesh, opt_cfg)`` works too."""
+
     def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig,
-                 opt_cfg: OptimizerConfig | None = None, *, device=None,
-                 mesh=None):
-        if mesh is not None:
-            raise ValueError("the port trains on one device: no mesh")
+                 opt_cfg=None, mesh_opt_cfg: OptimizerConfig | None = None,
+                 *, device=None, mesh=None):
+        if opt_cfg is not None and _is_mesh(opt_cfg):
+            mesh, opt_cfg = opt_cfg, mesh_opt_cfg
+        if mesh is not None and not _is_mesh(mesh):
+            raise ValueError(f"mesh must be a DeviceMesh or a Mesh, got "
+                             f"{type(mesh).__name__}")
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            from repro_torch.launch.mesh import device_mesh
+
+            mesh = device_mesh(mesh)
+        self.mesh = mesh
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = resolve(device)
+        if mesh is None:
+            self.device = resolve(device)
+        elif mesh.device_type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self.device = torch.device(mesh.device_type)
+        self.rank = 0 if mesh is None else dist.get_rank()
         self.opt_cfg = opt_cfg or OptimizerConfig(
             total_steps=tcfg.steps, warmup_steps=max(1, tcfg.steps // 20))
         self.store = CheckpointStore(tcfg.ckpt_dir, keep=tcfg.keep_ckpts)
@@ -121,6 +160,13 @@ class Trainer:
         params = self.init_params()
         params.requires_grad_(True)
         return params, init_opt_state(params, self.opt_cfg)
+
+    def place(self, params, opt_state):
+        """The whole state placed on the mesh by the rules (the state
+        itself without a mesh)."""
+        if self.mesh is None:
+            return params, opt_state
+        return rules.distribute_state(params, opt_state, self.mesh)
 
     def _extra(self, params, opt_state) -> dict:
         return {"arch": self.cfg.name, "factored": self.opt_cfg.factored,
@@ -165,25 +211,48 @@ class Trainer:
             (params, opt_state), _ = self.store.restore(
                 self._builder(params, opt_state), latest, device=self.device)
             start = latest
-            print(f"[trainer] restored step {latest} from "
-                  f"{self.tcfg.ckpt_dir}")
+            if self.rank == 0:
+                print(f"[trainer] restored step {latest} from "
+                      f"{self.tcfg.ckpt_dir}")
+        params, opt_state = self.place(params, opt_state)
         return params, opt_state, start
 
     def save(self, step: int, params, opt_state, blocking: bool = False):
-        self.store.save(step, state_leaves(params, opt_state),
-                        treedef=TREEDEF, blocking=blocking,
+        leaves = state_leaves(params, opt_state)
+        if self.mesh is not None:  # whole leaves, written by rank 0
+            leaves = [t.full_tensor() for t in leaves]
+            if self.rank != 0:
+                return
+        self.store.save(step, leaves, treedef=TREEDEF, blocking=blocking,
                         extra=self._extra(params, opt_state))
 
+    def _saved(self, step: int) -> None:
+        """Wait for a save of ``step`` on rank 0, then for every rank (a
+        restore on any rank must find it committed)."""
+        if self.rank == 0:
+            self.store.flush()
+        if self.mesh is not None:
+            dist.barrier()
+
     def batch_at(self, step: int) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in self.stream.batch_at(step).items()}
+        """The global batch of ``step`` on the trainer's device; on a mesh,
+        this rank's block of it."""
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in self.stream.batch_at(step).items()}
+        if self.mesh is None:
+            return batch
+        return rules.distribute(batch,
+                                rules.batch_pspecs(batch, self.mesh),
+                                self.mesh)
 
     # -- the loop ------------------------------------------------------------
 
     def run(self) -> dict:
         previous = self._install_signal_handlers()
+        placed = (contextlib.nullcontext() if self.mesh is None
+                  else activation_mesh(self.mesh))
         try:
-            with compressed_boundaries():
+            with compressed_boundaries(), placed:
                 return self._run()
         finally:
             for sig, h in previous.items():
@@ -193,7 +262,9 @@ class Trainer:
     def _run(self) -> dict:
         t = self.tcfg
         params, opt_state, start = self.restore_or_init()
-        step_fn = make_train_step(self.cfg, self.opt_cfg, t.microbatches)
+        step_fn = make_train_step(self.cfg, self.opt_cfg, t.microbatches,
+                                  mesh=self.mesh)
+        every = t.ckpt_every if t.ckpt_every > 0 else None
         losses, saved = [], None
         for step in range(start, t.steps):
             batch = self.batch_at(step)
@@ -223,26 +294,26 @@ class Trainer:
                        "grad_norm": float(stats["grad_norm"]),
                        "sec": round(dt, 3)}
                 self.stats_log.append(rec)
-                print(f"[trainer] {rec}")
+                if self.rank == 0:
+                    print(f"[trainer] {rec}")
 
-            if (step + 1) % t.ckpt_every == 0:
+            if every and (step + 1) % every == 0:
                 self.save(step + 1, params, opt_state)
                 saved = step + 1
 
             if self._preempted:
                 print(f"[trainer] preemption: checkpointing step "
                       f"{step + 1} and exiting")
-                if saved == step + 1:
-                    self.store.flush()
-                else:
+                if saved != step + 1:
                     self.save(step + 1, params, opt_state, blocking=True)
+                self._saved(step + 1)
                 return {"losses": losses, "preempted": True,
                         "stop_step": step + 1}
 
-        if saved == t.steps:
-            self.store.flush()
-        else:
-            self.save(t.steps, params, opt_state, blocking=True)
+        if every:
+            if saved != t.steps:
+                self.save(t.steps, params, opt_state, blocking=True)
+            self._saved(t.steps)
         return {"losses": losses, "preempted": False, "stop_step": t.steps,
                 "final_params": params, "opt_state": opt_state}
 

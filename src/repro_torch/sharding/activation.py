@@ -3,32 +3,52 @@ activation.py``.
 
 The reference's model code calls ``constrain(x, (BATCH_AXES, None,
 "model"))`` and launch code wraps tracing in ``activation_mesh(mesh)``,
-which turns the calls into ``with_sharding_constraint``. The port runs in
-one process that holds every tensor whole, so ``constrain`` returns ``x``
-itself; ``resolve_spec`` gives the placement the reference would pin,
-resolved the same way: the ``BATCH_AXES`` sentinel becomes the active
-strategy's batch axes, ``"model"`` entries drop under ``fsdp``, and axes
-missing from the mesh or not dividing the dimension drop silently.
-Outside ``activation_mesh`` nothing resolves (the reference's no-op).
+which turns the calls into ``with_sharding_constraint``. In the port
+``resolve_spec`` gives the placement the reference would pin, resolved
+the same way: the ``BATCH_AXES`` sentinel becomes the active strategy's
+batch axes, ``"model"`` entries drop under ``fsdp``, and axes missing
+from the mesh or not dividing the dimension drop silently. Outside
+``activation_mesh`` nothing resolves (the reference's no-op).
 
-The reference's ``grad_compressed_boundary`` (the block boundary's bf16
-cotangent) is ``models/boundary.py``'s, the port's trainer's context.
+``constrain`` acts on a DTensor (a sharded program's activation, on the
+``DeviceMesh`` given to ``activation_mesh``): it redistributes it to the
+resolved placement (``sharding.rules.dtensor_placements``), which is
+where the collectives the reference's partitioner inserts happen here (an
+all-gather of the sequence, a reduce-scatter of a partial sum). On a
+plain tensor, a one-process program that holds every tensor whole, it
+returns ``x`` itself. ``replicated_like(t, x)`` makes a plain tensor
+built from shapes (rotary tables, masks) a replicated DTensor beside a
+DTensor ``x``, and is the identity otherwise.
+
+The active mesh is process-wide, not a context variable: autograd runs a
+checkpointed block's recomputation on its own device threads, and the
+recomputed forward must constrain as the first did.
+
+``grad_compressed_boundary`` (the block boundary's bf16 cotangent, pinned
+to the boundary's layout) is ``models/boundary.py``'s, the port's
+trainer's context.
 """
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import math
+import threading
 
 BATCH_AXES = ("pod", "data")  # sentinel resolved against the active strategy
 
-_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
-    "repro_torch_activation_mesh", default=None)
+_LOCK = threading.Lock()
+_STACK: list = []
+
+
+def _active():
+    return _STACK[-1] if _STACK else None
 
 
 @contextlib.contextmanager
 def activation_mesh(mesh, strategy: str = "tp_sp"):
-    """Resolve activation placements against ``mesh`` inside this context.
+    """Resolve activation placements against ``mesh`` (a
+    ``core.distributed.Mesh`` or a ``DeviceMesh``; a sharded program's
+    ``constrain`` needs the latter) inside this context.
 
     strategy:
       "tp_sp" — batch over (pod, data); tensor/sequence parallelism over
@@ -36,21 +56,24 @@ def activation_mesh(mesh, strategy: str = "tp_sp"):
       "fsdp"  — batch over (pod, data, model): pure ZeRO-3 data
                 parallelism; every "model" entry resolves to None.
     """
+    from repro_torch.sharding.rules import axis_sizes
+
     if strategy == "fsdp":
         batch_axes = ("pod", "data", "model")
         tensor_ok = False
     else:
         batch_axes = ("pod", "data")
         tensor_ok = True
-    token = _ACTIVE.set({
-        "sizes": {a: int(mesh.shape[a]) for a in mesh.axis_names},
-        "batch_axes": batch_axes,
-        "tensor_ok": tensor_ok,
-    })
+    ctx = {"sizes": axis_sizes(mesh), "batch_axes": batch_axes,
+           "tensor_ok": tensor_ok,
+           "mesh": mesh if hasattr(mesh, "mesh_dim_names") else None}
+    with _LOCK:
+        _STACK.append(ctx)
     try:
         yield
     finally:
-        _ACTIVE.reset(token)
+        with _LOCK:
+            _STACK.remove(ctx)
 
 
 def resolve_spec(shape: tuple, spec: tuple) -> tuple | None:
@@ -62,7 +85,7 @@ def resolve_spec(shape: tuple, spec: tuple) -> tuple | None:
     Spec entries: None, an axis name, or a tuple of axes (sharded
     jointly). The BATCH_AXES sentinel resolves to the active strategy's
     batch axes; "model" entries are dropped under the fsdp strategy."""
-    ctx = _ACTIVE.get()
+    ctx = _active()
     if ctx is None:
         return None
     axis_sizes = ctx["sizes"]
@@ -87,10 +110,69 @@ def resolve_spec(shape: tuple, spec: tuple) -> tuple | None:
     return tuple(entries)
 
 
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def target_placements(x, spec: tuple):
+    """The placements ``constrain(x, spec)`` moves the DTensor ``x`` to,
+    or None without an active ``DeviceMesh``. Where every entry drops the
+    reference pins nothing and leaves the layout to its partitioner; a
+    DTensor program has none, so the entries' ``None`` holds: replicated
+    (a sequence that cannot shard is gathered whole)."""
+    ctx = _active()
+    if ctx is None or ctx["mesh"] is None:
+        return None
+    resolved = resolve_spec(tuple(x.shape), spec) or (None,) * x.dim()
+    from repro_torch.sharding.rules import dtensor_placements
+
+    return dtensor_placements(resolved, ctx["mesh"])
+
+
 def constrain(x, spec: tuple):
-    """``x`` itself: the port holds every tensor whole. Its placement under
-    the active mesh is ``resolve_spec(x.shape, spec)``."""
-    return x
+    """``x`` redistributed to ``target_placements(x, spec)`` when ``x`` is
+    a DTensor under an active ``DeviceMesh``; ``x`` itself otherwise (a
+    plain tensor is whole)."""
+    if not is_dtensor(x):
+        return x
+    want = target_placements(x, spec)
+    if want is None or tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
-__all__ = ["constrain", "activation_mesh", "resolve_spec", "BATCH_AXES"]
+def gathered(w, dims: tuple = ()):
+    """A sharded program's weight ready to compute with: whole over the
+    data axes (``pod``, ``data``; the FSDP all-gather, whose gradient is
+    the reduce-scatter back to the weight's placement) and over tensor
+    dimensions ``dims``; ``w`` itself when it is not a DTensor."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = w.device_mesh.mesh_dim_names
+    want = tuple(Replicate() if p.is_shard() and (
+        names[i] in ("pod", "data") or p.dim in dims) else p
+        for i, p in enumerate(w.placements))
+    if want == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, want)
+
+
+def replicated_like(t, x):
+    """``t``, a plain tensor every rank computes whole, as a replicated
+    DTensor on ``x``'s mesh when ``x`` is a DTensor; ``t`` otherwise."""
+    if not is_dtensor(x) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+__all__ = ["constrain", "activation_mesh", "resolve_spec", "BATCH_AXES",
+           "is_dtensor", "target_placements", "replicated_like",
+           "gathered"]

@@ -26,6 +26,16 @@ bytes that way. Leaves are keyed by the reference's paths, dotted:
 list of its layers), ``reference_cache_leaves`` a decode cache's, and an
 optimizer state's are ``mu.<leaf>``, ``nu.<leaf>.(full|row|col)`` and
 ``step``.
+
+A sharded program (``launch/steps.py``, ``runtime/trainer.py``) holds
+its leaves as DTensors on a ``torch.distributed.DeviceMesh`` with the
+same axis names: ``dtensor_placements`` turns a spec into one placement a
+mesh dimension (an axis that shards a tensor dimension ``d`` is
+``Shard(d)``; a tuple of axes is ``Shard(d)`` on each, in mesh order,
+the reference's row-major joint sharding; every other axis, and an axis
+of size 1, is ``Replicate()``), ``distribute`` places a leaf tree and
+``distribute_params`` a model's parameters in place. Every function here
+takes either kind of mesh (``axis_sizes``).
 """
 from __future__ import annotations
 
@@ -36,12 +46,20 @@ from dataclasses import dataclass
 import torch
 
 
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a ``core.distributed.Mesh`` or a
+    ``DeviceMesh``."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
 def dp_axes(mesh) -> tuple:
-    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    return ("pod", "data") if "pod" in axis_sizes(mesh) else ("data",)
 
 
 def _axsize(mesh, name) -> int:
-    return mesh.shape[name]
+    return axis_sizes(mesh)[name]
 
 
 def _div(dim: int, size: int) -> bool:
@@ -358,6 +376,111 @@ def device_bytes(tree, specs: dict, mesh) -> int:
                for path, leaf in leaves(tree).items())
 
 
+# ---------------------------------------------------------------------------
+# DTensor placements
+# ---------------------------------------------------------------------------
+
+
+def dtensor_placements(spec: tuple, mesh) -> tuple:
+    """One DTensor placement a dimension of the ``DeviceMesh`` ``mesh``
+    for ``spec``: ``Shard(d)`` on the mesh dims whose axes shard tensor
+    dimension ``d``, ``Replicate()`` on the rest and on any axis of size
+    1. A tuple of axes must be in mesh order (DTensor shards a dimension
+    over several mesh dims in that order)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"axes {axes} are not in the mesh's order "
+                             f"{names}")
+        for i in idx:
+            if mesh.size(i) > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def _place(t: torch.Tensor, spec: tuple, mesh):
+    """``t`` (whole, the same on every rank) as a DTensor placed by
+    ``spec``: each rank keeps its block, nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.detach(), mesh, dtensor_placements(spec,
+                                                                  mesh),
+                             src_data_rank=None)
+
+
+def distribute(tree, specs: dict, mesh) -> dict:
+    """``{path: leaf}`` of ``tree`` (``leaves``) with each leaf placed by
+    its spec as a DTensor on ``mesh``; a stacked leaf (a list of layers)
+    stays a list, each layer placed by the spec without its layer axis;
+    a Python int stays itself."""
+    out = {}
+    for path, leaf in leaves(tree).items():
+        spec = specs[path]
+        if isinstance(leaf, int):
+            out[path] = leaf
+        elif isinstance(leaf, list):
+            out[path] = [_place(t, spec[1:], mesh) for t in leaf]
+        else:
+            out[path] = _place(leaf, spec, mesh)
+    return out
+
+
+def distribute_params(params, mesh):
+    """Replace each parameter of ``params`` (an ``LmParams``) by a
+    DTensor parameter placed by ``param_pspecs`` on ``mesh``, keeping its
+    ``requires_grad``; returns ``params``."""
+    specs = param_pspecs(params, mesh)
+    placed = distribute(params, specs, mesh)
+    by_id = {}
+    for path, leaf in leaves(params).items():
+        if isinstance(leaf, list):
+            by_id.update({id(t): d for t, d in zip(leaf, placed[path])})
+        else:
+            by_id[id(leaf)] = placed[path]
+    for mod in params.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None:
+                mod._parameters[name] = torch.nn.Parameter(
+                    by_id[id(p)], requires_grad=p.requires_grad)
+    return params
+
+
+def distribute_state(params, opt_state: dict, mesh) -> tuple:
+    """A model's parameters (in place) and its AdamW state (``mu``,
+    ``nu``, ``step``) placed on ``mesh`` by ``param_pspecs``."""
+    distribute_params(params, mesh)
+    placed = iter(distribute(opt_state, param_pspecs(opt_state, mesh),
+                             mesh).values())
+    mu = {k: next(placed) for k in opt_state["mu"]}
+    nu = {k: {s: next(placed) for s in v}
+          for k, v in opt_state["nu"].items()}
+    return params, {"mu": mu, "nu": nu, "step": next(placed)}
+
+
+def local_bytes(tree) -> int:
+    """Bytes of this rank's blocks of ``tree``'s leaves (a DTensor's local
+    tensor, any other tensor whole; a Python int the reference's int32)."""
+    from torch.distributed.tensor import DTensor
+
+    total = 0
+    for leaf in leaves(tree).values():
+        for t in (leaf if isinstance(leaf, list) else [leaf]):
+            if isinstance(t, int):
+                total += 4
+                continue
+            t = t.to_local() if isinstance(t, DTensor) else t
+            total += t.numel() * t.element_size()
+    return total
+
+
 __all__ = ["Rules", "param_pspecs", "batch_pspecs", "cache_pspecs", "named",
            "dp_axes", "Placement", "leaves", "reference_cache_leaves",
-           "device_bytes"]
+           "device_bytes", "axis_sizes", "dtensor_placements", "distribute",
+           "distribute_params", "distribute_state", "local_bytes"]

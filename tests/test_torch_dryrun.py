@@ -497,9 +497,12 @@ def test_run_cell_record():
                         verbose=False)
     assert REF_KEYS <= set(r) and r["status"] == "ok"
     assert r["mesh"] == "2x16x16" and r["kind"] == "decode"
+    # the census fills the keys it counts (a dense decoder runs sharded);
+    # a compiler's own keys stay null
+    assert r["census"] == "ok"
     for k in dryrun.COMPILER_KEYS:
-        assert r[k] is None, k
-    assert r["memory"]["temp_bytes"] is None
+        assert (r[k] is not None) == (k in dryrun.CENSUS_KEYS), k
+    assert r["memory"]["temp_bytes"] >= 0
     assert r["memory"]["argument_bytes"] > r["memory"]["output_bytes"] > 0
     assert r["tokens_per_step"] == 128 and r["flops_global"] > 0
     skipped = dryrun.run_cell("qwen2-1.5b", "long_500k", multi_pod=False)

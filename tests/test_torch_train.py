@@ -601,7 +601,8 @@ def test_trainer_losses_against_the_jax_trainer(tmp_path, arch):
 def test_train_launcher_runs_reduced_on_the_cpu(tmp_path):
     """``python -m repro_torch.launch.train --reduced --device cpu``
     trains, checkpoints and prints the reference's ``[train] done:``
-    line; a model axis other than 1 is refused."""
+    line; a mesh of more processes than visible cards is refused (this
+    machine shows none)."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1"}
     base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -613,9 +614,10 @@ def test_train_launcher_runs_reduced_on_the_cpu(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "[train] done: steps=4 loss" in out.stdout
     assert (tmp_path / "ck" / "step_000000004" / "COMMITTED").exists()
-    bad = subprocess.run(base + ["--model-axis", "2"], capture_output=True,
-                         text=True, cwd=ROOT, timeout=300, env=env)
-    assert bad.returncode != 0 and "one device" in bad.stderr
+    bad = subprocess.run(base + ["--device", "cuda", "--model-axis", "2"],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=300, env=env)
+    assert bad.returncode != 0 and "visible card" in bad.stderr
 
 
 def test_checkpoint_store_keeps_bf16_leaves_bitwise(tmp_path):
