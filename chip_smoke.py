@@ -4423,7 +4423,7 @@ def train_run(root: str, dev="cuda") -> dict:
     tcfg = tr.TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
                             ckpt_dir=root, log_every=10, seed=SEED,
                             batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
-    trainer = tr.Trainer(cfg, tcfg, ocfg, device=dev)
+    trainer = tr.Trainer(cfg, tcfg, opt_cfg=ocfg, device=dev)
     n = cfg.n_params()
     state = n * (lm.dtype_of(cfg.param_dtype).itemsize + 8)  # + mu, nu
     room_for(state, os.path.dirname(root))  # host: a copy and a write
@@ -4510,7 +4510,7 @@ def resume_child(root: str) -> int:
         return tr.Trainer(cfg, tr.TrainerConfig(
             steps=steps, ckpt_every=2, ckpt_dir=os.path.join(root, d),
             log_every=100, seed=SEED, batch=RESUME_BATCH,
-            seq_len=RESUME_SEQ), OptimizerConfig(
+            seq_len=RESUME_SEQ), opt_cfg=OptimizerConfig(
                 peak_lr=TRAIN_LR, warmup_steps=1, total_steps=6)).run()
 
     report = {}
@@ -4995,7 +4995,7 @@ def dots_child(root: str) -> int:
         t = tr.Trainer(cfg, tr.TrainerConfig(
             steps=DOTS_STEPS, ckpt_every=10**6, log_every=10**6, seed=SEED,
             batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-            ckpt_dir=os.path.join(root, remat)), OptimizerConfig(
+            ckpt_dir=os.path.join(root, remat)), opt_cfg=OptimizerConfig(
                 peak_lr=TRAIN_LR, warmup_steps=1, total_steps=DOTS_STEPS))
         t.save = lambda *a, **kw: None  # no checkpoint: a comparison run
         torch.cuda.synchronize()
@@ -5296,6 +5296,112 @@ def fake_census(shape) -> dict:
     return res
 
 
+def attention_blocks(g, dev="cuda") -> None:
+    """Phase 18 (a), before the runs: ``ops.flash_attention`` on the card
+    at every block the sharded route gives it on ``(N, 1)`` and ``(1, N)``
+    (N 2 and ``SHARD_MAX``), at (a)'s attention shape, bf16, causal: on
+    ``(N, 1)`` a rank's batch rows with every head; on ``(1, N)`` a rank's
+    q heads with the kv heads ``ops.local_kv_heads`` (the route's map)
+    gives them, one kv head sliced out of two at N 4. Each block's output
+    == the plain version on the *global* q, k, v, its heads' slice, within
+    the kernel table's tolerance (``bf16_close``), so the map is held to
+    the global GQA map. A control: the kv slice taken without the block's
+    offset (the kernel's own map on the block) must miss by far more. The
+    launches here are comparisons: the caller resets the counts after."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+
+    cfg = configs.get(TRAIN_ARCH)
+    if TRAIN_REDUCED:
+        cfg = cfg.reduced()
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev)
+               .to(torch.bfloat16) for h in (H, Hkv, Hkv))
+    want = ref.flash_attention(q, k, v, causal=True)
+    notes, worst, control = [], 0.0, {}
+    for n in sorted({2, SHARD_MAX}):
+        b = B // n
+        for r in range(n):  # (n, 1): rank r's batch rows
+            got = ops.flash_attention(q[r * b:(r + 1) * b].contiguous(),
+                                      k[r * b:(r + 1) * b].contiguous(),
+                                      v[r * b:(r + 1) * b].contiguous(),
+                                      causal=True)
+            ok, _ = bf16_close(got, want[r * b:(r + 1) * b])
+            check(ok, f"sharded (a): flash_attention on rank {r}'s block "
+                  f"of ({n}, 1) == plain on the global inputs")
+            worst = max(worst, float((got.float() - want[r * b:(r + 1) * b]
+                                      .float()).abs().max()))
+        h = H // n
+        for r in range(n):  # (1, n): rank r's q heads, their kv heads
+            heads = ops.local_kv_heads(H, Hkv, n, r)
+            check(heads is not None, f"sharded (a): (1, {n}) rank {r} has "
+                  "a kv slice")
+            qr = q[:, :, r * h:(r + 1) * h].contiguous()
+            got = ops.flash_attention(
+                qr, k[:, :, heads[0]:heads[1]].contiguous(),
+                v[:, :, heads[0]:heads[1]].contiguous(), causal=True)
+            w = want[:, :, r * h:(r + 1) * h]
+            ok, _ = bf16_close(got, w)
+            check(ok, f"sharded (a): flash_attention on rank {r}'s block "
+                  f"of (1, {n}) (q heads {r * h}..{(r + 1) * h - 1}, kv "
+                  f"heads {heads}) == plain on the global inputs")
+            worst = max(worst, float((got.float() - w.float()).abs().max()))
+            if heads[0]:
+                m = heads[1] - heads[0]
+                off = ref.flash_attention(qr, k[:, :, :m], v[:, :, :m],
+                                          causal=True)
+                check(not bf16_close(off, w)[0], f"sharded (a): (1, {n}) "
+                      f"rank {r}: a kv map without the offset fails the "
+                      "tolerance")
+                control[(n, r)] = float((off.float() - w.float()).abs()
+                                        .max())
+        notes.append(f"({n}, 1) {n} blocks of q {(b, S, H, D)}, kv "
+                     f"{(b, S, Hkv, D)}; (1, {n}) {n} blocks of q "
+                     f"{(B, S, h, D)}, kv {(B, S, heads[1] - heads[0], D)}")
+    missed = max(control.values())
+    del q, k, v, want
+    loss_gap = wrong_map_loss_gap(cfg, dev)
+    print(f"[sharded-train] flash_attention on the sharded route's blocks "
+          f"({TRAIN_ARCH}, bf16, causal): " + "; ".join(notes)
+          + f"; every block == plain on the global inputs within one bf16 "
+          f"ulp + 1e-5, max abs err {worst:.3g}; a kv map without the "
+          f"block offset fails that on every block it changes, by up to "
+          f"{missed:.3g} (max abs, plain); on the model, every q head "
+          f"reading kv head 0 (that map's effect on (1, {SHARD_MAX})) moves "
+          f"the first loss by {loss_gap:.3e} relative (the (N, 1) / (1, N) "
+          f"loss check's tolerance is {SHARD_LOSS_RTOL})")
+
+
+def wrong_map_loss_gap(cfg, dev="cuda") -> float:
+    """The relative change of (a)'s first loss (the seed's weights, step
+    0's batch) when every q head reads kv head 0: what a kv map without
+    the block offset does to the whole model on ``(1, SHARD_MAX)``."""
+    from repro_torch.data.lm_pipeline import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    params = lm.init_lm(SEED, cfg, device=dev)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in TokenStream(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED).batch_at(0).items()}
+    kept = ops.flash_attention
+
+    def head0(q, k, v, **kw):
+        return kept(q, k[:, :, :1].contiguous(), v[:, :, :1].contiguous(),
+                    **kw)
+
+    with torch.no_grad():
+        right = float(lm.train_step_loss(params, cfg, batch))
+        ops.flash_attention = head0
+        try:
+            wrong = float(lm.train_step_loss(params, cfg, batch))
+        finally:
+            ops.flash_attention = kept
+    del params, batch
+    torch.cuda.empty_cache()
+    return abs(wrong - right) / abs(right)
+
+
 # the census keys a card's run and ``meta``'s share exactly (the plain
 # traffic is ``meta``'s alone: there the plain attention runs inside the
 # kernel's boundary)
@@ -5326,9 +5432,11 @@ def sharded_train_path(root: str, dev="cuda") -> dict:
                             ckpt_dir=os.path.join(root, "plain"),
                             log_every=100, seed=SEED, batch=TRAIN_BATCH,
                             seq_len=TRAIN_SEQ)
+    attention_blocks(torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()
     h0 = time.perf_counter()
-    want = tr.Trainer(cfg, tcfg, ocfg, device=dev).run()["losses"]
+    want = tr.Trainer(cfg, tcfg, opt_cfg=ocfg, device=dev).run()["losses"]
     plain_s = time.perf_counter() - h0
     counts = dict(ops.kernel_launches())
     torch.cuda.empty_cache()

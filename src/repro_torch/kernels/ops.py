@@ -231,7 +231,6 @@ def _local_plan(q, k, v):
             k.device_mesh != q.device_mesh or k.placements != v.placements:
         return None
     H, Hkv = q.shape[2], k.shape[2]
-    rep = H // Hkv
     grad, sliced = list(k.placements), None
     for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
         if pq == pk and (pq.is_replicate() or pq.is_shard(0)
@@ -246,12 +245,25 @@ def _local_plan(q, k, v):
     if any(p.is_shard(2) for j, p in enumerate(q.placements) if j != sliced):
         return None
     mesh = q.device_mesh
-    n_local = H // mesh.size(sliced)
-    h0 = mesh.get_local_rank(sliced) * n_local
+    heads = local_kv_heads(H, Hkv, mesh.size(sliced),
+                           mesh.get_local_rank(sliced))
+    return None if heads is None else (heads, tuple(grad))
+
+
+def local_kv_heads(H: int, Hkv: int, shards: int, index: int):
+    """The ``(start, stop)`` of the kv heads that block ``index`` of
+    ``shards`` equal blocks of ``H`` q heads reads under the global GQA map
+    (q head ``h`` reads kv head ``h * Hkv // H``), such that the kernel's
+    own map on the block (local q head ``j`` reads local kv head ``j *
+    (stop - start) // (H / shards)``) is the global one; None where no
+    slice does that."""
+    rep = H // Hkv
+    n_local = H // shards
+    h0 = index * n_local
     if n_local % rep == 0:
-        return (h0 // rep, (h0 + n_local) // rep), tuple(grad)
+        return h0 // rep, (h0 + n_local) // rep
     if rep % n_local == 0:  # every local q head reads one kv head
-        return (h0 // rep, h0 // rep + 1), tuple(grad)
+        return h0 // rep, h0 // rep + 1
     return None
 
 

@@ -208,8 +208,7 @@ def place_args(kind: str, args, specs, mesh) -> tuple:
     return params, tokens, cache, index
 
 
-def census_cell(arch: str, shape_name: str, multi_pod: bool,
-                device_type: str = "cuda") -> dict:
+def census_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     """The census keys of one cell's sharded step (rank 0 of a fake group
     on the production mesh), its local argument and output bytes and
     ``census_s``."""
@@ -222,8 +221,7 @@ def census_cell(arch: str, shape_name: str, multi_pod: bool,
     t0 = time.time()
     cfg, shape = cfgs.get(arch), shape_by_name(shape_name)
     mesh = make_production_mesh(multi_pod=multi_pod)
-    dmesh = make_production_device_mesh(multi_pod=multi_pod,
-                                        device_type=device_type)
+    dmesh = make_production_device_mesh(multi_pod=multi_pod)
     kind, fn, args, specs = cell_fn_and_args(cfg, shape_name, mesh)
     args = place_args(kind, args, specs, dmesh)
     arg_bytes = sum(local_bytes(t) for t in arg_trees(kind, args))

@@ -76,8 +76,12 @@ def _quiet_dtensor() -> None:
     logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
 
 
-def init_group(rank: int, world: int, store_dir: str, device_type: str,
-               timeout_s: float = 600.0) -> None:
+# how long a rank waits in a collective or the rendezvous before failing
+GROUP_TIMEOUT_S = 600.0
+
+
+def init_group(rank: int, world: int, store_dir: str,
+               device_type: str) -> None:
     """Join a ``world``-process group as ``rank`` (gloo for ``cpu``, NCCL
     for ``cuda``, where rank ``r`` takes card ``r``), the rendezvous a
     ``FileStore`` in ``store_dir`` (no TCP port to collide)."""
@@ -91,10 +95,9 @@ def init_group(rank: int, world: int, store_dir: str, device_type: str,
     if device_type == "cuda":
         torch.cuda.set_device(rank)
         kw["device_id"] = torch.device("cuda", rank)
-    dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world,
-                            timeout=datetime.timedelta(seconds=timeout_s),
-                            **kw)
+    dist.init_process_group(
+        backend, store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S), **kw)
 
 
 def device_mesh(mesh: Mesh):
@@ -146,11 +149,10 @@ def fake_device_mesh(shape, axes, device_type: str = "cuda"):
 _FAKE_MESHES: dict = {}
 
 
-def make_production_device_mesh(*, multi_pod: bool = False,
-                                device_type: str = "cuda"):
+def make_production_device_mesh(*, multi_pod: bool = False):
     """The production mesh over a fake group of 256 or 512 ranks
-    (``fake_device_mesh``)."""
-    return fake_device_mesh(*production_shape(multi_pod), device_type)
+    (``fake_device_mesh``, the cards' collective forms)."""
+    return fake_device_mesh(*production_shape(multi_pod), "cuda")
 
 
 __all__ = ["make_mesh", "make_production_mesh", "make_host_mesh",

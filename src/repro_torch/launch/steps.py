@@ -24,8 +24,11 @@ mesh branch: the parameters, optimizer state and batch are DTensors
 f32 accumulator are redistributed to their parameters' placements, so a
 data-parallel gradient's partial sum is reduced there (a reduce-scatter
 where the parameter is sharded), not later. A microbatch is each rank's
-own slice of its batch rows (no rows move); the loss is a replicated
-scalar before ``backward``.
+own slice of its batch rows (no rows move), so every leaf's rows must
+split into ``microbatches`` equal slices on every rank (the global batch
+a multiple of the row blocks times the microbatches), else the step
+raises before any collective; the loss is a replicated scalar before
+``backward``.
 """
 from __future__ import annotations
 
@@ -91,6 +94,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
             if B % microbatches:
                 raise ValueError(f"batch {B} is not a multiple of "
                                  f"{microbatches} microbatches")
+            for k, t in batch.items():
+                n = _row_blocks(t)
+                if t.shape[0] % (n * microbatches):
+                    raise ValueError(
+                        f"batch leaf {k!r}: {t.shape[0]} rows in {n} "
+                        f"blocks do not split into {microbatches} "
+                        f"microbatches of equal rows on every rank")
             b = B // microbatches
             # the f32 accumulator, placed like the parameters
             grads = {n: torch.zeros_like(p, dtype=torch.float32)
@@ -143,6 +153,16 @@ def shard_like_params(params, grads: dict) -> dict:
             g = g.redistribute(p.device_mesh, p.placements)
         out[n] = g
     return out
+
+
+def _row_blocks(t) -> int:
+    """How many blocks a batch leaf's rows are cut into across the ranks
+    (1 for a plain tensor): the product of the mesh dims its placements
+    shard dim 0 over."""
+    if not is_dtensor(t):
+        return 1
+    return math.prod(t.device_mesh.size(i)
+                     for i, p in enumerate(t.placements) if p.is_shard(0))
 
 
 def _rows(t, i: int, n: int, b: int):

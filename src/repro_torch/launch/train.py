@@ -107,7 +107,7 @@ def _train(args, mesh=None) -> None:
 
     ops.reset_launch_counts()
     if mesh is None:
-        out = Trainer(cfg, tcfg, ocfg, device=args.device).run()
+        out = Trainer(cfg, tcfg, opt_cfg=ocfg, device=args.device).run()
         launches = ops.kernel_launches()
     else:
         import torch.distributed as dist

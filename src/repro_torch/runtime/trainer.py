@@ -10,7 +10,9 @@
   ``TokenStream`` resumes at that step;
 * preemption: SIGTERM / SIGINT set a flag; the loop finishes the step,
   saves with ``blocking=True`` and returns ``preempted`` (the previous
-  handlers are put back when ``run`` returns);
+  handlers are put back when ``run`` returns). On a mesh the ranks agree
+  on it after every step (a max all-reduce of the flag), so a signal seen
+  by one rank stops them all after the same step;
 * stragglers: a step slower than ``straggler_factor`` times the EWMA of
   the step times is logged; one slower than ``step_timeout_s`` raises;
 * a non-finite loss raises ``FloatingPointError``.
@@ -21,9 +23,8 @@ cotangents to bf16. The final state is saved blocking at the end, or, if
 the last periodic save was of that step, that write is waited for;
 ``ckpt_every <= 0`` saves nothing.
 
-With a ``mesh`` (a ``DeviceMesh``, or a ``core.distributed.Mesh`` that
-``launch.mesh.device_mesh`` turns into one; the process group is the
-caller's, one process a device) the parameters and the optimizer state
+With a ``mesh`` (a ``DeviceMesh`` over the caller's process group, one
+process a device) the parameters and the optimizer state
 are DTensors placed by the sharding rules (``param_pspecs``), each step
 is ``make_train_step``'s mesh branch under ``activation_mesh(mesh)``,
 and every rank draws the whole global batch from the one ``TokenStream``
@@ -98,26 +99,16 @@ def state_names(params, opt_state: dict) -> list:
     return out + ["step"]
 
 
-def _is_mesh(x) -> bool:
-    return hasattr(x, "mesh_dim_names") or hasattr(x, "axis_names")
-
-
 class Trainer:
-    """``Trainer(cfg, tcfg, opt_cfg, device=..., mesh=...)``; the
-    reference's order ``Trainer(cfg, tcfg, mesh, opt_cfg)`` works too."""
+    """``Trainer(cfg, tcfg, mesh=None, opt_cfg=None, *, device=None)``, the
+    reference's argument order; ``mesh`` a ``DeviceMesh`` (``launch.mesh.
+    device_mesh``) or None for one device."""
 
-    def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig,
-                 opt_cfg=None, mesh_opt_cfg: OptimizerConfig | None = None,
-                 *, device=None, mesh=None):
-        if opt_cfg is not None and _is_mesh(opt_cfg):
-            mesh, opt_cfg = opt_cfg, mesh_opt_cfg
-        if mesh is not None and not _is_mesh(mesh):
-            raise ValueError(f"mesh must be a DeviceMesh or a Mesh, got "
-                             f"{type(mesh).__name__}")
+    def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig, mesh=None,
+                 opt_cfg: OptimizerConfig | None = None, *, device=None):
         if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
-            from repro_torch.launch.mesh import device_mesh
-
-            mesh = device_mesh(mesh)
+            raise ValueError(f"mesh must be a torch.distributed DeviceMesh, "
+                             f"got {type(mesh).__name__}")
         self.mesh = mesh
         self.cfg = cfg
         self.tcfg = tcfg
@@ -245,6 +236,17 @@ class Trainer:
                                 rules.batch_pspecs(batch, self.mesh),
                                 self.mesh)
 
+    def _preempt_agreed(self) -> bool:
+        """Whether any rank was asked to stop (this one's flag without a
+        mesh): every rank calls it after every step."""
+        if self.mesh is None:
+            return self._preempted
+        flag = torch.tensor([int(self._preempted)], dtype=torch.int32,
+                            device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        self._preempted = bool(flag.item())
+        return self._preempted
+
     # -- the loop ------------------------------------------------------------
 
     def run(self) -> dict:
@@ -301,7 +303,7 @@ class Trainer:
                 self.save(step + 1, params, opt_state)
                 saved = step + 1
 
-            if self._preempted:
+            if self._preempt_agreed():
                 print(f"[trainer] preemption: checkpointing step "
                       f"{step + 1} and exiting")
                 if saved != step + 1:

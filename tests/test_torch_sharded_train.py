@@ -339,7 +339,7 @@ def _plain_losses(arch, tmp, steps=3, microbatches=1):
     ocfg = optim.OptimizerConfig(peak_lr=3e-4, end_lr=3e-5,
                                  warmup_steps=max(1, steps // 20),
                                  total_steps=steps)
-    return tr.Trainer(c, t, ocfg, device="cpu").run()["losses"]
+    return tr.Trainer(c, t, opt_cfg=ocfg, device="cpu").run()["losses"]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b", "granite-34b"])
@@ -399,6 +399,86 @@ def test_checkpoint_restores_on_another_mesh(tmp_path, saved_on_2x2, mesh):
     np.testing.assert_allclose(rest[0], want[2], rtol=1e-5)
 
 
+@pytest.mark.parametrize("batch,mesh", [("12", ("2", "2")),
+                                        ("8", ("4", "1"))],
+                         ids=["6-rows-a-rank", "2-rows-a-rank"])
+def test_launcher_refuses_an_uneven_microbatch_split(tmp_path, batch, mesh):
+    """``--microbatches 4`` where a rank's rows (6, or 2) do not split into
+    4 equal slices: every rank raises before the step's first collective
+    (no row dropped, no empty slice)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+           "--arch", "qwen2-1.5b", "--steps", "1", "--batch", batch,
+           "--seq-len", str(S), "--device", "cpu", "--microbatches", "4",
+           "--data-axis", mesh[0], "--model-axis", mesh[1],
+           "--ckpt-every", "0", "--ckpt-dir", str(tmp_path / "ck")]
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                         timeout=300, env=_env())
+    assert out.returncode != 0
+    assert "do not split into 4 microbatches" in out.stderr
+
+
+PREEMPT = textwrap.dedent("""
+    import json, os, signal, sys
+    import torch
+    import torch.multiprocessing as mp
+
+
+    def run(rank, tmp):
+        torch.set_num_threads(1)
+        import torch.distributed as dist
+        import repro_torch.configs as cfgs
+        from repro_torch import optim
+        from repro_torch.core.distributed import make_mesh
+        from repro_torch.launch.mesh import device_mesh, init_group
+        from repro_torch.runtime import trainer as tr
+
+        init_group(rank, 4, os.path.join(tmp, "meet"), "cpu")
+        mesh = device_mesh(make_mesh((2, 2), ("data", "model"),
+                                     [torch.device("cpu")] * 4))
+        t = tr.Trainer(cfgs.get("qwen2_1_5b").reduced(), tr.TrainerConfig(
+            steps=20, ckpt_every=0, ckpt_dir=os.path.join(tmp, "ck"),
+            log_every=100, batch=4, seq_len=16), mesh,
+            optim.OptimizerConfig(total_steps=20, warmup_steps=1))
+        draw = t.batch_at
+
+        def batch_at(step):  # rank 1 alone is sent SIGTERM in step 2
+            if rank == 1 and step == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return draw(step)
+
+        t.batch_at = batch_at
+        out = t.run()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump({"preempted": out["preempted"],
+                       "stop_step": out["stop_step"],
+                       "losses": out["losses"],
+                       "latest": t.store.latest_step()}, f)
+        dist.destroy_process_group()
+
+
+    if __name__ == "__main__":
+        mp.spawn(run, args=(sys.argv[1],), nprocs=4)
+""")
+
+
+def test_preemption_on_one_rank_stops_every_rank(tmp_path):
+    """SIGTERM reaches rank 1 alone, during step 2 of a sharded run on
+    ``(2, 2)``: the ranks agree on the flag after that step, every rank
+    stops after step 2 with ``preempted``, and rank 0 has committed the
+    checkpoint of step 3 before any rank returns."""
+    (tmp_path / "worker.py").write_text(PREEMPT)
+    r = subprocess.run([sys.executable, str(tmp_path / "worker.py"),
+                        str(tmp_path)], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300, env=_env())
+    assert r.returncode == 0, r.stderr[-4000:]
+    outs = [json.loads((tmp_path / f"rank{i}.json").read_text())
+            for i in range(4)]
+    for o in outs:
+        assert o["preempted"] and o["stop_step"] == 3 and o["latest"] == 3
+        assert o["losses"] == outs[0]["losses"] and len(o["losses"]) == 3
+    assert (tmp_path / "ck" / "step_000000003" / "COMMITTED").exists()
+
+
 def test_launcher_refuses_more_processes_than_cards(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -410,13 +490,16 @@ def test_launcher_refuses_more_processes_than_cards(tmp_path):
 
 
 def test_trainer_takes_the_reference_argument_order(tmp_path):
-    """``Trainer(cfg, tcfg, mesh, opt_cfg)`` is the reference's order; an
-    object that is no mesh raises."""
+    """``Trainer(cfg, tcfg, mesh, opt_cfg)`` is the reference's order (no
+    mesh: one device); an object that is no ``DeviceMesh`` raises, a
+    ``core.distributed.Mesh`` too (``launch.mesh.device_mesh`` makes one
+    over a process group)."""
     c = cfgs.get("qwen2_1_5b").reduced()
     t = tr.TrainerConfig(steps=1, ckpt_dir=str(tmp_path))
-    with pytest.raises(ValueError, match="mesh"):
+    ocfg = optim.OptimizerConfig(peak_lr=2e-3)
+    assert tr.Trainer(c, t, None, ocfg, device="cpu").opt_cfg is ocfg
+    with pytest.raises(ValueError, match="DeviceMesh"):
         tr.Trainer(c, t, device="cpu", mesh=object())
     from repro_torch.launch.mesh import make_host_mesh
-    with pytest.raises(ValueError, match="process"):
-        tr.Trainer(c, t, make_host_mesh(1, 1, device="cpu"),
-                   optim.OptimizerConfig())
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        tr.Trainer(c, t, make_host_mesh(1, 1, device="cpu"), ocfg)

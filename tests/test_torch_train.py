@@ -510,11 +510,11 @@ def test_trainer_restart_continues_bitwise(tmp_path):
     cfg = cfgs.get("xlstm_125m").reduced()
     d = tmp_path / "tr"
     opt_cfg = optim.OptimizerConfig(total_steps=6, warmup_steps=1)
-    out1 = tr.Trainer(cfg, _tcfg(d, 4), opt_cfg, device="cpu").run()
+    out1 = tr.Trainer(cfg, _tcfg(d, 4), opt_cfg=opt_cfg, device="cpu").run()
     assert out1["stop_step"] == 4 and len(out1["losses"]) == 4
-    out2 = tr.Trainer(cfg, _tcfg(d, 6), opt_cfg, device="cpu").run()
+    out2 = tr.Trainer(cfg, _tcfg(d, 6), opt_cfg=opt_cfg, device="cpu").run()
     assert out2["stop_step"] == 6 and len(out2["losses"]) == 2
-    straight = tr.Trainer(cfg, _tcfg(tmp_path / "one", 6), opt_cfg,
+    straight = tr.Trainer(cfg, _tcfg(tmp_path / "one", 6), opt_cfg=opt_cfg,
                           device="cpu").run()
     assert straight["losses"][4:] == out2["losses"]
     for a, b in zip(_leaves(out2), _leaves(straight)):
