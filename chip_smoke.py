@@ -222,13 +222,15 @@ exits non-zero without a result line:
    128, causal, bf16), phase 7's f32 (c) and (d), gemma3's D 256 window
    512, the MLA prefill's D 192 with its scale and whisper's encoder; the
    backward's ms beside the kernel forward's, the plain version's and
-   SDPA's forward + backward; (b) qwen2-1.5b at full width in bf16,
-   random weights from the seed, through the ``Trainer``: batch 8 x 512,
-   100 steps, warm-up 5, peak lr 3e-4, remat ``full``, checkpoints at
-   steps 50 and 100: every loss finite, the last 10 losses' mean at least
+   SDPA's forward + backward; (b) qwen2-1.5b at full width in bf16, its
+   first ``TRAIN_LAYERS`` (7) of 28 layers (the smoke's time; 28 layers
+   and 100 steps until PR 30), random weights from the seed, through the
+   ``Trainer``: batch 8 x 512,
+   50 steps, warm-up 5, peak lr 3e-4, remat ``full``, checkpoints at
+   steps 25 and 50: every loss finite, the last 10 losses' mean at least
    1.0 below the first 10's, ``flash_attention`` launched twice a layer a
    step (the forward and the recompute) and no other kernel; step ms p50
-   / p90, tokens/s, peak GiB; step 50's checkpoint restored leaf by leaf
+   / p90, tokens/s, peak GiB; step 25's checkpoint restored leaf by leaf
    == what was saved, bitwise; (c) in a subprocess under
    ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_
    CONFIG=:4096:8``): whisper-base whole at full width (bf16) and
@@ -271,7 +273,26 @@ exits non-zero without a result line:
    and the recompute), counted by its formula; (c) that step's counted
    argument bytes (the rules' placements on the 1 x 1 mesh) == the
    storage bytes of the parameters, optimizer state and batch the card
-   holds. The launches of (b) count under ``dryrun``.
+   holds. The launches of (b) count under ``dryrun``;
+18. sharded training and the census (``launch.train --data-axis
+   --model-axis``, ``sharding/``, ``analysis.census``): (a)
+   ``flash_attention`` on every block ``(2|4, 1)`` and ``(1, 2|4)`` give
+   qwen2's attention and the five other families' (mixtral's GQA 48:8
+   window 4096, MLA at D 192, whisper's encoder and cross-attention,
+   recurrentgemma's MQA window 2048) at full width, == the plain version
+   on the global inputs; qwen2-1.5b through the launcher on ``(1, 1)``
+   (losses bitwise the unsharded trainer's) and, where N >= 2 cards
+   show, ``(N, 1)`` and ``(1, N)`` (their NCCL census == the fake
+   group's); (b) the one-card qwen2 step's census on the card == its
+   count on ``meta``; (c) every 16 x 16 cell of phase 17 (a) carries its
+   census keys; (d) mixtral's and deepseek's MoE layers at full width,
+   8 x 512 tokens in 4 dispatch groups on one card == each group alone,
+   bitwise, forward and gradients, each group's dropped pairs printed;
+   (e) mixtral (1 of 56 layers), recurrentgemma (6 of 38), xlstm (6 of
+   12) and whisper at full width through the launcher on ``(1, 1)`` for 2 steps,
+   bitwise the unsharded trainer's (and on ``(N, 1)`` / ``(1, N)`` within
+   ``SHARD_LOSS_RTOL`` where cards show). Launches count under
+   ``sharded_train``, the comparisons' excepted.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
 the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -3330,11 +3351,12 @@ def serving_shell_path(S, W, iters):
 # ---------------------------------------------------------------------------
 
 REPLAY_OPS = 2176  # steady, predict_every 16: 2,048 observes, 128 reads
-# each workload of step (b): 1,024 observes and 64 reads, so that each
-# observe p99 rests on ~1,000 samples. diurnal's ramp ends at ops / rate
-# while its mean rate is half of rate, so about half its ops arrive at the
-# 5 % floor after the ramp (~10 ops / rate seconds): (b) replays its day
-LOAD_OPS = 1088
+# each workload of step (b): 512 observes and 32 reads, so that each
+# observe p99 rests on ~500 samples (1,024 and 64 until PR 30: the smoke's
+# time). diurnal's ramp ends at ops / rate while its mean rate is half of
+# rate, so about half its ops arrive at the 5 % floor after the ramp (~10
+# ops / rate seconds): (b) replays its day
+LOAD_OPS = 544
 GATE_OPS = 272  # the bursty shed gates' prefix: 256 observes, 16 reads
 # (e)'s prefix of the steady trace: 2 * CHUNK observes and 4 reads
 PREFIX_OPS = 2 * CHUNK * 17 // 16
@@ -4295,8 +4317,12 @@ def fronts_path(dev="cuda"):
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH, TRAIN_REDUCED = "qwen2-1.5b", False  # a rehearsal: reduced
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 512, 100, 5
-TRAIN_LR, TRAIN_CKPT, TRAIN_DROP = 3e-4, 50, 1.0
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 512, 50, 5
+# (b)'s depth: the first 7 of qwen2-1.5b's 28 layers, at full width, and
+# 50 steps (100 and 28 layers until PR 30: the smoke's time, phase 18 grew
+# by the five other families' sharded runs)
+TRAIN_LAYERS = 7
+TRAIN_LR, TRAIN_CKPT, TRAIN_DROP = 3e-4, 25, 1.0
 # (c): deterministic resume, (arch, reduced); whisper-base whole at full
 # width (52 M parameters: six 0.5 GB checkpoints; the smoke's writes must
 # stay under its machine's 45 GiB)
@@ -4417,6 +4443,9 @@ def train_run(root: str, dev="cuda") -> dict:
     cfg = configs.get(TRAIN_ARCH)
     if TRAIN_REDUCED:
         cfg = cfg.reduced()
+    else:
+        cfg = cfg.replace(n_layers=TRAIN_LAYERS,
+                          layer_pattern=cfg.pattern[:TRAIN_LAYERS])
     ocfg = OptimizerConfig(peak_lr=TRAIN_LR, end_lr=TRAIN_LR / 10,
                            warmup_steps=TRAIN_WARMUP,
                            total_steps=TRAIN_STEPS)
@@ -5077,9 +5106,9 @@ def sharded_path(S, W, X, y, Xq, iters, dev="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 DRYRUN_JOBS = 8  # worker processes of (a)'s FLOP counts: the host's cores
-# the mesh whose dense cells (a) also counts by census, for phase 18 (c):
-# the 2 x 16 x 16 mesh's take minutes a cell (DTensor's planner), so the
-# smoke leaves them to ``python -m repro_torch.launch.dryrun``
+# the mesh whose cells (a) also counts by census, for phase 18 (c): the 2 x
+# 16 x 16 mesh's take minutes a cell (DTensor's planner), so the smoke
+# leaves them to ``python -m repro_torch.launch.dryrun``
 CENSUS_MESH = "16x16"
 
 
@@ -5225,40 +5254,63 @@ SHARD_LOSS_RTOL = 1e-3
 CENSUS_TEMP_RTOL = 0.1
 
 
-def shard_train(shape, root, census: bool = False) -> dict:
-    """Phase 18 (a): ``launch.train`` at phase 15's shape for
-    ``SHARD_STEPS`` steps on a ``shape`` mesh, one process a card (no
+def shard_train(shape, root, census: bool = False, arch=None,
+                layers=None, steps=SHARD_STEPS) -> dict:
+    """Phase 18 (a), (e): ``launch.train`` at phase 15's shape for
+    ``steps`` steps of ``arch`` (``TRAIN_ARCH``; its first ``layers``
+    layers where given) on a ``shape`` mesh, one process a card (no
     checkpoint). Returns ``{"losses", "launches", "census", "s"}``."""
+    return finish_train(start_train(shape, root, census, arch, layers,
+                                    steps))
+
+
+def start_train(shape, root, census: bool = False, arch=None, layers=None,
+                steps=SHARD_STEPS) -> dict:
+    """``shard_train``'s launcher process, started: a handle for
+    ``finish_train``."""
     d, m = shape
+    arch = arch or TRAIN_ARCH
     argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            TRAIN_ARCH, "--steps", str(SHARD_STEPS), "--batch",
+            arch, "--steps", str(steps), "--batch",
             str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--lr",
             str(TRAIN_LR), "--seed", str(SEED), "--ckpt-every", "0",
             "--log-every", "1", "--data-axis", str(d), "--model-axis",
-            str(m), "--ckpt-dir", os.path.join(root, f"ck{d}x{m}")]
+            str(m), "--ckpt-dir", os.path.join(root, f"ck-{arch}-{d}x{m}")]
     if TRAIN_REDUCED:
         argv.append("--reduced")
-    out_json = os.path.join(root, f"census{d}x{m}.json")
+    if layers is not None:
+        argv += ["--layers", str(layers)]
+    out_json = os.path.join(root, f"census-{arch}-{d}x{m}.json")
     if census:
         argv += ["--census-out", out_json]
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     h0 = time.perf_counter()
-    r = subprocess.run(argv, capture_output=True, text=True, env=env,
-                       cwd=ROOT, timeout=600)
-    secs = time.perf_counter() - h0
-    check(r.returncode == 0, f"sharded train ({d}, {m}) exit 0: "
-          f"{r.stderr[-3000:]}")
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    return {"proc": proc, "shape": shape, "census": census,
+            "out_json": out_json, "t0": h0}
+
+
+def finish_train(run: dict) -> dict:
+    """Wait for a ``start_train`` process and read its losses, launches
+    and census."""
+    out, err = run["proc"].communicate(timeout=600)
+    secs = time.perf_counter() - run["t0"]
+    d, m = run["shape"]
+    check(run["proc"].returncode == 0, f"sharded train ({d}, {m}) exit 0: "
+          f"{err[-3000:]}")
     lines = {ln.split(" ", 2)[1]: ln.split(" ", 2)[2]
-             for ln in r.stdout.splitlines()
+             for ln in out.splitlines()
              if ln.startswith("[train] losses ")
              or ln.startswith("[train] launches ")}
-    step_s = [float(m.group(1)) for m in re.finditer(r"'sec': ([0-9.]+)",
-                                                     r.stdout)]
+    step_s = [float(x.group(1)) for x in re.finditer(r"'sec': ([0-9.]+)",
+                                                     out)]
     res = {"losses": json.loads(lines["losses"]),
            "launches": json.loads(lines["launches"]), "s": secs,
            "step_ms": 1e3 * float(np.median(step_s[1:] or step_s))}
-    if census:
-        with open(out_json) as f:
+    if run["census"]:
+        with open(run["out_json"]) as f:
             res["census"] = json.load(f)
     return res
 
@@ -5432,7 +5484,9 @@ def sharded_train_path(root: str, dev="cuda") -> dict:
                             ckpt_dir=os.path.join(root, "plain"),
                             log_every=100, seed=SEED, batch=TRAIN_BATCH,
                             seq_len=TRAIN_SEQ)
-    attention_blocks(torch.Generator(device=dev).manual_seed(SEED), dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    attention_blocks(g, dev)
+    family_blocks(g, dev)
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     h0 = time.perf_counter()
@@ -5487,6 +5541,317 @@ def sharded_train_path(root: str, dev="cuda") -> dict:
     if n < 2:
         print(f"[sharded-train] (N, 1) and (1, N): {torch.cuda.device_count()}"
               " visible card(s), not run")
+    return counts
+
+
+def family_attention(cfg, kind: str) -> tuple:
+    """``(B, Sq, Skv, H, Hkv, D, kw)`` of a family's attention call at full
+    width: its heads, kv heads, head dim and window; long enough that a
+    window binds."""
+    B = SHARD_MAX
+    if kind == "mla":  # the decompressed heads at qk_nope + qk_rope
+        D = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        return (B, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, cfg.n_heads, D,
+                dict(causal=True, scale=D ** -0.5))
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if kind == "encoder":
+        T = cfg.n_frontend_tokens
+        return B, T, T, H, Hkv, D, dict(causal=False)
+    if kind == "cross":
+        return (B, TRAIN_SEQ, cfg.n_frontend_tokens, H, Hkv, D,
+                dict(causal=False))
+    S = cfg.window + 256
+    return B, S, S, H, Hkv, D, dict(causal=True, window=cfg.window)
+
+
+# (a): the families' attention calls, (arch, kind, what)
+FAMILY_BLOCKS = (("mixtral-8x22b", "local", "GQA 48:8, window 4096"),
+                 ("deepseek-v2-236b", "mla", "MLA, D 192"),
+                 ("whisper-base", "encoder", "non-causal encoder"),
+                 ("whisper-base", "cross", "cross-attention"),
+                 ("recurrentgemma-9b", "local", "local MQA, window 2048"))
+
+
+def family_blocks(g, dev="cuda") -> None:
+    """Phase 18 (a), after qwen2's: ``ops.flash_attention`` on the card on
+    every block ``(2|4, 1)`` and ``(1, 2|4)`` give the five families'
+    attention calls at full width (``family_attention``), bf16, each
+    against the plain version on the global inputs (computed a batch row
+    at a time), its block's slice, within ``bf16_close``; the kv heads of
+    a ``(1, N)`` block are ``ops.local_kv_heads``' (the sharded route's
+    map; MQA's one head on every block). Comparison launches: the caller
+    resets the counts after."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+
+    notes = []
+    for arch, kind, what in FAMILY_BLOCKS:
+        cfg = configs.get(arch)
+        if TRAIN_REDUCED:
+            cfg = cfg.reduced()
+        B, Sq, Skv, H, Hkv, D, kw = family_attention(cfg, kind)
+        q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, Skv, Hkv, D), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        want = torch.cat([ref.flash_attention(q[b:b + 1], k[b:b + 1],
+                                              v[b:b + 1], **kw)
+                          for b in range(B)])
+        worst, n_blocks = 0.0, 0
+        for n in sorted({2, SHARD_MAX}):
+            b, h = B // n, H // n
+            for r in range(n):
+                rows = slice(r * b, (r + 1) * b)
+                heads = ops.local_kv_heads(H, Hkv, n, r)
+                check(heads is not None, f"sharded (a): {arch} {kind} "
+                      f"(1, {n}) rank {r} has a kv slice")
+                kv = slice(*heads)
+                for got, w in (
+                        (ops.flash_attention(q[rows].contiguous(),
+                                             k[rows].contiguous(),
+                                             v[rows].contiguous(), **kw),
+                         want[rows]),
+                        (ops.flash_attention(
+                            q[:, :, r * h:(r + 1) * h].contiguous(),
+                            k[:, :, kv].contiguous(),
+                            v[:, :, kv].contiguous(), **kw),
+                         want[:, :, r * h:(r + 1) * h])):
+                    ok, _ = bf16_close(got, w)
+                    check(ok, f"sharded (a): {arch} {kind} block {r} of "
+                          f"{n} == plain on the global inputs")
+                    worst = max(worst, float((got.float() - w.float())
+                                             .abs().max()))
+                    n_blocks += 1
+        notes.append(f"{arch} {what} (q {(B, Sq, H, D)}, kv "
+                     f"{(B, Skv, Hkv, D)}): {n_blocks} blocks, max abs err "
+                     f"{worst:.3g}")
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    print("[sharded-train] (a) flash_attention on the sharded route's "
+          "blocks of the families, bf16, == plain on the global inputs "
+          "within one bf16 ulp + 1e-5: " + "; ".join(notes))
+
+
+MOE_TOKENS = (8, 512)  # (d): the grouped dispatch's batch x sequence
+MOE_GROUPS = 4
+
+
+def dropped_pairs(p, x, cfg, groups: int) -> list:
+    """Each group's dropped ``(token, k)`` pairs when ``x (B, S, D)``'s
+    tokens route in ``groups`` groups (the capacity a group's)."""
+    from repro_torch.models import mlp
+
+    mo = cfg.moe
+    B, S, D = x.shape
+    T = B * S // groups
+    cap = max(1, int(T * mo.n_experts_per_token * mo.capacity_factor
+                     / mo.n_experts))
+    with torch.no_grad():
+        pair_slot = mlp._dispatch_local(
+            x.reshape(groups, T, D), p["router"], mo.n_experts_per_token,
+            mo.n_experts, cap)[2]
+    return (pair_slot == mo.n_experts * cap).sum((1, 2)).tolist()
+
+
+def grouped_moe(dev="cuda") -> dict:
+    """Phase 18 (d): mixtral's MoE layer (``"tp"``) and deepseek's (``"ep"``)
+    at full width, bf16, random weights and activations from the seed,
+    ``MOE_TOKENS`` tokens in ``MOE_GROUPS`` dispatch groups on one card (a
+    4 x 1 mesh's groups: ``activation_mesh`` over the card four times):
+    the grouped dispatch == each group dispatched alone (one group, no
+    mesh), bitwise, in the output and, for a loss on each group's rows, in
+    the gradients of x, the router and the experts (the shared experts
+    left out: they are a dense MLP outside the dispatch). Prints each
+    group's dropped pairs. Returns them by arch at 1, 2 and
+    ``MOE_GROUPS`` groups."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.models import mlp
+    from repro_torch.sharding.activation import (activation_mesh,
+                                                 dispatch_groups)
+
+    G, (B, S) = MOE_GROUPS, MOE_TOKENS
+    rows = B // G
+    mesh = make_mesh((G, 1), ("data", "model"), [torch.device(dev)] * G)
+    drops, notes = {}, []
+    for arch in ("mixtral-8x22b", "deepseek-v2-236b"):
+        full = configs.get(arch)
+        if TRAIN_REDUCED:
+            full = full.reduced()
+        cfg = full.replace(moe=replace(full.moe, n_shared_experts=0))
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        p = mlp.init_moe(g, cfg, torch.bfloat16)
+        x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
+            torch.bfloat16)
+        r = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+        t0 = time.perf_counter()
+        with activation_mesh(mesh):
+            check(dispatch_groups() == G, f"moe (d): {G} groups")
+            with torch.no_grad():
+                out = mlp.moe(p, x, cfg)[0]
+        with torch.no_grad():
+            alone = [mlp.moe(p, x[i * rows:(i + 1) * rows], cfg)[0]
+                     for i in range(G)]
+        check(all(torch.equal(out[i * rows:(i + 1) * rows], a)
+                  for i, a in enumerate(alone)),
+              f"moe (d): {arch} grouped output == each group alone")
+        del out, alone
+        p.requires_grad_(True)
+        for i in range(G):
+            grads = []
+            for grouped in (True, False):
+                xi = (x if grouped else x[i * rows:(i + 1) * rows]
+                      ).detach().requires_grad_(True)
+                with (activation_mesh(mesh) if grouped else nullcontext()):
+                    y = mlp.moe(p, xi, cfg)[0]
+                if grouped:
+                    y = y[i * rows:(i + 1) * rows]
+                (y.float() * r[i * rows:(i + 1) * rows]).sum().backward()
+                gx = xi.grad[i * rows:(i + 1) * rows] if grouped \
+                    else xi.grad
+                grads.append([gx] + [t.grad for t in p.parameters()])
+                for t in p.parameters():
+                    t.grad = None
+                del y, xi
+            check(all(torch.equal(a, b) for a, b in zip(*grads)),
+                  f"moe (d): {arch} group {i}: gradients of x, the router "
+                  "and the experts == the group alone")
+            del grads
+        p.requires_grad_(False)
+        drops[arch] = {n: dropped_pairs(p, x, cfg, n)
+                       for n in sorted({1, 2, G})}
+        mo = cfg.moe
+        K = mo.n_experts_per_token
+        notes.append(
+            f"{arch} ({mo.partition}, E {mo.n_experts} top-{K}, d "
+            f"{cfg.d_model}, f {mo.d_ff}, capacity "
+            f"{mo.capacity_factor}): dropped pairs by group "
+            f"{drops[arch][G]} of {B * S * K // G} "
+            f"each (one group of all {B * S} tokens: {drops[arch][1]}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        del p, x, r
+        torch.cuda.empty_cache()
+    print(f"[sharded-train] (d) grouped MoE dispatch, {B} x {S} tokens in "
+          f"{G} groups on one card == each group alone, bitwise (output; "
+          "gradients of x, router, experts): " + "; ".join(notes))
+    return drops
+
+
+# (e): (arch, layers kept: None the whole model) at full width; the cut is
+# what one 80 GB card holds at 20 bytes a parameter (bf16 weights and
+# gradients, the f32 moments before and after the step) beside the step's
+# activations and chunked logits: mixtral 1 of 56 layers (2.9 B
+# parameters, ~58 GB), recurrentgemma two periods of its pattern (6 of 38
+# layers, 2.2 B, ~45 GB, and 4.2 GB of f32 logits a 512-token chunk over
+# its 256,000-token vocabulary); xlstm one period (6 of 12: 5 mLSTM, 1
+# sLSTM), for the smoke's time (its token loop is host-bound)
+SHARD_FAMILIES = (("mixtral-8x22b", 1), ("recurrentgemma-9b", 6),
+                  ("xlstm-125m", 6), ("whisper-base", None))
+SHARD_FAMILY_STEPS = 2
+
+
+# (e)'s (1, 1) launcher runs that share the card at once (~57 GB of its 80
+# together; mixtral's ~62 GB runs alone): the smoke's time
+SHARD_TOGETHER = ("recurrentgemma-9b", "xlstm-125m", "whisper-base")
+
+
+def family_shard_train(root: str, drops: dict, dev="cuda") -> dict:
+    """Phase 18 (e): each of ``SHARD_FAMILIES`` through ``launch.train``
+    on the ``(1, 1)`` mesh for ``SHARD_FAMILY_STEPS`` steps at phase 15's
+    shape, its losses bitwise the unsharded trainer's on the same cut
+    config (the unsharded runs first, one at a time; then the launcher
+    runs, ``SHARD_TOGETHER``'s at once); with two or more cards also on
+    ``(N, 1)`` and ``(1, N)``, within ``SHARD_LOSS_RTOL`` of one card's
+    (the MoE's dropped pairs of (d) at G = N printed beside G = 1's).
+    Returns the launches counted: the unsharded runs' and rank 0's."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import model_config
+    from repro_torch.models.blocks import ATTN_KINDS
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import trainer as tr
+
+    counts, notes, plain, ones = {}, [], {}, {}
+    n = min(torch.cuda.device_count(), SHARD_MAX)
+    # a rehearsal's reduced configs are whole
+    cut = {arch: None if TRAIN_REDUCED else layers
+           for arch, layers in SHARD_FAMILIES}
+    for arch, _ in SHARD_FAMILIES:
+        cfg = model_config(arch, TRAIN_REDUCED, cut[arch])
+        ocfg = OptimizerConfig(peak_lr=TRAIN_LR, end_lr=TRAIN_LR / 10,
+                               warmup_steps=1,
+                               total_steps=SHARD_FAMILY_STEPS)
+        tcfg = tr.TrainerConfig(steps=SHARD_FAMILY_STEPS, ckpt_every=0,
+                                ckpt_dir=os.path.join(root, f"{arch}-p"),
+                                log_every=100, seed=SEED, batch=TRAIN_BATCH,
+                                seq_len=TRAIN_SEQ)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        h0 = time.perf_counter()
+        want = tr.Trainer(cfg, tcfg, opt_cfg=ocfg, device=dev).run()[
+            "losses"]
+        plain[arch] = (cfg, want, time.perf_counter() - h0,
+                       torch.cuda.max_memory_allocated() / 2**30)
+        for k, c in ops.kernel_launches().items():
+            counts[k] = counts.get(k, 0) + c
+        torch.cuda.empty_cache()
+    for arch, _ in SHARD_FAMILIES:
+        if arch not in SHARD_TOGETHER:
+            ones[arch] = shard_train((1, 1), root, arch=arch,
+                                     layers=cut[arch],
+                                     steps=SHARD_FAMILY_STEPS)
+    started = [(arch, start_train((1, 1), root, arch=arch,
+                                  layers=cut[arch],
+                                  steps=SHARD_FAMILY_STEPS))
+               for arch in SHARD_TOGETHER]
+    for arch, run in started:
+        ones[arch] = finish_train(run)
+    for arch, _ in SHARD_FAMILIES:
+        cfg, want, plain_s, peak = plain[arch]
+        one = ones[arch]
+        check(one["losses"] == want, f"sharded (e): {arch} (1, 1) losses "
+              f"== the unsharded trainer's bitwise: {one['losses']} vs "
+              f"{want}")
+        attn = sum(k in ATTN_KINDS for k in cfg.pattern)
+        if cfg.is_encoder_decoder:  # the encoder's and the cross layers'
+            attn += cfg.n_encoder_layers + cfg.n_layers
+        per_step = attn * (2 if cfg.remat == "full" else 1)
+        check(one["launches"]["flash_attention"]
+              == per_step * SHARD_FAMILY_STEPS,
+              f"sharded (e): {arch} (1, 1) flash_attention launches "
+              f"{one['launches']['flash_attention']} == {per_step} a step")
+        for k, c in one["launches"].items():
+            counts[k] = counts.get(k, 0) + c
+        line = (f"{cfg.name} ({cfg.n_layers} of {model_config(arch).n_layers}"
+                f" layers, {cfg.n_params() / 1e9:.3f} B params) "
+                f"unsharded {plain_s:.1f} s (peak {peak:.1f} GiB), (1, 1) "
+                f"launcher {one['s']:.1f} s"
+                f"{' (beside the others)' if arch in SHARD_TOGETHER else ''}"
+                f": losses {one['losses']} == unsharded, bitwise; "
+                f"flash_attention {one['launches']['flash_attention']} "
+                "launches")
+        for shape in ([(n, 1), (1, n)] if n >= 2 else []):
+            run = shard_train(shape, root, arch=arch, layers=cut[arch],
+                              steps=SHARD_FAMILY_STEPS)
+            gap = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                          want))
+            check(gap <= SHARD_LOSS_RTOL, f"sharded (e): {arch} {shape} "
+                  f"losses within {SHARD_LOSS_RTOL} of one card's (gap "
+                  f"{gap:.3e})")
+            line += (f"; {shape} {run['s']:.1f} s, losses {run['losses']}, "
+                     f"gap {gap:.3e}")
+            if shape[0] > 1 and arch in drops:
+                line += (f" (dropped pairs of (d) at G = {shape[0]}: "
+                         f"{drops[arch][shape[0]]}; G = 1: "
+                         f"{drops[arch][1]})")
+        notes.append(line)
+        torch.cuda.empty_cache()
+    print(f"[sharded-train] (e) {SHARD_FAMILY_STEPS} steps at {TRAIN_BATCH} "
+          f"x {TRAIN_SEQ}, full width: " + "; ".join(notes))
+    if n < 2:
+        print(f"[sharded-train] (e) (N, 1) and (1, N): "
+              f"{torch.cuda.device_count()} visible card(s), not run")
     return counts
 
 
@@ -5590,43 +5955,47 @@ def census_diff(a: dict, b: dict) -> dict:
 
 
 def census_grid(cells: list) -> None:
-    """Phase 18 (c): phase 17 (a)'s cells that run sharded (the dense
-    decoders', internvl's) on ``CENSUS_MESH`` carry the census keys; every
-    other cell keeps them ``null`` and says why."""
-    from repro_torch import configs
+    """Phase 18 (c): every ``ok`` cell of phase 17 (a) on ``CENSUS_MESH``
+    carries the census keys (all ten families run sharded), and their
+    ``census_s`` is printed; the compiler's own keys stay ``null``."""
     from repro_torch.launch import dryrun
 
-    dense = [c for c in cells if c["status"] == "ok"
-             and c["mesh"] == CENSUS_MESH
-             and dryrun.sharded(configs.get(c["arch"])) is None]
-    archs = {c["arch"] for c in dense}
-    check(len(dense) == 16 and {"qwen2_1_5b", "gemma3_1b", "qwen3_1_7b",
-                                "granite_34b"} <= archs,
-          f"census (c): the dense decoders' and internvl's 16 cells on "
-          f"{CENSUS_MESH}, got {len(dense)} ({sorted(archs)})")
-    for c in cells:
-        if c["status"] != "ok":
-            continue
+    counted = [c for c in cells if c["status"] == "ok"
+               and c["mesh"] == CENSUS_MESH]
+    archs = {c["arch"] for c in counted}
+    check(len(counted) == 34 and len(archs) == 10, f"census (c): 34 cells "
+          f"of ten families on {CENSUS_MESH}, got {len(counted)} "
+          f"({sorted(archs)})")
+    for c in counted:
         filled = all(c[k] is not None for k in dryrun.CENSUS_KEYS) and \
-            c["memory"]["temp_bytes"] is not None
-        check(filled == (c in dense), f"census (c): {c['arch']} x "
-              f"{c['shape']} x {c['mesh']} census keys "
-              f"{'filled' if filled else 'null'}: {c['census']}")
-    secs = sum(c["census_s"] for c in dense)
-    print(f"[census] (c) {len(dense)} sharded cells on {CENSUS_MESH}: "
+            c["memory"]["temp_bytes"] is not None and c["census"] == "ok"
+        check(filled, f"census (c): {c['arch']} x {c['shape']} census keys "
+              f"filled: {c['census']}")
+        check(all(c[k] is None for k in dryrun.COMPILER_KEYS
+                  if k not in dryrun.CENSUS_KEYS),
+              f"census (c): {c['arch']} x {c['shape']} compiler keys null")
+    secs = sum(c["census_s"] for c in counted)
+    print(f"[census] (c) {len(counted)} cells on {CENSUS_MESH}: "
           f"{secs:.1f} s of census in phase 17 (a)'s workers; "
           + "; ".join(f"{c['arch']} {c['shape']}: coll "
                       f"{sum(c['collective_bytes'].values()):.4e} B, temp "
                       f"{c['memory']['temp_bytes']} B, {c['census_s']:.1f} s"
-                      for c in dense))
+                      for c in counted))
 
 
 def sharded_train_phase(cells: list, dev="cuda") -> dict:
-    """Phase 18: (a) the sharded trainer, (b) the census of a one-card
-    step, (c) the census keys of the dry run's dense cells."""
+    """Phase 18: (a) the sharded trainer and the route's blocks, (b) the
+    census of a one-card step, (c) the census keys of the dry run's
+    cells, (d) the grouped MoE dispatch, (e) the other families through
+    the sharded trainer."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as root:
         counts = sharded_train_path(root, dev)
+        torch.cuda.empty_cache()
+        drops = grouped_moe(dev)
+        torch.cuda.empty_cache()
+        for k, n in family_shard_train(root, drops, dev).items():
+            counts[k] = counts.get(k, 0) + n
     torch.cuda.empty_cache()
     for k, n in census_step(dev).items():
         counts[k] += n

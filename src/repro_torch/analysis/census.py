@@ -38,7 +38,9 @@ memory. The counterparts:
   never count), less its outputs live at that peak; ``peak_bytes`` keeps
   them in, the figure a card's ``max_memory_allocated`` less its
   arguments shows. A storage counts from the op that made it until it is
-  freed (a weak reference to it, read when the count passes its peak);
+  freed (a finalizer on its Python object, which PyTorch keeps alive as
+  long as the storage; where a build does not, weak references read when
+  the count passes its peak);
 * ``hlo.roofline_terms`` and ``hlo.model_flops_per_step`` ->
   ``roofline_terms`` and ``model_flops_per_step`` below, with the card's
   rates as arguments.
@@ -50,11 +52,14 @@ for the fake group on ``meta`` at the same mesh and device type.
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+from repro_torch.analysis.flops import _MetaMemo
 
 # NVIDIA H100 80GB HBM3 (SXM5, 700 W) datasheet figures: dense bf16 tensor
 # cores, HBM3 bandwidth, NVLink 4 (900 GB/s both directions together)
@@ -100,6 +105,22 @@ def _is_fake(ts) -> bool:
     return any(isinstance(t, FakeTensor) for t in ts)
 
 
+_FINALIZERS_FIRE: list = []
+
+
+def _finalizers_fire() -> bool:
+    """Whether a finalizer on a storage's Python object runs when the
+    storage is freed (PyTorch keeps the object alive with the storage),
+    checked once."""
+    if not _FINALIZERS_FIRE:
+        fired = []
+        t = torch.empty(1)
+        weakref.finalize(t.untyped_storage(), fired.append, 1)
+        del t
+        _FINALIZERS_FIRE.append(bool(fired))
+    return _FINALIZERS_FIRE[0]
+
+
 def _is_view(func) -> bool:
     return any(r.alias_info is not None and not r.alias_info.is_write
                for r in func._schema.returns)
@@ -126,6 +147,9 @@ class Census(TorchDispatchMode):
         self.live_bytes = 0  # an upper bound until ``_sweep``
         self.peak_bytes = 0
         self._peak_seq = 0
+        self._finalized = _finalizers_fire()  # live_bytes exact as it goes
+        # a repeat of a meta op runs no meta kernel (storages stay apart)
+        self._meta = _MetaMemo(fresh_only=True)
 
     # -- storages ------------------------------------------------------------
 
@@ -135,6 +159,13 @@ class Census(TorchDispatchMode):
                     if ref.expired()]:
             self.live_bytes -= self._live.pop(key)[1]
 
+    def _freed(self, key, seq: int) -> None:
+        """A tracked storage's finalizer: it no longer counts."""
+        entry = self._live.get(key)
+        if entry is not None and entry[2] == seq:
+            del self._live[key]
+            self.live_bytes -= entry[1]
+
     def _track(self, t: torch.Tensor, made_by_args: set) -> None:
         st = t.untyped_storage()
         key = st._cdata
@@ -142,9 +173,12 @@ class Census(TorchDispatchMode):
             return
         self._seq += 1
         self._live[key] = (StorageWeakRef(st), st.nbytes(), self._seq)
+        if self._finalized:
+            weakref.finalize(st, self._freed, key, self._seq).atexit = False
         self.live_bytes += st.nbytes()
         if self.live_bytes > self.peak_bytes:
-            self._sweep()  # the bound passed the peak: make it exact
+            if not self._finalized:
+                self._sweep()  # the bound passed the peak: make it exact
             if self.live_bytes > self.peak_bytes:
                 self.peak_bytes, self._peak_seq = self.live_bytes, self._seq
 
@@ -200,7 +234,7 @@ class Census(TorchDispatchMode):
 
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented  # let DTensor desugar it first
-        out = func(*args, **kwargs)
+        out = self._meta.run(func, args, kwargs)
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         if _is_fake(ins) or _is_fake(outs):
             return out  # DTensor's sharding propagation

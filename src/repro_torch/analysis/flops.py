@@ -53,6 +53,7 @@ import math
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.kernels import ops as kops
 
@@ -245,11 +246,14 @@ class _MetaMemo:
     prefill_32k): the first call runs the op's own meta kernel, a repeat
     gets fresh empty tensors of its outputs' shapes, strides and dtypes
     (a functional op), or its ``self`` (an in-place op). Views, and ops on
-    any other device, always run."""
+    any other device, always run; with ``fresh_only`` (a census, which
+    follows storages) so does an op whose first call returned a storage
+    of its arguments (``_unsafe_view``)."""
 
-    def __init__(self):
+    def __init__(self, fresh_only: bool = False):
         self._memo: dict = {}
         self._kinds: dict = {}
+        self._fresh_only = fresh_only
 
     def run(self, func, args, kwargs):
         kind = self._kinds.get(func, 0)
@@ -264,7 +268,7 @@ class _MetaMemo:
             hit = self._memo.get(key)
         except TypeError:  # an unhashable argument
             return func(*args, **kwargs)
-        if devs != {"meta"}:
+        if devs != {"meta"} or hit is False:
             return func(*args, **kwargs)
         if hit is not None:
             if kind == "inplace":
@@ -275,6 +279,13 @@ class _MetaMemo:
             return made[0] if hit[0] is None else hit[0](made)
         out = func(*args, **kwargs)
         outs = _outputs(out)
+        if self._fresh_only and kind == "functional" and {
+                t.untyped_storage()._cdata for t in outs} & {
+                t.untyped_storage()._cdata
+                for t in tree_flatten((args, kwargs))[0]
+                if isinstance(t, torch.Tensor)}:
+            self._memo[key] = False
+            return out
         if isinstance(out, torch.Tensor):
             form = None
         elif isinstance(out, (tuple, list)) and len(outs) == len(out):

@@ -280,9 +280,10 @@ def _local_route(q, k, v, plan, kw):
         vl = vl[:, :, heads[0]:heads[1]].contiguous()
     out = _FlashAttention.apply(q.to_local(), kl, vl, kw["causal"],
                                 kw["window"], kw["scale"], kw["softcap"])
+    # the global stride from the local output's (the plain version's
+    # output is not contiguous)
     return DTensor.from_local(out, q.device_mesh, q.placements,
-                              run_check=False, shape=q.shape,
-                              stride=q.stride())
+                              run_check=False)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
@@ -292,8 +293,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
     card; on the CPU and on ``meta`` the plain dense version, or the
     chunked one past ``_DENSE_SCORE_LIMIT`` score elements.
     Differentiable in ``q, k, v`` (``flash_attention_bwd``). DTensors
-    placed over batch and heads run on each rank's blocks; other
-    placements raise on the card."""
+    placed over batch and heads run on each rank's blocks (any ``Sq`` and
+    ``Skv``, any head dim the kernel takes, one kv head on every block);
+    other placements raise on the card."""
     from repro_torch.sharding.activation import is_dtensor
 
     if is_dtensor(q):

@@ -34,12 +34,11 @@ memory, no card) and counts:
   forms of the cards) with ``meta`` blocks, the train step's microbatch
   body run once and multiplied (``census_s`` its host seconds). Its
   argument and output bytes, read from the local blocks, must equal the
-  placements' arithmetic above, or the cell fails. The dense decoders
-  and internvl's vision stub run it (``sharded``); the other families'
-  cells keep these keys
-  ``null`` and say why under ``census``. ``--census 16x16`` counts the
-  16 x 16 mesh's only (a 2 x 16 x 16 cell takes minutes: DTensor plans
-  its three-dim redistributions by a graph search).
+  placements' arithmetic above, or the cell fails. Every family runs it.
+  ``--census 16x16`` counts the 16 x 16 mesh's only (a 2 x 16 x 16 cell
+  takes minutes: DTensor plans its three-dim redistributions by a graph
+  search); the other mesh's cells then keep these keys ``null`` and say
+  so under ``census``.
 
 ``xla_cost_flops_per_device_loopbody_once``, ``lower_s`` and
 ``compile_s`` stay ``null``: they are a compiler's (its cost analysis of
@@ -157,30 +156,6 @@ def _count_cell(arch: str, shape_name: str, multi_pod: bool) -> tuple:
             count_flops(kind, fn, args))
 
 
-def sharded(cfg) -> str | None:
-    """None where the census runs ``cfg``'s cells sharded; else why not
-    (the op that stopped a reduced step of the family on a fake ``(2,
-    2)`` mesh, or what its run showed)."""
-    mixed = "a plain tensor beside a DTensor"
-    if cfg.moe.n_experts:
-        return ("the MoE's dispatch groups (one a data-parallel shard in "
-                "the reference) are not ported, and its dispatch stops at "
-                f"aten.searchsorted ({mixed}, models/mlp.py)")
-    if cfg.is_encoder_decoder:
-        return (f"the encoder stops at aten.add ({mixed}: its sinusoidal "
-                "positions, models/lm.py::encode)")
-    if {"mlstm", "slstm"} & set(cfg.pattern):
-        return (f"the mLSTM stops at aten.where ({mixed}: its causal "
-                "mask, models/recurrent.py)")
-    if "rglru" in cfg.pattern:
-        return ("the RG-LRU runs sharded (a reduced step on 4 gloo "
-                "processes equals the unsharded one), but DTensor gathers "
-                "the scan's operands at every chunk (6.7e12 bytes a device "
-                "at prefill_32k on 16x16): its sharded form is the next "
-                "slice")
-    return None
-
-
 def place_args(kind: str, args, specs, mesh) -> tuple:
     """A cell's ``meta`` arguments as DTensors on ``mesh`` placed by their
     specs (``input_specs``); the parameters in place."""
@@ -266,17 +241,16 @@ def _census_job(arch: str, shape_name: str, multi_pod: bool) -> tuple:
 
 def count_all(cells, jobs: int, census: tuple = (False, True)) -> tuple:
     """The FLOP counts of ``cells`` (``(arch, shape, multi_pod)``), each
-    ``flops_key`` once, and the census of each cell ``sharded`` runs on a
-    mesh in ``census`` (its ``multi_pod`` values), over ``jobs`` worker
+    ``flops_key`` once, and the census of each cell on a mesh in
+    ``census`` (its ``multi_pod`` values), over ``jobs`` worker
     processes: ``(flops by key, census by cell)``. A job that raises is
     left out (its cell redoes it in ``run_cell`` and reports the failure
     there)."""
     todo, sharded_cells = {}, []
     for arch, shape, mp in cells:
-        cfg = cfgs.get(arch)
-        if shape in cfg.shapes:
+        if shape in cfgs.get(arch).shapes:
             todo.setdefault(flops_key(arch, shape, mp), (arch, shape, mp))
-            if mp in census and sharded(cfg) is None:
+            if mp in census:
                 sharded_cells.append((arch, shape, mp))
     jobs_list = [(-_work(c[0], c[1]), _count_cell, c) for c in todo.values()]
     jobs_list += [(-_work(c[0], c[1]) * 4, _census_job, c)
@@ -320,8 +294,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         cache[key] = count_flops(kind, fn, args)
     flops = cache[key]
     tokens = shape.global_batch * (shape.seq_len if kind != "decode" else 1)
-    counted, why = {}, sharded(cfg)
-    if census and why is None:
+    counted, why = {}, None
+    if census:
         counted = (census_cache or {}).get((arch, shape_name, multi_pod)) \
             or census_cell(arch, shape_name, multi_pod)
         for k in ("argument_bytes", "output_bytes"):
@@ -329,8 +303,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                 raise ValueError(
                     f"{k}: the local blocks hold {counted[k]}, the "
                     f"placements {memory[k]}")
-    elif census:
-        why = f"not run sharded: {why}"
     else:
         why = "not counted on this mesh (--census)"
     res = {
@@ -383,7 +355,7 @@ def main(argv=None) -> int:
                     "censuses")
     ap.add_argument("--census", choices=("all", "16x16"),
                     default="all",
-                    help="the meshes whose dense cells the census counts "
+                    help="the meshes whose cells the census counts "
                     "(the 2x16x16 mesh's take minutes each: DTensor plans "
                     "its three-dim redistributions by a graph search)")
     args = ap.parse_args(argv)

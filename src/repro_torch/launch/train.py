@@ -4,7 +4,8 @@
         --batch 8 --seq-len 512
 
 ``--reduced`` swaps in the same family's smoke-scale config (``--device
-cpu`` runs it here). Without ``--data-axis`` / ``--model-axis`` the
+cpu`` runs it here); ``--layers N`` keeps the first N layers of its
+pattern (the width whole: a model cut to what one card holds). Without ``--data-axis`` / ``--model-axis`` the
 trainer runs in this process on one device. With them it runs sharded on
 a ``(data, model)`` mesh: ``data * model`` processes, one a device (gloo
 on the CPU, NCCL on the cards, card ``r`` for rank ``r``; more processes
@@ -30,6 +31,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers of the pattern")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=256)
@@ -88,13 +91,10 @@ def _ckpt_root() -> str:
 
 
 def _train(args, mesh=None) -> None:
-    import repro_torch.configs as cfgs
     from repro_torch.optim import OptimizerConfig
     from repro_torch.runtime import Trainer, TrainerConfig
 
-    cfg = cfgs.get(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    cfg = model_config(args.arch, args.reduced, args.layers)
     tcfg = TrainerConfig(
         steps=args.steps, ckpt_every=args.ckpt_every,
         log_every=args.log_every, seed=args.seed, batch=args.batch,
@@ -124,6 +124,23 @@ def _train(args, mesh=None) -> None:
     print(f"[train] done: steps={out['stop_step']} "
           f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}",
           flush=True)
+
+
+def model_config(arch: str, reduced: bool = False, layers=None):
+    """``arch``'s config, reduced, and cut to its first ``layers`` layers
+    (every width kept)."""
+    import repro_torch.configs as cfgs
+
+    cfg = cfgs.get(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if layers is not None:
+        if not 1 <= layers <= cfg.n_layers:
+            raise ValueError(f"--layers {layers}: {cfg.name} has "
+                             f"{cfg.n_layers}")
+        cfg = cfg.replace(n_layers=layers,
+                          layer_pattern=cfg.pattern[:layers])
+    return cfg
 
 
 def _census(trainer, out, path: str) -> None:

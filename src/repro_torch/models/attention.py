@@ -35,8 +35,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (apply_rope, dense_init, frozen,
                                        rms_norm, softcap)
-from repro_torch.sharding.activation import (BATCH_AXES, constrain,
-                                            gathered, is_dtensor,
+from repro_torch.sharding.activation import (BATCH_AXES, Out, constrain,
+                                            gathered, is_dtensor, on_blocks,
                                             replicated_like)
 
 NEG_INF = -1e30
@@ -201,9 +201,9 @@ def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
 def _mla_query(p, x, cfg: ArchConfig, positions, theta):
     """``(q_nope, q_rope)`` of ``x (B, S, D)``, the rope part rotated."""
     m = cfg.mla
-    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_norm"],
-                  cfg.norm_eps)
-    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, gathered(p["wq_a"])),
+                  p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, gathered(p["wq_b"], (2,)))
     return (q[..., :m.qk_nope_head_dim],
             apply_rope(q[..., m.qk_nope_head_dim:], positions, theta))
 
@@ -212,7 +212,7 @@ def _mla_latent(p, x, cfg: ArchConfig, positions, theta):
     """``(c_kv (B, S, kv_lora), k_rope (B, S, 1, rope))``: the normed
     latents and the rotated rope key shared across the heads."""
     m = cfg.mla
-    ckv_full = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    ckv_full = torch.einsum("bsd,dr->bsr", x, gathered(p["wkv_a"]))
     c_kv = rms_norm(ckv_full[..., :m.kv_lora_rank], p["kv_norm"],
                     cfg.norm_eps)
     k_rope = apply_rope(ckv_full[:, :, None, m.kv_lora_rank:], positions,
@@ -224,26 +224,34 @@ def mla_full(p, x, cfg: ArchConfig, *, positions, theta: float = 10_000.0):
     """Unabsorbed MLA (prefill): decompress K/V, run MHA through
     ``flash_attention`` at head dim ``qk_nope + qk_rope`` with the scale
     of that width; ``v`` is zero-padded to it and the output sliced
-    back."""
+    back. A sharded program's q, k and v reach the kernel over batch and
+    heads (the rope key, shared by the heads, is sliced to each rank's
+    heads before it joins them)."""
     m = cfg.mla
     B, S, _ = x.shape
     h = cfg.n_heads
     x = constrain(x, (BATCH_AXES, None, None))  # the SP all-gather
     q_nope, q_rope = _mla_query(p, x, cfg, positions, theta)
     c_kv, k_rope = _mla_latent(p, x, cfg, positions, theta)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
-    qk = torch.cat([q_nope, q_rope], dim=-1)
+    k_nope = constrain(torch.einsum("bsr,rhk->bshk", c_kv,
+                                    gathered(p["wk_b"], (2,))), _HEADS_TP)
+    v = constrain(torch.einsum("bsr,rhk->bshk", c_kv,
+                               gathered(p["wv_b"], (2,))), _HEADS_TP)
+    qk = constrain(torch.cat([q_nope, q_rope], dim=-1), _HEADS_TP)
     del q_nope, q_rope
-    kk = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_head_dim)],
-                   dim=-1)
+    kk = torch.cat([k_nope, constrain(
+        k_rope.expand(B, S, h, m.qk_rope_head_dim), _HEADS_TP)], dim=-1)
     del k_nope
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    vp = torch.nn.functional.pad(v, (0, qk.shape[-1] - v.shape[-1]))
+    pad = qk.shape[-1] - v.shape[-1]  # on each rank's block
+    vp = on_blocks(lambda t: torch.nn.functional.pad(t, (0, pad)), (v,),
+                   (None,), (Out(0, (0, 1, 2, 3)),))
     del v
     out = kops.flash_attention(qk, kk, vp, causal=True, scale=scale)
     del qk, kk, vp
-    return torch.einsum("bshk,hkd->bsd", out[..., :m.v_head_dim], p["wo"])
+    out = constrain(out, _HEADS_TP)
+    return torch.einsum("bshk,hkd->bsd", out[..., :m.v_head_dim],
+                        gathered(p["wo"], (1,)))
 
 
 def mla_decode(p, x, cfg: ArchConfig, cache: dict, index: int,
@@ -268,7 +276,7 @@ def mla_decode(p, x, cfg: ArchConfig, cache: dict, index: int,
               + torch.einsum("bshk,btk->bhst", q_rope.float(),
                              cache["k_rope"].float())) * scale
     mask = torch.arange(S_max, device=x.device) <= index
-    logits = torch.where(mask, logits, NEG_INF)
+    logits = torch.where(replicated_like(mask, logits), logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out_c = torch.einsum("bhst,btr->bshr", probs, c_f)  # (B,1,H,rank)
     out = torch.einsum("bshr,rhk->bshk", out_c.to(x.dtype), p["wv_b"])

@@ -151,10 +151,11 @@ def _recurrent(p, x, cfg: ArchConfig, kind: str, form: str, *args):
     fn = getattr(rec_m, f"{kind}_block_{form}")
     r, state = fn(p[_RECURRENT[kind]], apply_norm(p["ln1"], x, cfg), cfg,
                   *args)
-    x = x + r
+    # a sharded program's partial sums reduce-scattered to the SP layout
+    x = x + constrain(r, SP_SPEC)
     if kind == "rglru":
         h = apply_norm(p["ln2"], x, cfg)
-        x = x + mlp_m.mlp(p["mlp"], h, cfg.act)
+        x = x + constrain(mlp_m.mlp(p["mlp"], h, cfg.act), SP_SPEC)
     return x, state
 
 

@@ -368,28 +368,44 @@ def encode(params, cfg: ArchConfig, frames):
     dtype), then the non-causal encoder stack."""
     x = frames.to(dtype_of(cfg.dtype))
     B, T, _ = x.shape
-    x = x + sinusoidal_positions(T, cfg.d_model, x.device).to(x.dtype)
+    x = x + replicated_like(
+        sinusoidal_positions(T, cfg.d_model, x.device).to(x.dtype), x)
     return blk.apply_stack_full(params["encoder"], x, _encoder_cfg(cfg),
                                 _positions(B, T, x.device), causal=False)[0]
 
 
+_HEADS_TP = attn_m._HEADS_TP  # batch over the data axes, heads over "model"
+
+
 def _cross_attention(p, x, k, v, cfg: ArchConfig):
     """``x (B, Sq, D)`` queries over the encoder's ``k, v (B, Skv, Kv,
-    hd)``, non-causal, with the residual."""
-    h = blk.apply_norm(p["ln"], x, cfg)
-    q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
+    hd)``, non-causal, with the residual. A sharded program's q, k and v
+    reach ``flash_attention`` over batch and heads, each rank's encoder
+    frames whole (a cache's k and v are pinned there too), and the
+    output projection's partial sum is reduce-scattered to the residual's
+    SP layout."""
+    h = constrain(blk.apply_norm(p["ln"], x, cfg), (BATCH_AXES, None, None))
+    q = constrain(torch.einsum("bsd,dhk->bshk", h,
+                               gathered(p["attn"]["wq"], (2,))), _HEADS_TP)
     if cfg.qkv_bias:
-        q = q + p["attn"]["bq"]
-    out = kops.flash_attention(q.contiguous(), k, v, causal=False)
-    return x + torch.einsum("bshk,hkd->bsd", out, p["attn"]["wo"])
+        q = q + gathered(p["attn"]["bq"], (1,))
+    out = kops.flash_attention(q.contiguous(), constrain(k, _HEADS_TP),
+                               constrain(v, _HEADS_TP), causal=False)
+    out = constrain(out, _HEADS_TP)
+    return x + constrain(torch.einsum("bshk,hkd->bsd", out,
+                                      gathered(p["attn"]["wo"], (1,))),
+                         blk.SP_SPEC)
 
 
 def _cross_kv(p, enc_out, cfg: ArchConfig):
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["attn"]["wk"])
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["attn"]["wv"])
+    enc_out = constrain(enc_out, (BATCH_AXES, None, None))
+    k = constrain(torch.einsum("bsd,dhk->bshk", enc_out,
+                               gathered(p["attn"]["wk"], (2,))), _HEADS_TP)
+    v = constrain(torch.einsum("bsd,dhk->bshk", enc_out,
+                               gathered(p["attn"]["wv"], (2,))), _HEADS_TP)
     if cfg.qkv_bias:
-        k = k + p["attn"]["bk"]
-        v = v + p["attn"]["bv"]
+        k = k + gathered(p["attn"]["bk"], (1,))
+        v = v + gathered(p["attn"]["bv"], (1,))
     return k.contiguous(), v.contiguous()
 
 

@@ -1,25 +1,38 @@
 """Feed-forward layers: gated MLP (SwiGLU / GeGLU) and token-choice MoE.
 
 Counterpart of ``repro/models/mlp.py``. The MoE keeps the reference's
-sort-based capacity dispatch, with one dispatch group (the port has no
-mesh, so ``_dispatch_groups`` is 1 and the ``"ep"`` and ``"tp"``
-partitions are the same computation):
+sort-based capacity dispatch, group-local as the reference's is: the
+tokens split into ``G = dispatch_groups()`` groups (the active mesh's
+data-parallel shards; 1 without a mesh, or where ``B % G``), each routed
+into its own expert slots at capacity ``cap = max(1, int(T_g * K * cf /
+E))`` of its ``T_g = B * S / G`` tokens:
 
     1. router logits in f32 (``x.float() @ router``), softmax, top-K as
        ``jax.lax.top_k`` picks it (the lower expert id first on a tie: the
        first K of a stable descending sort), weights ``top_p / max(sum,
        1e-9)`` cast to the activation dtype;
-    2. a stable sort of the flat ``(T * K,)`` expert ids groups the slots
-       by expert; a slot's rank in its bucket is its position minus the
-       bucket's start; slots past ``cap = max(1, int(T * K * cf / E))``
-       are dropped, so the later ``(token, k)`` pairs of a full bucket
-       drop;
+    2. a stable sort of the group's flat ``(T_g * K,)`` expert ids groups
+       the slots by expert; a slot's rank in its bucket is its position
+       minus the bucket's start; slots past ``cap`` are dropped, so the
+       later ``(token, k)`` pairs of a full bucket drop;
     3. the expert inputs ``(E, cap, D)`` are gathered (unused slots read a
        zero row), the experts run as three batched products;
     4. each token adds its kept contributions in ascending slot order
        (expert id) to zero, as the reference's scatter-add does on the
        CPU: K gathered adds, no atomics, so two passes are bitwise equal
        on the card.
+
+The load-balancing loss takes its expert counts and mean router
+probabilities over every group (the reference's means over ``(G, T, K)``
+and ``(G, T)``). One group of a plain tensor is the one-process program,
+the same ops in the same order as it always was. A sharded program's
+DTensors run steps 1-3 on each rank's own groups (``on_blocks``: the
+sort, gather and combine never cross ranks), then the expert products and
+the combine on each rank's blocks of the reference's layouts: ``"ep"``
+the experts over ``"model"`` (a rank takes its own experts' slots),
+``"tp"`` the expert hidden dimension over ``"model"``. Each model rank's
+combine is a partial sum of the output, reduced over ``"model"`` where
+the block reduce-scatters it.
 
 Nothing of this synchronises with the host (no boolean masks, no
 ``bincount``), so a decode step stays free of host synchronisation, and
@@ -36,7 +49,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import act_fn, dense_init, expert_init, frozen
-from repro_torch.sharding.activation import BATCH_AXES, constrain, gathered
+from repro_torch.sharding.activation import (BATCH_AXES, Out, constrain,
+                                            dispatch_groups, gathered,
+                                            is_dtensor, on_blocks)
 
 _HIDDEN_TP = (BATCH_AXES, None, "model")  # the MLP hidden over "model"
 
@@ -182,19 +197,26 @@ def _experts(p, x_exp, act: str):
     return torch.bmm(g, p["w_down"]).view(E * cap, D)
 
 
-def _combine(y, slot_w, pair_slot):
+def _combine(y, slot_w, pair_slot, lo: int = 0):
     """``out (T, D)``: each token's kept contributions ``y[s] * w[s]``
     added to zero in ascending slot order; a dropped pair (slot ``E *
     cap``) adds +0, which changes no sum that starts from +0. Out of
-    place, one ``(T, D)`` gather a rank: no ``(E * cap, D)`` copy."""
+    place, one ``(T, D)`` gather a rank: no ``(E * cap, D)`` copy.
+    ``y`` and ``slot_w`` may hold the slots from ``lo`` on only (one
+    rank's experts): a pair whose slot lies outside them adds +0 too."""
     n = slot_w.shape[0]
     ordered = torch.sort(pair_slot, dim=1).values  # expert id ascending
     out = torch.zeros((pair_slot.shape[0], y.shape[1]), dtype=y.dtype,
                       device=y.device)
     for j in range(ordered.shape[1]):
         s = ordered[:, j]
-        kept = (s < n)[:, None]
-        s = torch.clamp(s, max=n - 1)
+        if lo:
+            s = s - lo
+            kept = ((s >= 0) & (s < n))[:, None]
+            s = torch.clamp(s, min=0, max=n - 1)
+        else:
+            kept = (s < n)[:, None]
+            s = torch.clamp(s, max=n - 1)
         out = out + torch.where(kept, y[s] * slot_w[s, None], 0)
     return out
 
@@ -203,28 +225,116 @@ def moe(p, x, cfg: ArchConfig, decode: bool = False):
     """Token-choice top-K MoE. ``x (B, S, D)`` -> ``(out, aux)``. The
     partition is ``partition_decode`` (or ``partition``) for a decode
     step, ``partition`` otherwise: ``"dense"`` is the mixture, ``"ep"``
-    and ``"tp"`` the dispatch, one group of ``T = B * S`` tokens."""
+    and ``"tp"`` the group-local dispatch (``G = dispatch_groups()``
+    groups; one of ``T = B * S`` tokens for a plain tensor outside a
+    mesh)."""
     mo = cfg.moe
     part = (mo.partition_decode or mo.partition) if decode \
         else mo.partition
     if part == "dense":
         return moe_dense_mixture(p, x, cfg)
     B, S, D = x.shape
-    T = B * S
+    G = dispatch_groups()
+    if B % G:
+        G = 1
+    T = B * S // G
     K, E = mo.n_experts_per_token, mo.n_experts
     cap = max(1, int(T * K * mo.capacity_factor / E))
-    xt = x.reshape(T, D)
-    probs, top_p, top_e = route(p, xt, K)
-    buckets = _buckets(top_e, E)
-    aux = _aux(probs, buckets[3], mo.router_aux_coef)
-    slot_tok, slot_w, pair_slot = _dispatch_one(top_p, top_e, cap, x.dtype,
-                                                buckets)
-    x_exp = _gather(xt, slot_tok, E, cap)
-    y = _experts(p, x_exp, cfg.act)
-    del x_exp
-    out = _combine(y, slot_w, pair_slot).reshape(B, S, D)
+    if G > 1 or is_dtensor(x):
+        out, aux = _grouped(p, x, cfg, part, G, cap)
+    else:
+        xt = x.reshape(T, D)
+        probs, top_p, top_e = route(p, xt, K)
+        buckets = _buckets(top_e, E)
+        aux = _aux(probs, buckets[3], mo.router_aux_coef)
+        slot_tok, slot_w, pair_slot = _dispatch_one(top_p, top_e, cap,
+                                                    x.dtype, buckets)
+        x_exp = _gather(xt, slot_tok, E, cap)
+        y = _experts(p, x_exp, cfg.act)
+        del x_exp
+        out = _combine(y, slot_w, pair_slot).reshape(B, S, D)
     if mo.n_shared_experts:
         out = out + mlp(p["shared"], x, cfg.act)
+    return out, aux
+
+
+def _dispatch_local(xg, router, K: int, E: int, cap: int):
+    """Steps 1-3 of ``moe`` on each of ``xg``'s groups ``(G, T, D)``:
+    ``(x_exp (G, E, cap, D), slot_w (G, E * cap), pair_slot (G, T, K),
+    count (G, E), mean_prob (G, E))``, each group's ``_dispatch_one`` and
+    its load-balancing statistics."""
+    outs = []
+    for xt in xg:
+        probs, top_p, top_e = route({"router": router}, xt, K)
+        buckets = _buckets(top_e, E)
+        slot_tok, slot_w, pair_slot = _dispatch_one(top_p, top_e, cap,
+                                                    xg.dtype, buckets)
+        outs.append((_gather(xt, slot_tok, E, cap), slot_w, pair_slot,
+                     buckets[3], probs.mean(0)))
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def _experts_local(x_exp, slot_w, pair_slot, w_gate, w_up, w_down, *,
+                   act: str, lo: int, S: int):
+    """Each group's experts on this rank's block of ``x_exp (G, E_r, cap,
+    D)`` (``E_r`` experts from the one whose first slot is ``lo``; the
+    weights' matching experts, or their hidden block) and its combine into
+    ``(G * T / S, S, D)``: the output, or this rank's partial sum of it."""
+    p = {"w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+    out = torch.stack([
+        _combine(_experts(p, xe, act), sw, ps, lo)
+        for xe, sw, ps in zip(x_exp, slot_w, pair_slot)])
+    G, T, D = out.shape
+    return out.reshape(G * T // S, S, D)
+
+
+def _block_start(t, dim: int) -> int:
+    """The global index of this rank's first element of ``t`` along
+    ``dim`` (0 for a plain tensor): ``dim``'s blocks are row-major over
+    the mesh dims that shard it, in mesh order."""
+    if not is_dtensor(t):
+        return 0
+    mesh, size, start = t.device_mesh, t.shape[dim], 0
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            size //= mesh.size(i)
+            start += mesh.get_local_rank(i) * size
+    return start
+
+
+def _grouped(p, x, cfg: ArchConfig, part: str, G: int, cap: int):
+    """The dispatch of ``G`` groups, the reference's ``_grouped_dispatch``:
+    the groups over the data axes, the expert layouts ``exp_spec`` of
+    the partition. Returns ``(out (B, S, D), aux)``."""
+    mo = cfg.moe
+    B, S, D = x.shape
+    K, E = mo.n_experts_per_token, mo.n_experts
+    x = constrain(x, (BATCH_AXES, None, None))  # the SP all-gather
+    xg = constrain(x.reshape(G, B * S // G, D), (BATCH_AXES, None, None))
+    x_exp, slot_w, pair_slot, count, mean_prob = on_blocks(
+        lambda xl, r: _dispatch_local(xl, r, K, E, cap),
+        (xg, gathered(p["router"])), (None, None),
+        tuple(Out(0, (0,) + (None,) * n) for n in (3, 1, 2, 1, 1)))
+    # density over every group's (token, k) pairs, mean probability over
+    # every group's tokens
+    total = count.sum(0)
+    density = total.float() / total.sum().float() * E
+    aux = torch.mean(density * mean_prob.mean(0) * E) * mo.router_aux_coef
+    # the partition's layouts: "ep" the experts over "model" (the expert
+    # inputs and slots too), "tp" the expert hidden dimension; the weights
+    # whole over the data axes
+    ep = "model" if part == "ep" else None
+    hid = None if ep else "model"
+    x_exp = constrain(x_exp, (BATCH_AXES, ep, None, None))
+    slot_w = constrain(slot_w, (BATCH_AXES, ep))
+    lo = _block_start(x_exp, 1) * cap
+    out = on_blocks(
+        lambda xe, sw, ps, wg, wu, wd: _experts_local(
+            xe, sw, ps, wg, wu, wd, act=cfg.act, lo=lo, S=S),
+        (x_exp, slot_w, pair_slot, p["w_gate"], p["w_up"], p["w_down"]),
+        (None, None, None, (ep, None, hid), (ep, None, hid),
+         (ep, hid, None)),
+        (Out(2, (0, None, None), partial=True),))
     return out, aux
 
 

@@ -23,12 +23,21 @@ as ``attention_decode`` writes its KV cache.
   The input projection of every step is one product over the sequence.
 
 The recurrences are plain PyTorch: in the reference they are XLA scans
-and jnp, not Pallas kernels. Gates and states are float32 whatever the
-model's dtype; ``lam``, ``w_if``, ``b_if`` and ``b_zifo`` are float32
-leaves in a bf16 model, as in the reference.
+and jnp, not Pallas kernels. In a sharded program each recurrence runs on
+its rank's own blocks (``sharding.activation.on_blocks``), the batch over
+the data axes and the channels (RG-LRU) or heads (mLSTM, sLSTM) over
+``"model"`` where they divide, the time axis whole: nothing inside a time
+loop communicates, as in the program XLA builds for the reference's
+``lax.scan`` bodies. The projections around them are DTensor ops, their
+weights whole over the data axes (``gathered``). On ``meta`` under a
+counter the sLSTM's token loop is counted by one middle step times its
+trip count (``_slstm_counted``). Gates and states are float32 whatever
+the model's dtype; ``lam``, ``w_if``, ``b_if`` and ``b_zifo`` are
+float32 leaves in a bf16 model, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -37,10 +46,15 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import act_fn, dense_init, frozen, uniform
+from repro_torch.sharding.activation import (BATCH_AXES, Out, constrain,
+                                            gathered, on_blocks,
+                                            unflatten_last)
 
 _CHUNK = 256
 _NEG = -1e30
 _gelu = act_fn("gelu")  # the tanh form, jax.nn.gelu's default
+_SEQ_WHOLE = (BATCH_AXES, None, None)  # the SP all-gather: the time axis whole
+_CHANNELS = (BATCH_AXES, None, "model")  # (B, S, C): channels over "model"
 
 
 def _softplus(x):
@@ -70,13 +84,26 @@ def init_conv1d(generator: torch.Generator, width: int, channels: int,
 def conv1d_full(p, x):
     """Causal depthwise conv of ``x (B, S, C)``: tap ``i`` reads the input
     ``width - 1 - i`` steps back; the sum runs in the taps' order, in the
-    activation dtype."""
-    width, S = p["w"].shape[0], x.shape[1]
+    activation dtype. A sharded program's taps are DTensor ops on the
+    ``(batch, channel)`` blocks, the time axis whole, each delayed input
+    made on the rank's own block: the gradient of ``x`` then sums the
+    taps' and its other uses' terms in the order a one-process program
+    does, and nothing communicates."""
+    width = p["w"].shape[0]
+    x = constrain(x, _CHANNELS)
     out = torch.zeros_like(x)
     for i in range(width):
-        shift = width - 1 - i
-        out = out + F.pad(x, (0, 0, shift, 0))[:, :S] * p["w"][i]
+        out = out + _delayed(x, width - 1 - i) * p["w"][i]
     return out + p["b"]
+
+
+def _delayed(x, shift: int):
+    """``x (B, S, C)`` ``shift`` steps later along the sequence, zeros
+    first (on each rank's block: DTensor's ``F.pad`` has no sharding
+    strategy in every PyTorch version)."""
+    S = x.shape[1]
+    return on_blocks(lambda t: F.pad(t, (0, 0, shift, 0))[:, :S], (x,),
+                     (None,), (Out(0, (0, 1, 2)),))
 
 
 def conv1d_step(p, x_t, state):
@@ -92,7 +119,8 @@ def _conv_state(u_raw, width: int):
     """The last ``width - 1`` raw inputs of ``u_raw (B, S, C)`` (zeros
     before the first): the conv state a decode phase continues from."""
     cw, S = width - 1, u_raw.shape[1]
-    return F.pad(u_raw, (0, 0, cw, 0))[:, S:S + cw]
+    return on_blocks(lambda u: F.pad(u, (0, 0, cw, 0))[:, S:S + cw],
+                     (u_raw,), (_CHANNELS,), (Out(0, (0, 1, 2)),))
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +161,13 @@ def _scan_chunk(la, g):
     return la, g
 
 
-def _rglru_scan(log_a, gx, h0):
+def _rglru_scan(log_a, gx, h0=None):
     """``h_t = exp(log_a_t) h_{t-1} + gx_t`` over ``(B, S, W)`` from ``h0
-    (B, W)``, in chunks of ``_CHUNK`` steps. Returns ``(h_seq, h_last)``."""
-    S = gx.shape[1]
-    out, h = [], h0
+    (B, W)`` (zeros where None), in chunks of ``_CHUNK`` steps. Returns
+    ``(h_seq, h_last)``."""
+    B, S, W = gx.shape
+    h = gx.new_zeros((B, W)) if h0 is None else h0
+    out = []
     for t0 in range(0, S, _CHUNK):
         la_cum, b_cum = _scan_chunk(log_a[:, t0:t0 + _CHUNK],
                                     gx[:, t0:t0 + _CHUNK])
@@ -149,28 +179,32 @@ def _rglru_scan(log_a, gx, h0):
 
 def _rglru_gates(p, u):
     """``(r, i)``, the recurrence and input gates of ``u``, in f32."""
-    r = torch.sigmoid((torch.einsum("bsw,wv->bsv", u, p["w_rg"])
+    r = torch.sigmoid((torch.einsum("bsw,wv->bsv", u, gathered(p["w_rg"]))
                        + p["b_rg"]).float())
-    i = torch.sigmoid((torch.einsum("bsw,wv->bsv", u, p["w_ig"])
+    i = torch.sigmoid((torch.einsum("bsw,wv->bsv", u, gathered(p["w_ig"]))
                        + p["b_ig"]).float())
     return r, i
 
 
 def rglru_block_full(p, x, cfg: ArchConfig, state=None):
     """Full-sequence Griffin recurrent block. ``x (B, S, D)``; returns
-    ``(y, {"h", "conv"})``, the state a decode phase continues from."""
-    B = x.shape[0]
-    gate = _gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate_in"]))
-    u_raw = torch.einsum("bsd,dw->bsw", x, p["w_in"])
+    ``(y, {"h", "conv"})``, the state a decode phase continues from. A
+    sharded program's scan runs on each rank's ``(batch, W)`` block."""
+    x = constrain(x, _SEQ_WHOLE)
+    gate = _gelu(torch.einsum("bsd,dw->bsw", x, gathered(p["w_gate_in"])))
+    u_raw = torch.einsum("bsd,dw->bsw", x, gathered(p["w_in"]))
     u = conv1d_full(p["conv"], u_raw)
     r, i = _rglru_gates(p, u)
     log_a = -8.0 * _softplus(p["lam"])[None, None, :] * r  # (B, S, W) f32
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     gx = beta * (i * u.float())
-    h0 = (state["h"] if state is not None else
-          x.new_zeros((B, cfg.lru_width), dtype=torch.float32))
-    hs, h_last = _rglru_scan(log_a, gx, h0)
-    y = torch.einsum("bsw,wd->bsd", hs.to(x.dtype) * gate, p["w_out"])
+    h0 = None if state is None else state["h"]
+    hs, h_last = on_blocks(
+        _rglru_scan, (log_a, gx, h0),
+        (_CHANNELS, _CHANNELS, None if h0 is None else (BATCH_AXES, "model")),
+        (Out(0, (0, 1, 2)), Out(0, (0, 2))))
+    y = torch.einsum("bsw,wd->bsd", hs.to(x.dtype) * gate,
+                     gathered(p["w_out"]))
     return y, {"h": h_last, "conv": _conv_state(u_raw, cfg.conv1d_width)}
 
 
@@ -276,50 +310,72 @@ def _mlstm_chunk(q, k, v, log_i, log_f, carry):
 def _mlstm_qkv_gates(p, xc, up, nh: int, dh: int):
     """``q, k, v (B, S, nh, dh)`` in f32 and the gate pre-activations
     ``(log_i, log_f) (B, S, nh)``."""
-    B, S = xc.shape[:2]
 
     def heads(w, t):
-        return torch.einsum("bse,ef->bsf", t, w).reshape(B, S, nh, dh).float()
+        return unflatten_last(torch.einsum("bse,ef->bsf", t, gathered(w)),
+                              (nh, dh)).float()
 
-    gif = torch.einsum("bse,eg->bsg", xc.float(), p["w_if"]) + p["b_if"]
+    gif = torch.einsum("bse,eg->bsg", xc.float(),
+                       gathered(p["w_if"])) + p["b_if"]
     return (heads(p["wq"], xc), heads(p["wk"], xc), heads(p["wv"], up),
             gif[..., :nh], _log_sigmoid(gif[..., nh:]))
 
 
-def mlstm_block_full(p, x, cfg: ArchConfig, state=None):
-    """Full-sequence mLSTM block. ``x (B, S, D)``; returns ``(y, {"C", "n",
-    "m", "conv"})``."""
-    B, S, _ = x.shape
-    di, nh, dh = _mlstm_dims(cfg)
-    up = torch.einsum("bsd,de->bse", x, p["w_up"])
-    z = torch.einsum("bsd,de->bse", x, p["w_gate"])
-    xc = F.silu(conv1d_full(p["conv"], up))
-    q, k, v, log_i, log_f = (
-        t.transpose(1, 2) for t in _mlstm_qkv_gates(p, xc, up, nh, dh))
-
+def _mlstm_scan(q, k, v, log_i, log_f, C=None, n=None, m=None):
+    """The chunkwise mLSTM over ``q, k, v (B, S, nh, dh)`` and gates ``(B,
+    S, nh)`` from the carry ``(C, n, m)`` (the zero state where None):
+    ``(h (B, S, nh, dh), C, n, m)``."""
+    B, S, nh, dh = q.shape
+    q, k, v, log_i, log_f = (t.transpose(1, 2)
+                             for t in (q, k, v, log_i, log_f))
     chunk = min(_CHUNK, S)
     pad = (-S) % chunk
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
         log_i = F.pad(log_i, (0, pad), value=_NEG)
         log_f = F.pad(log_f, (0, pad))
-    if state is None:
-        carry = (x.new_zeros((B, nh, dh, dh), dtype=torch.float32),
-                 x.new_zeros((B, nh, dh), dtype=torch.float32),
-                 x.new_full((B, nh), _NEG, dtype=torch.float32))
+    if C is None:
+        carry = (q.new_zeros((B, nh, dh, dh)), q.new_zeros((B, nh, dh)),
+                 q.new_full((B, nh), _NEG))
     else:
-        carry = (state["C"], state["n"], state["m"])
+        carry = (C, n, m)
     hs = []
     for t0 in range(0, S + pad, chunk):
         sl = slice(t0, t0 + chunk)
         h, carry = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
                                 log_i[..., sl], log_f[..., sl], carry)
         hs.append(h)
-    hs = torch.cat(hs, dim=2)[:, :, :S].transpose(1, 2).reshape(B, S, di)
+    return (torch.cat(hs, dim=2)[:, :, :S].transpose(1, 2),) + carry
+
+
+_HEADS = (BATCH_AXES, None, "model")  # (B, S, nh, ...): heads over "model"
+
+
+def mlstm_block_full(p, x, cfg: ArchConfig, state=None):
+    """Full-sequence mLSTM block. ``x (B, S, D)``; returns ``(y, {"C", "n",
+    "m", "conv"})``. A sharded program's chunk loop runs on each rank's
+    ``(batch, heads)`` block."""
+    B, S, _ = x.shape
+    di, nh, dh = _mlstm_dims(cfg)
+    x = constrain(x, _SEQ_WHOLE)
+    up = torch.einsum("bsd,de->bse", x, gathered(p["w_up"]))
+    z = torch.einsum("bsd,de->bse", x, gathered(p["w_gate"]))
+    xc = F.silu(conv1d_full(p["conv"], up))
+    carry = () if state is None else (state["C"], state["n"], state["m"])
+    hs, C, n, m = on_blocks(
+        _mlstm_scan, _mlstm_qkv_gates(p, xc, up, nh, dh) + carry,
+        (_HEADS + (None,),) * 3 + (_HEADS,) * 2 + (
+            (BATCH_AXES, "model", None, None), (BATCH_AXES, "model", None),
+            (BATCH_AXES, "model"))[:len(carry)],
+        (Out(0, (0, 1, 2, 3)), Out(0, (0, 2, None, None)),
+         Out(0, (0, 2, None)), Out(0, (0, 2))))
+    # over "model" as ``xc`` is, so the gradient reaches the heads' split
+    # whole where the heads do not divide over it
+    hs = constrain(hs.reshape(B, S, di), _CHANNELS)
 
     out = (hs.to(x.dtype) + p["skip"] * xc) * F.silu(z)
-    y = torch.einsum("bse,ed->bsd", out, p["w_down"])
-    return y, {"C": carry[0], "n": carry[1], "m": carry[2],
+    y = torch.einsum("bse,ed->bsd", out, gathered(p["w_down"]))
+    return y, {"C": C, "n": n, "m": m,
                "conv": _conv_state(up, cfg.conv1d_width)}
 
 
@@ -393,23 +449,23 @@ def init_slstm_block(generator: torch.Generator, cfg: ArchConfig,
     })
 
 
-def _slstm_gates(p, wx, h_prev, nh: int, dh: int):
-    """``wx (B, 4D)``, the step's input projection; ``h_prev (B, H, Dh)``
-    f32 -> ``z, i~, f~, o~`` each ``(B, H, Dh)`` f32. ``wx`` is laid out
-    gate-major ``(4, H, Dh)``, the recurrent term head-major ``(H, 4,
-    Dh)``, as in the reference."""
-    B = wx.shape[0]
-    rh = torch.einsum("bhd,hde->bhe", h_prev, p["r_zifo"].to(h_prev.dtype))
-    wx = wx.reshape(B, 4, nh, dh).transpose(1, 2)  # (B, H, 4, Dh)
+def _slstm_gates(wx, h_prev, r_zifo, b_zifo):
+    """``wx (B, 4, H, Dh)``, the step's input projection laid out
+    gate-major, as in the reference; ``h_prev (B, H, Dh)`` f32; the
+    recurrent matrices ``r_zifo (H, Dh, 4 Dh)`` (head-major ``(H, 4,
+    Dh)`` terms) and the bias ``b_zifo (4, H, Dh)`` -> ``z, i~, f~, o~``
+    each ``(B, H, Dh)`` f32."""
+    B, _, nh, dh = wx.shape
+    rh = torch.einsum("bhd,hde->bhe", h_prev, r_zifo.to(h_prev.dtype))
+    wx = wx.transpose(1, 2)  # (B, H, 4, Dh)
     rh = rh.reshape(B, nh, 4, dh)
-    g = ((wx + rh).float().transpose(1, 2)
-         + p["b_zifo"].reshape(4, nh, dh))
+    g = (wx + rh).float().transpose(1, 2) + b_zifo
     return g[:, 0], g[:, 1], g[:, 2], g[:, 3]
 
 
-def _slstm_step(p, wx, st, nh: int, dh: int):
+def _slstm_step(wx, st, r_zifo, b_zifo):
     c, n, h, m = st
-    z, it, ft, ot = _slstm_gates(p, wx, h, nh, dh)
+    z, it, ft, ot = _slstm_gates(wx, h, r_zifo, b_zifo)
     z = torch.tanh(z)
     o = torch.sigmoid(ot)
     log_f = _log_sigmoid(ft)
@@ -433,25 +489,127 @@ def init_slstm_state(cfg: ArchConfig, batch: int, device) -> dict:
 
 def _slstm_ffn(p, hs):
     """The GLU feed-forward (proj factor 4/3, paired gates)."""
-    u, g = torch.einsum("bsd,de->bse", hs, p["w_ff1"]).chunk(2, dim=-1)
-    return torch.einsum("bse,ed->bsd", u * _gelu(g), p["w_ff2"])
+    u, g = torch.einsum("bsd,de->bse", hs,
+                        gathered(p["w_ff1"])).chunk(2, dim=-1)
+    return torch.einsum("bse,ed->bsd", u * _gelu(g), gathered(p["w_ff2"]))
+
+
+def _slstm_scan(wx, r_zifo, b_zifo, c=None, n=None, h=None, m=None):
+    """One step a token over ``wx (B, S, 4, H, Dh)`` from the state ``(c,
+    n, h, m)`` (``init_slstm_state``'s where None): ``(h_seq (B, S, H,
+    Dh), c, n, h, m)``."""
+    B, S, _, nh, dh = wx.shape
+    if c is None:
+        z = wx.new_zeros((B, nh, dh), dtype=torch.float32)
+        c, n, h, m = z, z, z, torch.full_like(z, _NEG)
+    carry = (c, n, h, m)
+    counters = _loop_counters(wx, S)
+    if counters:
+        return _slstm_counted(wx, carry, r_zifo, b_zifo, counters)
+    hs = []
+    # one view a step whose gradients stack once (indexing wx[:, t] would
+    # add S full-size zero-padded gradients)
+    for wx_t in wx.unbind(1):
+        carry = _slstm_step(wx_t, carry, r_zifo, b_zifo)
+        hs.append(carry[2])
+    return (torch.stack(hs, dim=1),) + carry
+
+
+def _loop_counters(t, n: int) -> list:
+    """The active counters (``analysis.flops.FlopCounter``,
+    ``analysis.census.Census``) that may count a loop of ``n`` identical
+    steps over the ``meta`` tensor ``t`` by one body: empty (the loop runs
+    whole) off ``meta``, where values matter, or for ``n < 3``."""
+    if n < 3 or t.device.type != "meta":
+        return []
+    from repro_torch.kernels.ops import attention_observers
+
+    return [m for m in attention_observers() if hasattr(m, "repeat")]
+
+
+def _repeat(counters: list, n: int) -> contextlib.ExitStack:
+    """Every counter of ``counters`` multiplying what it counts by ``n``
+    (entered; ``close()`` leaves)."""
+    stack = contextlib.ExitStack()
+    for c in counters:
+        stack.enter_context(c.repeat(n))
+    return stack
+
+
+class _Ends(torch.autograd.Function):
+    """``wx (B, S, ...)``'s steps ``0``, ``1`` and ``S - 1``, as views; the
+    gradient is the one ``stack`` of every step's that ``unbind``'s
+    backward makes, step 1's standing for steps ``1 .. S - 2``."""
+
+    @staticmethod
+    def forward(ctx, wx):
+        ctx.S = S = wx.shape[1]
+        return wx.select(1, 0), wx.select(1, 1), wx.select(1, S - 1)
+
+    @staticmethod
+    def backward(ctx, g0, g1, gl):
+        return torch.stack([g0] + [g1] * (ctx.S - 2) + [gl], dim=1)
+
+
+def _slstm_counted(wx, carry, r_zifo, b_zifo, counters: list):
+    """The token loop as the counters count it, the reference's convention
+    of a while loop's body times its trip count: the first step, one
+    middle step counted ``S - 2`` times, the last step (the first and last
+    differ from the rest in what their backward computes: no gradient of
+    a zero initial state, none of the final one). The middle step's
+    backward pass runs between a hook on its outputs and a hook on the
+    first step's, and is counted ``S - 2`` times too: the graph's nodes run
+    in reverse order of creation, so nothing else runs there. Traffic, op
+    counts, FLOPs and collectives equal the whole loop's; storages count
+    once, so its temporaries are the three steps'."""
+    S = wx.shape[1]
+    grad = torch.is_grad_enabled() and wx.requires_grad
+    x0, x1, xl = _Ends.apply(wx) if grad else (
+        wx.select(1, 0), wx.select(1, 1), wx.select(1, S - 1))
+    first = _slstm_step(x0, carry, r_zifo, b_zifo)
+    with _repeat(counters, S - 2):
+        mid = _slstm_step(x1, first, r_zifo, b_zifo)
+    if torch.is_grad_enabled():
+        window = []
+
+        def enter(_):
+            if not window:
+                window.append(_repeat(counters, S - 2))
+
+        def leave(_):
+            if window and window[0] is not None:
+                window[0].close()
+                window[0] = None
+
+        for t in mid:
+            if t.requires_grad:
+                t.register_hook(enter)
+        for t in first:
+            if t.requires_grad:
+                t.register_hook(leave)
+    last = _slstm_step(xl, mid, r_zifo, b_zifo)
+    hs = ([first[2], mid[2]] + [mid[2].detach()] * (S - 3) + [last[2]])
+    return (torch.stack(hs, dim=1),) + last
 
 
 def slstm_block_full(p, x, cfg: ArchConfig, state=None):
     """One step a token over ``x (B, S, D)``; returns ``(y, {"c", "n",
-    "h", "m"})``."""
+    "h", "m"})``. A sharded program's token loop runs on each rank's
+    ``(batch, heads)`` block."""
     B, S, d = x.shape
     nh = cfg.n_heads
     dh = d // nh
-    st = state if state is not None else init_slstm_state(cfg, B, x.device)
-    carry = (st["c"], st["n"], st["h"], st["m"])
-    wx = torch.einsum("bsd,de->bse", x, p["w_zifo"])  # (B, S, 4D)
-    hs = []
-    for t in range(S):
-        carry = _slstm_step(p, wx[:, t], carry, nh, dh)
-        hs.append(carry[2])
-    hs = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    c, n, h, m = carry
+    x = constrain(x, _SEQ_WHOLE)
+    wx = torch.einsum("bsd,de->bse", x, gathered(p["w_zifo"]))  # (B, S, 4D)
+    st = () if state is None else tuple(state[k] for k in "cnhm")
+    one = (BATCH_AXES, "model", None)
+    hs, c, n, h, m = on_blocks(
+        _slstm_scan, (unflatten_last(wx, (4, nh, dh)), p["r_zifo"],
+                      p["b_zifo"].reshape(4, nh, dh)) + st,
+        ((BATCH_AXES, None, None, "model", None), ("model", None, None),
+         (None, "model", None)) + (one,) * len(st),
+        (Out(0, (0, 1, 3, 4)),) + (Out(0, (0, 3, 4)),) * 4)
+    hs = hs.reshape(B, S, d).to(x.dtype)
     return _slstm_ffn(p, hs), {"c": c, "n": n, "h": h, "m": m}
 
 
@@ -461,9 +619,14 @@ def slstm_block_step(p, x_t, cfg: ArchConfig, state: dict):
     B = x_t.shape[0]
     nh = cfg.n_heads
     dh = cfg.d_model // nh
-    wx = torch.einsum("bd,de->be", x_t[:, 0], p["w_zifo"])
-    new = _slstm_step(p, wx, (state["c"], state["n"], state["h"],
-                              state["m"]), nh, dh)
+    wx = torch.einsum("bd,de->be", x_t[:, 0], gathered(p["w_zifo"]))
+    one = (BATCH_AXES, "model", None)
+    new = on_blocks(
+        lambda w, r, b, *st: _slstm_step(w, st, r, b),
+        (unflatten_last(wx, (4, nh, dh)), p["r_zifo"],
+         p["b_zifo"].reshape(4, nh, dh)) + tuple(state[k] for k in "cnhm"),
+        ((BATCH_AXES, None, "model", None), ("model", None, None),
+         (None, "model", None)) + (one,) * 4, (Out(0, (0, 2, 3)),) * 4)
     for name, t in zip(("c", "n", "h", "m"), new):
         state[name].copy_(t)
     hs = new[2].reshape(B, 1, cfg.d_model).to(x_t.dtype)

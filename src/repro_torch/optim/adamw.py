@@ -207,13 +207,13 @@ def apply_updates(params, grads, opt_state: dict, cfg: OptimizerConfig):
                           cfg, mu, nu)
             continue
         p = _stacked(leaf)
-        g = _stacked(gl[name]).float() * scale
-        m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g
         if "full" in v:
-            v_new = {"full": cfg.b2 * v["full"].float()
-                     + (1 - cfg.b2) * g * g}
-            v_hat = v_new["full"] / c2
+            p_new, mu[name], v_full = _full_step(
+                p, _stacked(gl[name]), m, v["full"], scale, lr, c1, c2, cfg)
+            nu[name] = {"full": v_full}
         else:
+            g = _stacked(gl[name]).float() * scale
+            m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g
             row = cfg.b2 * v["row"].float() \
                 + (1 - cfg.b2) * torch.mean(g * g, dim=-1)
             col = cfg.b2 * v["col"].float() \
@@ -224,17 +224,17 @@ def apply_updates(params, grads, opt_state: dict, cfg: OptimizerConfig):
                                 min=1e-30)
             v_hat = (row[..., None] * col[..., None, :]
                      / denom[..., None]) / c2
-        update = (m_new / c1) / (torch.sqrt(v_hat) + cfg.eps)
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
-            update = update + cfg.weight_decay * p.float()
-        p_new = (p.float() - lr * update).to(p.dtype)
+            update = (m_new / c1) / (torch.sqrt(v_hat) + cfg.eps)
+            if p.dim() >= 2:  # decoupled weight decay on matrices only
+                update = update + cfg.weight_decay * p.float()
+            p_new = (p.float() - lr * update).to(p.dtype)
+            mu[name] = m_new.to(m.dtype)
+            nu[name] = {k: v_new[k].to(v[k].dtype) for k in v}
         if isinstance(leaf, list):
             for t, new in zip(leaf, p_new.unbind(0)):
                 t.copy_(new)
         else:
             leaf.copy_(p_new)
-        mu[name] = m_new.to(m.dtype)
-        nu[name] = {k: v_new[k].to(v[k].dtype) for k in v}
     stats = {"lr": lr, "grad_norm": gnorm, "step": step}
     if step_dt is not None:
         from torch.distributed.tensor import DTensor
@@ -253,15 +253,9 @@ def _update_local(leaf, g_leaf, m, v, name, scale, lr, c1, c2, cfg, mu,
     from torch.distributed.tensor import DTensor
 
     p = _local(leaf)
-    g = _local(g_leaf).float() * scale
-    m_l, v_l = m.to_local(), v["full"].to_local()
-    m_new = cfg.b1 * m_l.float() + (1 - cfg.b1) * g
-    v_new = cfg.b2 * v_l.float() + (1 - cfg.b2) * g * g
-    v_hat = v_new / c2
-    update = (m_new / c1) / (torch.sqrt(v_hat) + cfg.eps)
-    if p.dim() >= 2:  # decoupled weight decay on matrices only
-        update = update + cfg.weight_decay * p.float()
-    p_new = (p.float() - lr * update).to(p.dtype)
+    p_new, m_new, v_new = _full_step(p, _local(g_leaf), m.to_local(),
+                                     v["full"].to_local(), scale, lr, c1,
+                                     c2, cfg)
     if isinstance(leaf, list):
         for t, new in zip(leaf, p_new.unbind(0)):
             t.to_local().copy_(new)
@@ -273,8 +267,40 @@ def _update_local(leaf, g_leaf, m, v, name, scale, lr, c1, c2, cfg, mu,
                                   run_check=False, shape=old.shape,
                                   stride=old.stride())
 
-    mu[name] = like(m_new.to(m.dtype), m)
-    nu[name] = {"full": like(v_new.to(v["full"].dtype), v["full"])}
+    mu[name] = like(m_new, m)
+    nu[name] = {"full": like(v_new, v["full"])}
+
+
+# the most elements an f32 temporary of a leaf's update holds: a larger
+# leaf updates in slices of its flattened elements (an elementwise step
+# gives each element the same bits in any slice)
+_STEP_ELEMS = 1 << 26
+
+
+def _full_step(p, g, m, v, scale, lr, c1, c2, cfg):
+    """The full-moment AdamW step of one leaf, elementwise in the
+    reference's order of operations: ``p`` the parameters, ``g`` their
+    gradient, ``m`` and ``v`` the moments. Returns ``(p_new, m_new,
+    v_new)`` in the dtypes of ``p``, ``m`` and ``v``, computed
+    ``_STEP_ELEMS`` elements at a time (the embedding's or an expert
+    stack's f32 temporaries would otherwise outgrow the state itself)."""
+    outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            for t in (p, m, v)]
+    pf, gf, mf, vf, pn, mn, vn = (t.reshape(-1)
+                                  for t in (p, g, m, v, *outs))
+    for i in range(0, pf.numel(), _STEP_ELEMS):
+        sl = slice(i, i + _STEP_ELEMS)
+        gs = gf[sl].float() * scale
+        ms = cfg.b1 * mf[sl].float() + (1 - cfg.b1) * gs
+        vs = cfg.b2 * vf[sl].float() + (1 - cfg.b2) * gs * gs
+        v_hat = vs / c2
+        update = (ms / c1) / (torch.sqrt(v_hat) + cfg.eps)
+        if p.dim() >= 2:  # decoupled weight decay on matrices only
+            update = update + cfg.weight_decay * pf[sl].float()
+        pn[sl] = (pf[sl].float() - lr * update).to(p.dtype)
+        mn[sl] = ms
+        vn[sl] = vs
+    return tuple(outs)
 
 
 __all__ = ["OptimizerConfig", "init_opt_state", "apply_updates",

@@ -33,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+from typing import NamedTuple
 
 BATCH_AXES = ("pod", "data")  # sentinel resolved against the active strategy
 
@@ -173,6 +174,113 @@ def replicated_like(t, x):
                               run_check=False)
 
 
+def unflatten_last(t, sizes: tuple):
+    """``t`` with its last dimension split into ``sizes`` (a reshape). A
+    DTensor whose last dimension is sharded over mesh dims that
+    ``sizes[0]`` does not divide over is first made whole along it:
+    DTensor cannot carry such a shard into the new dimensions (4 heads of
+    a 16-way sharded projection)."""
+    shape = tuple(t.shape[:-1]) + tuple(sizes)
+    if is_dtensor(t):
+        last = t.dim() - 1
+        n = math.prod(t.device_mesh.size(i) for i, p in
+                      enumerate(t.placements) if p.is_shard(last))
+        if sizes[0] % n:
+            from torch.distributed.tensor import Replicate
+
+            t = t.redistribute(t.device_mesh, tuple(
+                Replicate() if p.is_shard(last) else p
+                for p in t.placements))
+    return t.reshape(shape)
+
+
+def dispatch_groups() -> int:
+    """The MoE's dispatch groups: the product of the active mesh's
+    ``pod`` and ``data`` sizes, 1 without an active mesh (the reference's
+    ``_dispatch_groups``)."""
+    ctx = _active()
+    if ctx is None:
+        return 1
+    return math.prod(ctx["sizes"][a] for a in ("pod", "data")
+                     if a in ctx["sizes"])
+
+
+class Out(NamedTuple):
+    """How ``on_blocks`` places one result: like argument ``arg``, result
+    dimension ``j`` sharded where that argument's dimension ``dims[j]`` is
+    (None: a dimension no argument's placement carries). ``partial``: a
+    mesh dim the work splits over that no carried dimension shards holds
+    a partial sum there (each rank's block of a sum over a split
+    dimension); without it such a mesh dim raises."""
+
+    arg: int
+    dims: tuple
+    partial: bool = False
+
+
+def on_blocks(fn, args: tuple, specs: tuple, outs: tuple):
+    """``fn(*args)`` computed on each rank's own blocks of the DTensor
+    arguments, its results DTensors placed by ``outs`` (one ``Out`` a
+    result; None passes a result through); ``fn(*args)`` itself when no
+    argument is a DTensor (a one-process program).
+
+    ``specs`` has one entry an argument: a spec that the DTensor is first
+    ``constrain``ed to, or None (a DTensor as it is placed, anything else
+    passed through). ``fn`` sees plain tensors and makes whatever plain
+    tensors it needs (masks, zero states) itself; nothing it does
+    communicates.
+
+    Gradients: an argument sharded on a mesh dim takes its gradient
+    sharded the same way; a partial sum takes a replicated one; a
+    replicated argument takes a partial sum on every mesh dim the work
+    splits over (some argument is sharded or partial there: each rank's
+    block contributes its own share) and a replicated gradient elsewhere
+    (every rank computed the same thing)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    placed = [constrain(a, s) if s is not None and is_dtensor(a) else a
+              for a, s in zip(args, specs)]
+    dts = [a for a in placed if is_dtensor(a)]
+    mesh = dts[0].device_mesh
+    split = {i for a in dts for i, p in enumerate(a.placements)
+             if not p.is_replicate()}
+    local = []
+    for a in placed:
+        if not is_dtensor(a):
+            local.append(a)
+            continue
+        grad = tuple(Replicate() if p.is_partial() else
+                     Partial() if p.is_replicate() and i in split else p
+                     for i, p in enumerate(a.placements))
+        local.append(a.to_local(grad_placements=grad))
+    res = fn(*local)
+    single = not isinstance(res, tuple)
+    wrapped = []
+    for t, o in zip((res,) if single else res, outs):
+        if o is None:
+            wrapped.append(t)
+            continue
+        want = []
+        for i, p in enumerate(placed[o.arg].placements):
+            if p.is_shard() and p.dim in o.dims:
+                want.append(Shard(o.dims.index(p.dim)))
+            elif i not in split:
+                want.append(Replicate())
+            elif o.partial:
+                want.append(Partial())
+            else:
+                raise ValueError(
+                    f"on_blocks: result {len(wrapped)} carries no dimension "
+                    f"mesh dim {i} ({mesh.mesh_dim_names[i]}) splits the "
+                    "work over, and is not marked partial")
+        wrapped.append(DTensor.from_local(t, mesh, tuple(want),
+                                          run_check=False))
+    return wrapped[0] if single else tuple(wrapped)
+
+
 __all__ = ["constrain", "activation_mesh", "resolve_spec", "BATCH_AXES",
            "is_dtensor", "target_placements", "replicated_like",
-           "gathered"]
+           "gathered", "dispatch_groups", "on_blocks", "Out",
+           "unflatten_last"]
