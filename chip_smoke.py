@@ -224,14 +224,14 @@ exits non-zero without a result line:
    backward's ms beside the kernel forward's, the plain version's and
    SDPA's forward + backward; (b) qwen2-1.5b at full width in bf16, its
    first ``TRAIN_LAYERS`` (7) of 28 layers (the smoke's time; 28 layers
-   and 100 steps until PR 30), random weights from the seed, through the
-   ``Trainer``: batch 8 x 512,
-   50 steps, warm-up 5, peak lr 3e-4, remat ``full``, checkpoints at
-   steps 25 and 50: every loss finite, the last 10 losses' mean at least
-   1.0 below the first 10's, ``flash_attention`` launched twice a layer a
-   step (the forward and the recompute) and no other kernel; step ms p50
-   / p90, tokens/s, peak GiB; step 25's checkpoint restored leaf by leaf
-   == what was saved, bitwise; (c) in a subprocess under
+   until PR 30), random weights from the seed, through the ``Trainer``:
+   batch 8 x 512, 100 steps, warm-up 5, peak lr 3e-4, remat ``full``,
+   checkpoints at steps 50 and 100: every loss finite, the last 10
+   losses' mean at least 1.0 below the first 10's, ``flash_attention``
+   launched twice a layer a step (the forward and the recompute) and no
+   other kernel; step ms p50 / p90, tokens/s, peak GiB; step 50's
+   checkpoint restored leaf by leaf == what was saved, bitwise; (c) in a
+   subprocess under
    ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_
    CONFIG=:4096:8``): whisper-base whole at full width (bf16) and
    mixtral-8x22b reduced, 6 steps straight against 4 and a restart to 6:
@@ -289,9 +289,12 @@ exits non-zero without a result line:
    8 x 512 tokens in 4 dispatch groups on one card == each group alone,
    bitwise, forward and gradients, each group's dropped pairs printed;
    (e) mixtral (1 of 56 layers), recurrentgemma (6 of 38), xlstm (6 of
-   12) and whisper at full width through the launcher on ``(1, 1)`` for 2 steps,
-   bitwise the unsharded trainer's (and on ``(N, 1)`` / ``(1, N)`` within
-   ``SHARD_LOSS_RTOL`` where cards show). Launches count under
+   12) and whisper at full width through the launcher on ``(1, 1)`` for
+   2 steps, bitwise the unsharded trainer's; mixtral's unsharded run
+   also in G = N dispatch groups (4 on one card), both runs' dropped
+   pairs printed; where cards show, ``(N, 1)`` / ``(1, N)`` within
+   ``SHARD_LOSS_RTOL`` of the unsharded run that dispatches alike
+   (mixtral's ``(N, 1)``: G = N). Launches count under
    ``sharded_train``, the comparisons' excepted.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with
@@ -304,7 +307,7 @@ import json
 import os
 import re
 import shutil
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 import subprocess
 import sys
 import tempfile
@@ -4317,12 +4320,12 @@ def fronts_path(dev="cuda"):
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH, TRAIN_REDUCED = "qwen2-1.5b", False  # a rehearsal: reduced
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 512, 50, 5
-# (b)'s depth: the first 7 of qwen2-1.5b's 28 layers, at full width, and
-# 50 steps (100 and 28 layers until PR 30: the smoke's time, phase 18 grew
-# by the five other families' sharded runs)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 512, 100, 5
+# (b)'s depth: the first 7 of qwen2-1.5b's 28 layers, at full width (28
+# until PR 30: the smoke's time, phase 18 grew by the five other families'
+# sharded runs)
 TRAIN_LAYERS = 7
-TRAIN_LR, TRAIN_CKPT, TRAIN_DROP = 3e-4, 25, 1.0
+TRAIN_LR, TRAIN_CKPT, TRAIN_DROP = 3e-4, 50, 1.0
 # (c): deterministic resume, (arch, reduced); whisper-base whole at full
 # width (52 M parameters: six 0.5 GB checkpoints; the smoke's writes must
 # stay under its machine's 45 GiB)
@@ -5662,8 +5665,7 @@ def grouped_moe(dev="cuda") -> dict:
     mesh), bitwise, in the output and, for a loss on each group's rows, in
     the gradients of x, the router and the experts (the shared experts
     left out: they are a dense MLP outside the dispatch). Prints each
-    group's dropped pairs. Returns them by arch at 1, 2 and
-    ``MOE_GROUPS`` groups."""
+    group's dropped pairs, and one group's of all the tokens."""
     from dataclasses import replace
 
     from repro_torch import configs
@@ -5675,7 +5677,7 @@ def grouped_moe(dev="cuda") -> dict:
     G, (B, S) = MOE_GROUPS, MOE_TOKENS
     rows = B // G
     mesh = make_mesh((G, 1), ("data", "model"), [torch.device(dev)] * G)
-    drops, notes = {}, []
+    notes = []
     for arch in ("mixtral-8x22b", "deepseek-v2-236b"):
         full = configs.get(arch)
         if TRAIN_REDUCED:
@@ -5720,23 +5722,21 @@ def grouped_moe(dev="cuda") -> dict:
                   "and the experts == the group alone")
             del grads
         p.requires_grad_(False)
-        drops[arch] = {n: dropped_pairs(p, x, cfg, n)
-                       for n in sorted({1, 2, G})}
         mo = cfg.moe
         K = mo.n_experts_per_token
         notes.append(
             f"{arch} ({mo.partition}, E {mo.n_experts} top-{K}, d "
             f"{cfg.d_model}, f {mo.d_ff}, capacity "
             f"{mo.capacity_factor}): dropped pairs by group "
-            f"{drops[arch][G]} of {B * S * K // G} "
-            f"each (one group of all {B * S} tokens: {drops[arch][1]}); "
+            f"{dropped_pairs(p, x, cfg, G)} of {B * S * K // G} "
+            f"each (one group of all {B * S} tokens: "
+            f"{dropped_pairs(p, x, cfg, 1)}); "
             f"{time.perf_counter() - t0:.1f} s")
         del p, x, r
         torch.cuda.empty_cache()
     print(f"[sharded-train] (d) grouped MoE dispatch, {B} x {S} tokens in "
           f"{G} groups on one card == each group alone, bitwise (output; "
           "gradients of x, router, experts): " + "; ".join(notes))
-    return drops
 
 
 # (e): (arch, layers kept: None the whole model) at full width; the cut is
@@ -5757,45 +5757,101 @@ SHARD_FAMILY_STEPS = 2
 SHARD_TOGETHER = ("recurrentgemma-9b", "xlstm-125m", "whisper-base")
 
 
-def family_shard_train(root: str, drops: dict, dev="cuda") -> dict:
+@contextmanager
+def recorded_drops():
+    """Inside: every MoE dispatch's dropped ``(token, k)`` pairs by group,
+    one ``(G,)`` tensor a call of ``mlp._dispatch_local`` (the forward's
+    and remat's recomputation's) appended to the list it yields."""
+    from repro_torch.models import mlp
+
+    inner, seen = mlp._dispatch_local, []
+
+    def record(xg, router, K, E, cap):
+        out = inner(xg, router, K, E, cap)
+        seen.append((out[2] == E * cap).sum((1, 2)))
+        return out
+
+    mlp._dispatch_local = record
+    try:
+        yield seen
+    finally:
+        mlp._dispatch_local = inner
+
+
+def unsharded_run(arch: str, cfg, root: str, groups: int = 1,
+                  dev="cuda") -> dict:
+    """(e)'s unsharded trainer: ``cfg`` for ``SHARD_FAMILY_STEPS`` steps
+    at phase 15's shape on one card, its MoE dispatched in ``groups``
+    groups (under ``activation_mesh`` over the card ``groups`` times, as
+    (d); no mesh at 1). Returns ``{"losses", "s", "peak" (GiB),
+    "launches", "drops"}``, the dispatches' dropped pairs by group."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import trainer as tr
+    from repro_torch.sharding.activation import activation_mesh
+
+    ocfg = OptimizerConfig(peak_lr=TRAIN_LR, end_lr=TRAIN_LR / 10,
+                           warmup_steps=1, total_steps=SHARD_FAMILY_STEPS)
+    tcfg = tr.TrainerConfig(steps=SHARD_FAMILY_STEPS, ckpt_every=0,
+                            ckpt_dir=os.path.join(root, f"{arch}-p{groups}"),
+                            log_every=100, seed=SEED, batch=TRAIN_BATCH,
+                            seq_len=TRAIN_SEQ)
+    placed = nullcontext() if groups == 1 else activation_mesh(make_mesh(
+        (groups, 1), ("data", "model"), [torch.device(dev)] * groups))
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    h0 = time.perf_counter()
+    with recorded_drops() as seen, placed:
+        losses = tr.Trainer(cfg, tcfg, opt_cfg=ocfg, device=dev).run()[
+            "losses"]
+    res = {"losses": losses, "s": time.perf_counter() - h0,
+           "peak": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": dict(ops.kernel_launches()),
+           "drops": [t.tolist() for t in seen]}
+    torch.cuda.empty_cache()
+    return res
+
+
+def loss_gap(got: list, want: list) -> float:
+    """The largest relative gap between two runs' losses."""
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def family_shard_train(root: str, dev="cuda") -> dict:
     """Phase 18 (e): each of ``SHARD_FAMILIES`` through ``launch.train``
     on the ``(1, 1)`` mesh for ``SHARD_FAMILY_STEPS`` steps at phase 15's
     shape, its losses bitwise the unsharded trainer's on the same cut
     config (the unsharded runs first, one at a time; then the launcher
-    runs, ``SHARD_TOGETHER``'s at once); with two or more cards also on
-    ``(N, 1)`` and ``(1, N)``, within ``SHARD_LOSS_RTOL`` of one card's
-    (the MoE's dropped pairs of (d) at G = N printed beside G = 1's).
-    Returns the launches counted: the unsharded runs' and rank 0's."""
-    from repro_torch.kernels import ops
+    runs, ``SHARD_TOGETHER``'s at once). The MoE's unsharded run also
+    dispatches in G groups (G = N the cards, ``MOE_GROUPS`` on one card):
+    both runs' dropped pairs are printed. With two or more cards each
+    family also runs on ``(N, 1)`` and ``(1, N)``, within
+    ``SHARD_LOSS_RTOL`` of the unsharded run that dispatches as it does:
+    the MoE's ``(N, 1)`` (G = N) against the G = N run, everything else
+    against G = 1's. Returns the launches counted: the unsharded runs'
+    and rank 0's."""
     from repro_torch.launch.train import model_config
     from repro_torch.models.blocks import ATTN_KINDS
-    from repro_torch.optim import OptimizerConfig
-    from repro_torch.runtime import trainer as tr
 
-    counts, notes, plain, ones = {}, [], {}, {}
+    counts, notes, plain, grouped, ones = {}, [], {}, {}, {}
     n = min(torch.cuda.device_count(), SHARD_MAX)
+    G = n if n >= 2 else MOE_GROUPS
+
+    def add(launches):
+        for k, c in launches.items():
+            counts[k] = counts.get(k, 0) + c
+
     # a rehearsal's reduced configs are whole
     cut = {arch: None if TRAIN_REDUCED else layers
            for arch, layers in SHARD_FAMILIES}
     for arch, _ in SHARD_FAMILIES:
         cfg = model_config(arch, TRAIN_REDUCED, cut[arch])
-        ocfg = OptimizerConfig(peak_lr=TRAIN_LR, end_lr=TRAIN_LR / 10,
-                               warmup_steps=1,
-                               total_steps=SHARD_FAMILY_STEPS)
-        tcfg = tr.TrainerConfig(steps=SHARD_FAMILY_STEPS, ckpt_every=0,
-                                ckpt_dir=os.path.join(root, f"{arch}-p"),
-                                log_every=100, seed=SEED, batch=TRAIN_BATCH,
-                                seq_len=TRAIN_SEQ)
-        ops.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        h0 = time.perf_counter()
-        want = tr.Trainer(cfg, tcfg, opt_cfg=ocfg, device=dev).run()[
-            "losses"]
-        plain[arch] = (cfg, want, time.perf_counter() - h0,
-                       torch.cuda.max_memory_allocated() / 2**30)
-        for k, c in ops.kernel_launches().items():
-            counts[k] = counts.get(k, 0) + c
-        torch.cuda.empty_cache()
+        plain[arch] = unsharded_run(arch, cfg, root, dev=dev)
+        add(plain[arch]["launches"])
+        if cfg.moe.n_experts:
+            grouped[arch] = unsharded_run(arch, cfg, root, G, dev)
+            add(grouped[arch]["launches"])
     for arch, _ in SHARD_FAMILIES:
         if arch not in SHARD_TOGETHER:
             ones[arch] = shard_train((1, 1), root, arch=arch,
@@ -5808,8 +5864,8 @@ def family_shard_train(root: str, drops: dict, dev="cuda") -> dict:
     for arch, run in started:
         ones[arch] = finish_train(run)
     for arch, _ in SHARD_FAMILIES:
-        cfg, want, plain_s, peak = plain[arch]
-        one = ones[arch]
+        cfg = model_config(arch, TRAIN_REDUCED, cut[arch])
+        want, one = plain[arch]["losses"], ones[arch]
         check(one["losses"] == want, f"sharded (e): {arch} (1, 1) losses "
               f"== the unsharded trainer's bitwise: {one['losses']} vs "
               f"{want}")
@@ -5821,30 +5877,36 @@ def family_shard_train(root: str, drops: dict, dev="cuda") -> dict:
               == per_step * SHARD_FAMILY_STEPS,
               f"sharded (e): {arch} (1, 1) flash_attention launches "
               f"{one['launches']['flash_attention']} == {per_step} a step")
-        for k, c in one["launches"].items():
-            counts[k] = counts.get(k, 0) + c
+        add(one["launches"])
         line = (f"{cfg.name} ({cfg.n_layers} of {model_config(arch).n_layers}"
                 f" layers, {cfg.n_params() / 1e9:.3f} B params) "
-                f"unsharded {plain_s:.1f} s (peak {peak:.1f} GiB), (1, 1) "
+                f"unsharded {plain[arch]['s']:.1f} s (peak "
+                f"{plain[arch]['peak']:.1f} GiB), (1, 1) "
                 f"launcher {one['s']:.1f} s"
                 f"{' (beside the others)' if arch in SHARD_TOGETHER else ''}"
                 f": losses {one['losses']} == unsharded, bitwise; "
                 f"flash_attention {one['launches']['flash_attention']} "
                 "launches")
+        if arch in grouped:
+            gr = grouped[arch]
+            line += (f"; its dispatches' dropped pairs by group (forward "
+                     f"and remat, step by step): G = 1 "
+                     f"{plain[arch]['drops']}, G = {G} {gr['drops']}; "
+                     f"unsharded at G = {G} {gr['s']:.1f} s, losses "
+                     f"{gr['losses']}, gap to G = 1 "
+                     f"{loss_gap(gr['losses'], want):.3e}")
         for shape in ([(n, 1), (1, n)] if n >= 2 else []):
+            by_groups = shape[0] > 1 and arch in grouped
+            ref = grouped[arch] if by_groups else plain[arch]
             run = shard_train(shape, root, arch=arch, layers=cut[arch],
                               steps=SHARD_FAMILY_STEPS)
-            gap = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
-                                                          want))
+            gap = loss_gap(run["losses"], ref["losses"])
+            what = f"G = {G}" if by_groups else "unsharded"
             check(gap <= SHARD_LOSS_RTOL, f"sharded (e): {arch} {shape} "
-                  f"losses within {SHARD_LOSS_RTOL} of one card's (gap "
-                  f"{gap:.3e})")
+                  f"losses within {SHARD_LOSS_RTOL} of one card's ({what}: "
+                  f"{ref['losses']}; got {run['losses']}, gap {gap:.3e})")
             line += (f"; {shape} {run['s']:.1f} s, losses {run['losses']}, "
-                     f"gap {gap:.3e}")
-            if shape[0] > 1 and arch in drops:
-                line += (f" (dropped pairs of (d) at G = {shape[0]}: "
-                         f"{drops[arch][shape[0]]}; G = 1: "
-                         f"{drops[arch][1]})")
+                     f"gap to one card's ({what}) {gap:.3e}")
         notes.append(line)
         torch.cuda.empty_cache()
     print(f"[sharded-train] (e) {SHARD_FAMILY_STEPS} steps at {TRAIN_BATCH} "
@@ -5992,9 +6054,9 @@ def sharded_train_phase(cells: list, dev="cuda") -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as root:
         counts = sharded_train_path(root, dev)
         torch.cuda.empty_cache()
-        drops = grouped_moe(dev)
+        grouped_moe(dev)
         torch.cuda.empty_cache()
-        for k, n in family_shard_train(root, drops, dev).items():
+        for k, n in family_shard_train(root, dev).items():
             counts[k] = counts.get(k, 0) + n
     torch.cuda.empty_cache()
     for k, n in census_step(dev).items():

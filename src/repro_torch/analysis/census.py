@@ -39,8 +39,7 @@ memory. The counterparts:
   them in, the figure a card's ``max_memory_allocated`` less its
   arguments shows. A storage counts from the op that made it until it is
   freed (a finalizer on its Python object, which PyTorch keeps alive as
-  long as the storage; where a build does not, weak references read when
-  the count passes its peak);
+  long as the storage: ``Census`` checks that it does, once a process);
 * ``hlo.roofline_terms`` and ``hlo.model_flops_per_step`` ->
   ``roofline_terms`` and ``model_flops_per_step`` below, with the card's
   rates as arguments.
@@ -55,7 +54,6 @@ import contextlib
 import weakref
 
 import torch
-from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -105,20 +103,24 @@ def _is_fake(ts) -> bool:
     return any(isinstance(t, FakeTensor) for t in ts)
 
 
-_FINALIZERS_FIRE: list = []
+_FINALIZERS_CHECKED: list = []
 
 
-def _finalizers_fire() -> bool:
-    """Whether a finalizer on a storage's Python object runs when the
-    storage is freed (PyTorch keeps the object alive with the storage),
-    checked once."""
-    if not _FINALIZERS_FIRE:
-        fired = []
-        t = torch.empty(1)
-        weakref.finalize(t.untyped_storage(), fired.append, 1)
-        del t
-        _FINALIZERS_FIRE.append(bool(fired))
-    return _FINALIZERS_FIRE[0]
+def _check_finalizers() -> None:
+    """Raise unless a finalizer on a storage's Python object runs when the
+    storage is freed (PyTorch keeps the object alive with the storage, so
+    the census follows frees by finalizers); checked once a process."""
+    if _FINALIZERS_CHECKED:
+        return
+    fired = []
+    t = torch.empty(1)
+    weakref.finalize(t.untyped_storage(), fired.append, 1)
+    del t
+    if not fired:
+        raise RuntimeError(
+            f"torch {torch.__version__} frees a storage without finalizing "
+            "its Python object: the census cannot follow frees")
+    _FINALIZERS_CHECKED.append(True)
 
 
 def _is_view(func) -> bool:
@@ -141,30 +143,25 @@ class Census(TorchDispatchMode):
         self.bytes_by_op: dict[str, float] = {}  # the adjusted traffic
         self._quiet = 0
         self._mult = 1.0
-        # storages the step made: key -> (weak ref, bytes, allocation seq)
+        _check_finalizers()
+        # storages the step made and still held: key -> (bytes, allocation
+        # seq); a storage's finalizer takes it out
         self._live: dict = {}
         self._seq = 0
-        self.live_bytes = 0  # an upper bound until ``_sweep``
+        self.live_bytes = 0
         self.peak_bytes = 0
         self._peak_seq = 0
-        self._finalized = _finalizers_fire()  # live_bytes exact as it goes
         # a repeat of a meta op runs no meta kernel (storages stay apart)
         self._meta = _MetaMemo(fresh_only=True)
 
     # -- storages ------------------------------------------------------------
 
-    def _sweep(self) -> None:
-        """Drop the storages freed since the last sweep."""
-        for key in [k for k, (ref, _, _) in self._live.items()
-                    if ref.expired()]:
-            self.live_bytes -= self._live.pop(key)[1]
-
     def _freed(self, key, seq: int) -> None:
         """A tracked storage's finalizer: it no longer counts."""
         entry = self._live.get(key)
-        if entry is not None and entry[2] == seq:
+        if entry is not None and entry[1] == seq:
             del self._live[key]
-            self.live_bytes -= entry[1]
+            self.live_bytes -= entry[0]
 
     def _track(self, t: torch.Tensor, made_by_args: set) -> None:
         st = t.untyped_storage()
@@ -172,21 +169,16 @@ class Census(TorchDispatchMode):
         if key in self._live or key in made_by_args or st.nbytes() == 0:
             return
         self._seq += 1
-        self._live[key] = (StorageWeakRef(st), st.nbytes(), self._seq)
-        if self._finalized:
-            weakref.finalize(st, self._freed, key, self._seq).atexit = False
+        self._live[key] = (st.nbytes(), self._seq)
+        weakref.finalize(st, self._freed, key, self._seq).atexit = False
         self.live_bytes += st.nbytes()
         if self.live_bytes > self.peak_bytes:
-            if not self._finalized:
-                self._sweep()  # the bound passed the peak: make it exact
-            if self.live_bytes > self.peak_bytes:
-                self.peak_bytes, self._peak_seq = self.live_bytes, self._seq
+            self.peak_bytes, self._peak_seq = self.live_bytes, self._seq
 
     def outputs_at_peak(self) -> int:
         """Bytes of the storages still held now (the step's outputs, read
         after it returns) that were allocated by the peak."""
-        self._sweep()
-        return sum(b for _, b, seq in self._live.values()
+        return sum(b for b, seq in self._live.values()
                    if seq <= self._peak_seq)
 
     # -- counting ------------------------------------------------------------

@@ -42,9 +42,11 @@ op.
 
 A loop that repeats one body (the train step's microbatches) may run the
 body once under ``FlopCounter.repeat(n)``, which multiplies what it
-counts, as the reference multiplies a scan body by its length. Counts are
-global (the unsharded program): divide by the device count for one
-device's share.
+counts, as the reference multiplies a scan body by its length.
+``loop_steps`` runs a model's per-step loop (the sLSTM's tokens) whole,
+or, on ``meta`` under the counters, by that convention. Counts are global
+(the unsharded program): divide by the device count for one device's
+share.
 """
 from __future__ import annotations
 
@@ -412,6 +414,103 @@ class FlopCounter(TorchDispatchMode):
         self._add(base, n_out)
 
 
+def loop_steps(step, xs, carry: tuple, emit: int):
+    """``carry = step(x_t, carry)`` for each step ``x_t`` of ``xs`` along
+    dimension 1; returns ``(ys, carry)``, ``ys`` every step's
+    ``carry[emit]`` stacked along dimension 1.
+
+    The loop runs whole, unless ``xs`` is on ``meta`` under counters that
+    repeat (``FlopCounter``, ``analysis.census.Census``) and has three
+    steps or more. Then it is counted as the reference counts a while
+    loop, its body times its trip count: the first step, one middle step
+    counted ``S - 2`` times, the last step (the first and last differ from
+    the rest in their backward: no gradient of a zero initial state, none
+    of the final one). The middle step's backward runs between a hook on
+    its outputs and a hook on the first step's, and is counted ``S - 2``
+    times too: the graph's nodes run in reverse order of creation, so
+    nothing else runs there (an output stacked into ``ys`` is a carry, so
+    its gradient is whole only once the last step's backward ran). Traffic,
+    op counts, FLOPs and collectives equal the whole loop's; storages count
+    once, so its temporaries are the three steps'."""
+    S = xs.shape[1]
+    counters = _loop_counters(xs, S)
+    if counters:
+        return _counted_steps(step, xs, carry, emit, counters)
+    ys = []
+    # one view a step whose gradients stack once (indexing xs[:, t] would
+    # add S full-size zero-padded gradients)
+    for x_t in xs.unbind(1):
+        carry = step(x_t, carry)
+        ys.append(carry[emit])
+    return torch.stack(ys, dim=1), carry
+
+
+def _loop_counters(t, n: int) -> list:
+    """The active counters that may count a loop of ``n`` identical steps
+    over ``t`` by one body: none (the loop runs whole) off ``meta``, where
+    values matter, or for ``n < 3``."""
+    if n < 3 or t.device.type != "meta":
+        return []
+    return [m for m in kops.attention_observers() if hasattr(m, "repeat")]
+
+
+def _repeat(counters: list, n: int) -> contextlib.ExitStack:
+    """Every counter of ``counters`` multiplying what it counts by ``n``
+    (entered; ``close()`` leaves)."""
+    stack = contextlib.ExitStack()
+    for c in counters:
+        stack.enter_context(c.repeat(n))
+    return stack
+
+
+class _Ends(torch.autograd.Function):
+    """``xs (B, S, ...)``'s steps ``0``, ``1`` and ``S - 1``, as views; the
+    gradient is the one ``stack`` of every step's that ``unbind``'s
+    backward makes, step 1's standing for steps ``1 .. S - 2``."""
+
+    @staticmethod
+    def forward(ctx, xs):
+        ctx.S = S = xs.shape[1]
+        return xs.select(1, 0), xs.select(1, 1), xs.select(1, S - 1)
+
+    @staticmethod
+    def backward(ctx, g0, g1, gl):
+        return torch.stack([g0] + [g1] * (ctx.S - 2) + [gl], dim=1)
+
+
+def _counted_steps(step, xs, carry: tuple, emit: int, counters: list):
+    """``loop_steps`` by its first, one middle and its last step."""
+    S = xs.shape[1]
+    x0, x1, xl = _Ends.apply(xs) if (
+        torch.is_grad_enabled() and xs.requires_grad) else (
+        xs.select(1, 0), xs.select(1, 1), xs.select(1, S - 1))
+    first = step(x0, carry)
+    with _repeat(counters, S - 2):
+        mid = step(x1, first)
+    if torch.is_grad_enabled():
+        window = []
+
+        def enter(_):
+            if not window:
+                window.append(_repeat(counters, S - 2))
+
+        def leave(_):
+            if window and window[0] is not None:
+                window[0].close()
+                window[0] = None
+
+        for t in mid:
+            if t.requires_grad:
+                t.register_hook(enter)
+        for t in first:
+            if t.requires_grad:
+                t.register_hook(leave)
+    last = step(xl, mid)
+    ys = ([first[emit], mid[emit]] + [mid[emit].detach()] * (S - 3)
+          + [last[emit]])
+    return torch.stack(ys, dim=1), last
+
+
 def flops_of(fn, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` under a ``FlopCounter`` and return its
     ``{"flops", "transcendental"}``. On ``meta`` tensors nothing is
@@ -421,4 +520,5 @@ def flops_of(fn, *args, **kwargs) -> dict:
     return c.result()
 
 
-__all__ = ["FlopCounter", "flops_of", "attention_flops", "ATTN_BLOCK"]
+__all__ = ["FlopCounter", "flops_of", "attention_flops", "ATTN_BLOCK",
+           "loop_steps"]

@@ -9,8 +9,8 @@ pattern (the width whole: a model cut to what one card holds). Without ``--data-
 trainer runs in this process on one device. With them it runs sharded on
 a ``(data, model)`` mesh: ``data * model`` processes, one a device (gloo
 on the CPU, NCCL on the cards, card ``r`` for rank ``r``; more processes
-than visible cards is refused), meeting at a ``FileStore`` under the
-checkpoint directory. ``--ckpt-every 0`` writes no checkpoint. The
+than visible cards is refused; one rank is this process), meeting at a
+``FileStore`` under the checkpoint directory. ``--ckpt-every 0`` writes no checkpoint. The
 trainer gives checkpoint / restart, preemption handling and straggler
 logging (``runtime/``); rank 0 prints the losses, ``[train] losses``
 followed by a JSON list, and the hand-written kernels' launches,
@@ -77,8 +77,11 @@ def main(argv=None) -> int:
     print(f"[train] ({data}, {model}) mesh: {world} process(es), "
           f"{'nccl' if kind == 'cuda' else 'gloo'}", flush=True)
     try:
-        mp.spawn(_worker, args=(args, (data, model), kind, meet),
-                 nprocs=world)
+        if world == 1:  # the one rank is this process
+            _worker(0, args, (data, model), kind, meet)
+        else:
+            mp.spawn(_worker, args=(args, (data, model), kind, meet),
+                     nprocs=world)
     finally:
         shutil.rmtree(meet, ignore_errors=True)
     return 0

@@ -24,15 +24,14 @@ E))`` of its ``T_g = B * S / G`` tokens:
 
 The load-balancing loss takes its expert counts and mean router
 probabilities over every group (the reference's means over ``(G, T, K)``
-and ``(G, T)``). One group of a plain tensor is the one-process program,
-the same ops in the same order as it always was. A sharded program's
-DTensors run steps 1-3 on each rank's own groups (``on_blocks``: the
-sort, gather and combine never cross ranks), then the expert products and
-the combine on each rank's blocks of the reference's layouts: ``"ep"``
-the experts over ``"model"`` (a rank takes its own experts' slots),
-``"tp"`` the expert hidden dimension over ``"model"``. Each model rank's
-combine is a partial sum of the output, reduced over ``"model"`` where
-the block reduce-scatters it.
+and ``(G, T)``). Without a mesh ``G = 1``: one group of every token. A
+sharded program's DTensors run steps 1-3 on each rank's own groups
+(``on_blocks``: the sort, gather and combine never cross ranks), then
+the expert products and the combine on each rank's blocks of the
+reference's layouts: ``"ep"`` the experts over ``"model"`` (a rank takes
+its own experts' slots), ``"tp"`` the expert hidden dimension over
+``"model"``. Each model rank's combine is a partial sum of the output,
+reduced over ``"model"`` where the block reduce-scatters it.
 
 Nothing of this synchronises with the host (no boolean masks, no
 ``bincount``), so a decode step stays free of host synchronisation, and
@@ -205,18 +204,14 @@ def _combine(y, slot_w, pair_slot, lo: int = 0):
     ``y`` and ``slot_w`` may hold the slots from ``lo`` on only (one
     rank's experts): a pair whose slot lies outside them adds +0 too."""
     n = slot_w.shape[0]
-    ordered = torch.sort(pair_slot, dim=1).values  # expert id ascending
+    # expert id ascending, as slots of this rank's block
+    ordered = torch.sort(pair_slot, dim=1).values - lo
     out = torch.zeros((pair_slot.shape[0], y.shape[1]), dtype=y.dtype,
                       device=y.device)
     for j in range(ordered.shape[1]):
         s = ordered[:, j]
-        if lo:
-            s = s - lo
-            kept = ((s >= 0) & (s < n))[:, None]
-            s = torch.clamp(s, min=0, max=n - 1)
-        else:
-            kept = (s < n)[:, None]
-            s = torch.clamp(s, max=n - 1)
+        kept = ((s >= 0) & (s < n))[:, None]
+        s = torch.clamp(s, min=0, max=n - 1)
         out = out + torch.where(kept, y[s] * slot_w[s, None], 0)
     return out
 
@@ -226,8 +221,7 @@ def moe(p, x, cfg: ArchConfig, decode: bool = False):
     partition is ``partition_decode`` (or ``partition``) for a decode
     step, ``partition`` otherwise: ``"dense"`` is the mixture, ``"ep"``
     and ``"tp"`` the group-local dispatch (``G = dispatch_groups()``
-    groups; one of ``T = B * S`` tokens for a plain tensor outside a
-    mesh)."""
+    groups; one of ``T = B * S`` tokens outside a mesh)."""
     mo = cfg.moe
     part = (mo.partition_decode or mo.partition) if decode \
         else mo.partition
@@ -240,19 +234,7 @@ def moe(p, x, cfg: ArchConfig, decode: bool = False):
     T = B * S // G
     K, E = mo.n_experts_per_token, mo.n_experts
     cap = max(1, int(T * K * mo.capacity_factor / E))
-    if G > 1 or is_dtensor(x):
-        out, aux = _grouped(p, x, cfg, part, G, cap)
-    else:
-        xt = x.reshape(T, D)
-        probs, top_p, top_e = route(p, xt, K)
-        buckets = _buckets(top_e, E)
-        aux = _aux(probs, buckets[3], mo.router_aux_coef)
-        slot_tok, slot_w, pair_slot = _dispatch_one(top_p, top_e, cap,
-                                                    x.dtype, buckets)
-        x_exp = _gather(xt, slot_tok, E, cap)
-        y = _experts(p, x_exp, cfg.act)
-        del x_exp
-        out = _combine(y, slot_w, pair_slot).reshape(B, S, D)
+    out, aux = _grouped(p, x, cfg, part, G, cap)
     if mo.n_shared_experts:
         out = out + mlp(p["shared"], x, cfg.act)
     return out, aux
@@ -271,7 +253,14 @@ def _dispatch_local(xg, router, K: int, E: int, cap: int):
                                                     xg.dtype, buckets)
         outs.append((_gather(xt, slot_tok, E, cap), slot_w, pair_slot,
                      buckets[3], probs.mean(0)))
-    return tuple(torch.stack(t) for t in zip(*outs))
+    return tuple(_stacked(t) for t in zip(*outs))
+
+
+def _stacked(ts):
+    """``ts`` stacked along a new first dimension; one tensor as a view
+    (one group copies nothing: its ``(E, cap, D)`` expert inputs are a
+    prefill's largest temporary)."""
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
 
 
 def _experts_local(x_exp, slot_w, pair_slot, w_gate, w_up, w_down, *,
@@ -281,7 +270,7 @@ def _experts_local(x_exp, slot_w, pair_slot, w_gate, w_up, w_down, *,
     weights' matching experts, or their hidden block) and its combine into
     ``(G * T / S, S, D)``: the output, or this rank's partial sum of it."""
     p = {"w_gate": w_gate, "w_up": w_up, "w_down": w_down}
-    out = torch.stack([
+    out = _stacked([
         _combine(_experts(p, xe, act), sw, ps, lo)
         for xe, sw, ps in zip(x_exp, slot_w, pair_slot)])
     G, T, D = out.shape

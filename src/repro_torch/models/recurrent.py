@@ -31,19 +31,19 @@ loop communicates, as in the program XLA builds for the reference's
 ``lax.scan`` bodies. The projections around them are DTensor ops, their
 weights whole over the data axes (``gathered``). On ``meta`` under a
 counter the sLSTM's token loop is counted by one middle step times its
-trip count (``_slstm_counted``). Gates and states are float32 whatever
+trip count (``analysis.flops.loop_steps``). Gates and states are float32 whatever
 the model's dtype; ``lam``, ``w_if``, ``b_if`` and ``b_zifo`` are
 float32 leaves in a bf16 model, as in the reference.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.analysis.flops import loop_steps
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import act_fn, dense_init, frozen, uniform
 from repro_torch.sharding.activation import (BATCH_AXES, Out, constrain,
@@ -502,94 +502,10 @@ def _slstm_scan(wx, r_zifo, b_zifo, c=None, n=None, h=None, m=None):
     if c is None:
         z = wx.new_zeros((B, nh, dh), dtype=torch.float32)
         c, n, h, m = z, z, z, torch.full_like(z, _NEG)
-    carry = (c, n, h, m)
-    counters = _loop_counters(wx, S)
-    if counters:
-        return _slstm_counted(wx, carry, r_zifo, b_zifo, counters)
-    hs = []
-    # one view a step whose gradients stack once (indexing wx[:, t] would
-    # add S full-size zero-padded gradients)
-    for wx_t in wx.unbind(1):
-        carry = _slstm_step(wx_t, carry, r_zifo, b_zifo)
-        hs.append(carry[2])
-    return (torch.stack(hs, dim=1),) + carry
-
-
-def _loop_counters(t, n: int) -> list:
-    """The active counters (``analysis.flops.FlopCounter``,
-    ``analysis.census.Census``) that may count a loop of ``n`` identical
-    steps over the ``meta`` tensor ``t`` by one body: empty (the loop runs
-    whole) off ``meta``, where values matter, or for ``n < 3``."""
-    if n < 3 or t.device.type != "meta":
-        return []
-    from repro_torch.kernels.ops import attention_observers
-
-    return [m for m in attention_observers() if hasattr(m, "repeat")]
-
-
-def _repeat(counters: list, n: int) -> contextlib.ExitStack:
-    """Every counter of ``counters`` multiplying what it counts by ``n``
-    (entered; ``close()`` leaves)."""
-    stack = contextlib.ExitStack()
-    for c in counters:
-        stack.enter_context(c.repeat(n))
-    return stack
-
-
-class _Ends(torch.autograd.Function):
-    """``wx (B, S, ...)``'s steps ``0``, ``1`` and ``S - 1``, as views; the
-    gradient is the one ``stack`` of every step's that ``unbind``'s
-    backward makes, step 1's standing for steps ``1 .. S - 2``."""
-
-    @staticmethod
-    def forward(ctx, wx):
-        ctx.S = S = wx.shape[1]
-        return wx.select(1, 0), wx.select(1, 1), wx.select(1, S - 1)
-
-    @staticmethod
-    def backward(ctx, g0, g1, gl):
-        return torch.stack([g0] + [g1] * (ctx.S - 2) + [gl], dim=1)
-
-
-def _slstm_counted(wx, carry, r_zifo, b_zifo, counters: list):
-    """The token loop as the counters count it, the reference's convention
-    of a while loop's body times its trip count: the first step, one
-    middle step counted ``S - 2`` times, the last step (the first and last
-    differ from the rest in what their backward computes: no gradient of
-    a zero initial state, none of the final one). The middle step's
-    backward pass runs between a hook on its outputs and a hook on the
-    first step's, and is counted ``S - 2`` times too: the graph's nodes run
-    in reverse order of creation, so nothing else runs there. Traffic, op
-    counts, FLOPs and collectives equal the whole loop's; storages count
-    once, so its temporaries are the three steps'."""
-    S = wx.shape[1]
-    grad = torch.is_grad_enabled() and wx.requires_grad
-    x0, x1, xl = _Ends.apply(wx) if grad else (
-        wx.select(1, 0), wx.select(1, 1), wx.select(1, S - 1))
-    first = _slstm_step(x0, carry, r_zifo, b_zifo)
-    with _repeat(counters, S - 2):
-        mid = _slstm_step(x1, first, r_zifo, b_zifo)
-    if torch.is_grad_enabled():
-        window = []
-
-        def enter(_):
-            if not window:
-                window.append(_repeat(counters, S - 2))
-
-        def leave(_):
-            if window and window[0] is not None:
-                window[0].close()
-                window[0] = None
-
-        for t in mid:
-            if t.requires_grad:
-                t.register_hook(enter)
-        for t in first:
-            if t.requires_grad:
-                t.register_hook(leave)
-    last = _slstm_step(xl, mid, r_zifo, b_zifo)
-    hs = ([first[2], mid[2]] + [mid[2].detach()] * (S - 3) + [last[2]])
-    return (torch.stack(hs, dim=1),) + last
+    hs, carry = loop_steps(
+        lambda wx_t, st: _slstm_step(wx_t, st, r_zifo, b_zifo), wx,
+        (c, n, h, m), emit=2)
+    return (hs,) + carry
 
 
 def slstm_block_full(p, x, cfg: ArchConfig, state=None):

@@ -8,10 +8,10 @@ sharded steps (``analysis/census.py``, ``launch/dryrun.py``), on the CPU.
 * The RG-LRU, mLSTM and sLSTM blocks on a fake ``(2, 2)`` group (forward
   and backward) run the same collectives at two sequence lengths whose
   time loops differ in trip count: nothing inside a loop communicates.
-* The sLSTM's token loop counted by one middle step (``_slstm_counted``,
-  the reference's while-trip convention) equals the whole loop's count:
-  traffic, ops, FLOPs and collectives, with and without a backward pass
-  under remat; its temporaries are three steps' storages.
+* The sLSTM's token loop counted by one middle step (``analysis.flops.
+  loop_steps``, the reference's while-trip convention) equals the whole
+  loop's count: traffic, ops, FLOPs and collectives, with and without a
+  backward pass under remat; its temporaries are three steps' storages.
 * ``dryrun.run_cell`` counts every one of the five families' ``train_4k``
   cells on the 16 x 16 mesh by census: ``census`` "ok", its keys filled,
   the compiler's own ``null``.
@@ -30,13 +30,13 @@ torch = pytest.importorskip("torch")
 import repro_torch.configs as cfgs  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.analysis.census import Census  # noqa: E402
+from repro_torch.analysis import flops as fl  # noqa: E402
 from repro_torch.analysis.flops import FlopCounter  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import fake_device_mesh  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import blocks as blk  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.sharding.activation import activation_mesh  # noqa: E402
 
@@ -199,9 +199,9 @@ def test_counted_slstm_loop_equals_the_whole_loop(seq, grad):
     p = lm.init_lm(0, cfg, device="meta")["layers"][1][0]
     got = []
     for whole in (True, False):
-        kept = rec._loop_counters
+        kept = fl._loop_counters
         if whole:
-            rec._loop_counters = lambda t, n: []
+            fl._loop_counters = lambda t, n: []
         try:
             res = []
             for mode in (Census, FlopCounter):
@@ -214,7 +214,7 @@ def test_counted_slstm_loop_equals_the_whole_loop(seq, grad):
                         y.float().sum().backward()
                 res.append(c)
         finally:
-            rec._loop_counters = kept
+            fl._loop_counters = kept
         got.append(res)
     (cw, fw), (cc, fc) = got
     for k in ("device_hbm_bytes", "device_hbm_bytes_flash_adjusted",

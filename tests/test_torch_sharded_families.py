@@ -14,14 +14,14 @@ whisper-base, xlstm-125m and recurrentgemma-9b, at ``B, S = 4, 16``:
   the block boundary's bf16 cotangent rounding off on both sides: loss
   and grad norm 1e-6 relative, first and second moments 1e-6, parameters
   by ``_params_close``'s rule (the dense test's).
-* The same steps against the port's unsharded step, for the families
-  without an MoE (an MoE's dispatch groups are the mesh's data shards, so
-  its unsharded step is another program).
+* The same steps against the port's unsharded step; an MoE's dispatch
+  groups are the mesh's data shards, so its unsharded step runs under
+  ``activation_mesh`` over one device in as many groups.
 * The group-local MoE dispatch: the port's ``moe`` on ``(2, 2)`` (G = 2)
   and ``(4, 1)`` (G = 4) against the JAX ``moe`` under a 4-device mesh of
   the same shape, at capacity factor 0.5, where pairs drop and G changes
   which: output and load-balancing loss within 1e-6. Without a mesh
-  ``moe`` is one group, the grouped program's G = 1 bitwise.
+  ``moe`` is one group, the one-group program's bits.
 * The launcher: ``launch.train --reduced --data-axis 2 --model-axis 2
   --device cpu`` trains mixtral, whisper and recurrentgemma for 2 steps,
   the losses within 1e-5 of the unsharded trainer's (mixtral's reduced
@@ -34,6 +34,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+from contextlib import nullcontext
 from dataclasses import replace
 from pathlib import Path
 
@@ -48,11 +49,13 @@ import repro.configs as jcfgs  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 import repro_torch.configs as cfgs  # noqa: E402
 from repro_torch import optim  # noqa: E402
+from repro_torch.core.distributed import make_mesh  # noqa: E402
 from repro_torch.data.lm_pipeline import TokenStream  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
 from repro_torch.runtime import trainer as tr  # noqa: E402
 from repro_torch.serving import convert  # noqa: E402
+from repro_torch.sharding.activation import activation_mesh  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("mixtral_8x22b", "deepseek_v2_236b", "whisper_base", "xlstm_125m",
@@ -297,17 +300,25 @@ def runs(tmp_path_factory):
     ocfg = optim.OptimizerConfig(**OPT)
     for arch in ARCHS:
         c = reduced(cfgs, arch)
-        p = convert.lm_params_from_numpy(weights[arch], c, device="cpu")
-        p.requires_grad_(True)
-        o = optim.init_opt_state(p, ocfg)
-        batch = TokenStream(c, B, S, seed=1).batch_at(0)
-        p, o, st = make_train_step(c, ocfg)(
-            p, o, {k: torch.from_numpy(v) for k, v in batch.items()})
-        plain[arch] = {
-            "loss": float(st["loss"]), "grad_norm": float(st["grad_norm"]),
-            "params": [t.detach().numpy() for t in p.parameters()],
-            "mu": {k: v.numpy() for k, v in o["mu"].items()},
-            "nu": {k: v["full"].numpy() for k, v in o["nu"].items()}}
+        # the MoE's too in each mesh's dispatch groups, on one device
+        for groups in sorted({m[0] for m in MESHES}) if arch in MOE_ARCHS \
+                else (1,):
+            p = convert.lm_params_from_numpy(weights[arch], c, device="cpu")
+            p.requires_grad_(True)
+            o = optim.init_opt_state(p, ocfg)
+            batch = TokenStream(c, B, S, seed=1).batch_at(0)
+            with activation_mesh(make_mesh(
+                    (groups, 1), ("data", "model"),
+                    [torch.device("cpu")] * groups)) if groups > 1 \
+                    else nullcontext():
+                p, o, st = make_train_step(c, ocfg)(
+                    p, o, {k: torch.from_numpy(v) for k, v in batch.items()})
+            plain[(arch, groups)] = {
+                "loss": float(st["loss"]),
+                "grad_norm": float(st["grad_norm"]),
+                "params": [t.detach().numpy() for t in p.parameters()],
+                "mu": {k: v.numpy() for k, v in o["mu"].items()},
+                "nu": {k: v["full"].numpy() for k, v in o["nu"].items()}}
     for p in procs:
         _, err = p.communicate(timeout=900)
         assert p.returncode == 0, err[-4000:]
@@ -376,9 +387,14 @@ def test_sharded_step_equals_jax(runs, arch, mesh):
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in MOE_ARCHS])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_step_equals_unsharded(runs, arch, mesh):
-    port, plain = runs["port"][(arch, mesh)], runs["plain"][arch]
+    """The sharded step against the port's unsharded step; the MoE's
+    against the unsharded step dispatched in as many groups as the mesh's
+    data size (``activation_mesh`` over one device), as the sharded
+    program dispatches."""
+    groups = mesh[0] if arch in MOE_ARCHS else 1
+    port, plain = runs["port"][(arch, mesh)], runs["plain"][(arch, groups)]
     w = runs["weights"][arch]
     for k in ("loss", "grad_norm"):
         np.testing.assert_allclose(port[k], plain[k], rtol=1e-6)
@@ -426,32 +442,54 @@ def test_grouped_moe_equals_reference(runs, arch, mesh):
     assert np.abs(other["out"] - jx["out"]).max() > 1e-3
 
 
+def _one_group(pm, x, cfg):
+    """The one-group program ``moe`` ran before the grouped dispatch, the
+    module's steps written out: route, buckets, the load-balancing loss of
+    the one group's counts, slots, gather, experts, and the combine that
+    keeps a pair whose slot is below ``E * cap``."""
+    mo = cfg.moe
+    Bx, Sx, D = x.shape
+    T, K, E = Bx * Sx, mo.n_experts_per_token, mo.n_experts
+    cap = max(1, int(T * K * mo.capacity_factor / E))
+    xt = x.reshape(T, D)
+    probs, top_p, top_e = mlp.route(pm, xt, K)
+    buckets = mlp._buckets(top_e, E)
+    aux = mlp._aux(probs, buckets[3], mo.router_aux_coef)
+    slot_tok, slot_w, pair_slot = mlp._dispatch_one(top_p, top_e, cap,
+                                                    x.dtype, buckets)
+    y = mlp._experts(pm, mlp._gather(xt, slot_tok, E, cap), cfg.act)
+    n = slot_w.shape[0]
+    ordered = torch.sort(pair_slot, dim=1).values
+    out = torch.zeros((T, D), dtype=y.dtype)
+    for j in range(K):
+        s = ordered[:, j]
+        kept = (s < n)[:, None]
+        s = torch.clamp(s, max=n - 1)
+        out = out + torch.where(kept, y[s] * slot_w[s, None], 0)
+    out = out.reshape(Bx, Sx, D)
+    if mo.n_shared_experts:
+        out = out + mlp.mlp(pm["shared"], x, cfg.act)
+    return out, aux
+
+
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_without_mesh_is_one_group(arch):
-    """No mesh: ``moe`` is one group of ``B * S`` tokens, and the grouped
-    program (``mlp._grouped``, which the sharded step runs) at G = 1 gives
-    its bits: output, loss and gradients (the one-card sharded run on a
-    ``(1, 1)`` mesh rests on this)."""
+    """No mesh: ``moe`` (the grouped program at G = 1, which the sharded
+    step runs too) gives the one-group program's bits (``_one_group``):
+    output, loss and gradients, with pairs dropping."""
     cfg = reduced(cfgs, arch, MOE_CF)
     jc = reduced(jcfgs, arch, MOE_CF)
     jp = jax.tree.map(np.asarray, jlm.init_lm(jax.random.PRNGKey(0), jc))
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (B, S, 64)).astype(np.float32))
+    assert _dropped(cfg, x.numpy(), jp, 1)
     res = []
     for grouped in (False, True):
         p = convert.lm_params_from_numpy(jp, cfg, device="cpu")
         pm = p["layers"][moe_run(cfg)][0]["moe"]
         pm.requires_grad_(True)
         xi = x.clone().requires_grad_(True)
-        if grouped:
-            mo = cfg.moe
-            cap = max(1, int(B * S * mo.n_experts_per_token
-                             * mo.capacity_factor / mo.n_experts))
-            out, aux = mlp._grouped(pm, xi, cfg, mo.partition, 1, cap)
-            if mo.n_shared_experts:
-                out = out + mlp.mlp(pm["shared"], xi, cfg.act)
-        else:
-            out, aux = mlp.moe(pm, xi, cfg)
+        out, aux = (mlp.moe if grouped else _one_group)(pm, xi, cfg)
         (out.square().sum() + aux).backward()
         res.append([out.detach(), aux.detach(), xi.grad]
                    + [t.grad for t in pm.parameters()])
