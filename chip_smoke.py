@@ -285,7 +285,10 @@ exits non-zero without a result line:
    show, ``(N, 1)`` and ``(1, N)`` (their NCCL census == the fake
    group's); (b) the one-card qwen2 step's census on the card == its
    count on ``meta``; (c) every 16 x 16 cell of phase 17 (a) carries its
-   census keys; (d) mixtral's and deepseek's MoE layers at full width,
+   census keys and equals the committed record (``launch/census_16x16.
+   json``, made on the CPU build): collective bytes by kind and temp
+   bytes exactly, ops and traffic but for ``dryrun.BUILD_DECOMPOSED``;
+   (d) mixtral's and deepseek's MoE layers at full width,
    8 x 512 tokens in 4 dispatch groups on one card == each group alone,
    bitwise, forward and gradients, each group's dropped pairs printed;
    (e) mixtral (1 of 56 layers), recurrentgemma (6 of 38), xlstm (6 of
@@ -6019,7 +6022,11 @@ def census_diff(a: dict, b: dict) -> dict:
 def census_grid(cells: list) -> None:
     """Phase 18 (c): every ``ok`` cell of phase 17 (a) on ``CENSUS_MESH``
     carries the census keys (all ten families run sharded), and their
-    ``census_s`` is printed; the compiler's own keys stay ``null``."""
+    ``census_s`` is printed; the compiler's own keys stay ``null``. Every
+    cell equals the committed record (``launch/census_16x16.json``, made
+    on another PyTorch build), key by key: the collective bytes by kind
+    and the temp bytes exactly, the op census and the traffic but for the
+    ATen ops ``dryrun.BUILD_DECOMPOSED`` names."""
     from repro_torch.launch import dryrun
 
     counted = [c for c in cells if c["status"] == "ok"
@@ -6036,6 +6043,18 @@ def census_grid(cells: list) -> None:
         check(all(c[k] is None for k in dryrun.COMPILER_KEYS
                   if k not in dryrun.CENSUS_KEYS),
               f"census (c): {c['arch']} x {c['shape']} compiler keys null")
+    with open(dryrun.RECORD) as f:
+        record = json.load(f)
+    diffs = dryrun.record_diff(cells, record)
+    for cell, key, got, want in diffs:
+        print(f"[census] (c) {cell}: {key} {got!r} here, {want!r} in the "
+              f"record (torch {record['torch']})")
+    check(not diffs, f"census (c): every cell == the record made on torch "
+          f"{record['torch']} ({len(diffs)} differences)")
+    print(f"[census] (c) {len(counted)} cells == the record made on torch "
+          f"{record['torch']} (here {torch.__version__}): collective bytes "
+          f"and temp bytes exactly, ops and traffic but for "
+          f"{sorted(dryrun.BUILD_DECOMPOSED)}")
     secs = sum(c["census_s"] for c in counted)
     print(f"[census] (c) {len(counted)} cells on {CENSUS_MESH}: "
           f"{secs:.1f} s of census in phase 17 (a)'s workers; "
@@ -6082,6 +6101,10 @@ def main(argv=None) -> int:
     ap.add_argument("--remat-dots", metavar="DIR",
                     help="phase 16 (e)'s child process (started by the "
                     "phase itself)")
+    ap.add_argument("--sharded-train-only", action="store_true",
+                    help="build the kernels and run phase 18 (a) and (e) "
+                    "alone (the sharded trainer on the visible cards), then "
+                    "exit; for a four-card host")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -6091,6 +6114,20 @@ def main(argv=None) -> int:
     if args.remat_dots:
         return dots_child(args.remat_dots)
     t_start = time.perf_counter()
+    if args.sharded_train_only:
+        from repro_torch.kernels import _build
+
+        print(f"[device] {torch.cuda.device_count()} x "
+              f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi_line()} | "
+              f"torch {torch.__version__}")
+        _build.load()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as r:
+            sharded_train_path(r)
+            torch.cuda.empty_cache()
+            family_shard_train(r)
+        print(f"[done] phase 18 (a) and (e) passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
 
     from repro_torch.data.synthetic import make_classification
     from repro_torch.kernels import _build

@@ -22,7 +22,9 @@ memory. The counterparts:
 * ``hlo.collective_bytes`` -> ``Census.collective_bytes``: each
   collective's result bytes, under the reference's kind names
   (``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
-  ``collective-permute``);
+  ``collective-permute``); DTensor's redistribution from one sharded
+  dimension to another runs as its own op, ``_dtensor.
+  shard_dim_alltoall``, and counts as an all-to-all;
 * ``hlo.hbm_bytes`` -> ``Census.hbm_bytes``: operand plus result bytes
   of each dispatched op that is not a view (eager PyTorch runs every op
   as its own kernel, so this is its traffic model: the counterpart of
@@ -78,6 +80,9 @@ _COLLECTIVES = {
     "broadcast": "collective-permute",
     "broadcast_": "collective-permute",
 }
+# DTensor's own shard-to-shard op (``_dtensor.shard_dim_alltoall``), the
+# all-to-all of a redistribution from one sharded dimension to another
+_DTENSOR_COLLECTIVES = {"shard_dim_alltoall": "all-to-all"}
 # not counted: a collective's wait, and ``scalar_tensor``, a 0-d constant
 # (the reference's literal; ``meta`` kernels make more of them than the
 # CPU's or the card's do)
@@ -231,8 +236,10 @@ class Census(TorchDispatchMode):
         if _is_fake(ins) or _is_fake(outs):
             return out  # DTensor's sharding propagation
         name = func.overloadpacket.__name__
-        if func.namespace == "_c10d_functional":
-            kind = _COLLECTIVES.get(name)
+        if func.namespace == "_c10d_functional" or (
+                func.namespace == "_dtensor" and name in _DTENSOR_COLLECTIVES):
+            kind = (_COLLECTIVES if func.namespace == "_c10d_functional"
+                    else _DTENSOR_COLLECTIVES).get(name)
             if kind is not None:
                 self.collective_bytes[kind] = (
                     self.collective_bytes.get(kind, 0.0)
@@ -259,7 +266,8 @@ class Census(TorchDispatchMode):
     def result(self) -> dict:
         """The dry run's keys: ``device_hbm_bytes``,
         ``device_hbm_bytes_flash_adjusted``, ``collective_bytes``,
-        ``hlo_ops`` (the ATen census) and ``temp_bytes`` / ``peak_bytes``
+        ``hlo_ops`` (the ATen census) with ``bytes_by_op`` (the adjusted
+        traffic by op) and ``temp_bytes`` / ``peak_bytes``
         (read after the step returned, its outputs still held)."""
         return {"device_hbm_bytes": float(self.hbm_bytes),
                 "device_hbm_bytes_flash_adjusted":
@@ -267,6 +275,7 @@ class Census(TorchDispatchMode):
                 "collective_bytes": dict(sorted(
                     self.collective_bytes.items())),
                 "hlo_ops": dict(sorted(self.ops.items())),
+                "bytes_by_op": dict(sorted(self.bytes_by_op.items())),
                 "temp_bytes": int(self.peak_bytes - self.outputs_at_peak()),
                 "peak_bytes": int(self.peak_bytes)}
 

@@ -49,12 +49,19 @@ Usage (no card needed):
     python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes]
         [--jobs N] [--census {all,16x16}] [--out results.json]
+    python -m repro_torch.launch.dryrun --all --census 16x16 --jobs 6 \\
+        --record src/repro_torch/launch/census_16x16.json
+
+The record (``RECORD``, ``record_diff``) holds every ``ok`` 16 x 16
+cell's census keys and byte counts as this port's pinned layouts give
+them; a dry run on another PyTorch build must give the same.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import multiprocessing
+import os
 import sys
 import time
 import traceback
@@ -75,6 +82,25 @@ from repro_torch.sharding.rules import (device_bytes, named,
 # the reference's keys that a compiler fills; the census fills the first four
 CENSUS_KEYS = ("device_hbm_bytes", "device_hbm_bytes_flash_adjusted",
                "collective_bytes", "hlo_ops")
+# the committed census of every ``ok`` 16 x 16 cell (``--record``), which
+# another PyTorch build's dry run must reproduce (``record_diff``)
+RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "census_16x16.json")
+# a record cell's keys: the census's, and ``memory``'s byte counts
+RECORD_MEMORY = ("temp_bytes", "argument_bytes", "output_bytes")
+# ATen ops that two PyTorch builds dispatch differently for one program at
+# the same placements (a decomposition, not a layout): the comparison with
+# the record leaves out their counts and their traffic (the record keeps
+# their bytes, ``decomposed_bytes``). Counts in PERF.md (PR 31).
+BUILD_DECOMPOSED = {
+    # torch.utils.checkpoint's non-reentrant wrapper: 2.11 makes two
+    # zero-element tensors a checkpointed call, 2.13 none
+    "empty": "checkpoint's zero-element placeholders",
+    # the backward of a sort's values: 2.11 starts from ``zeros``, 2.13
+    # from ``grad.new_zeros`` (the census reads its argument's bytes)
+    "zeros": "SortBackward's zeros",
+    "new_zeros": "SortBackward's new_zeros",
+}
 COMPILER_KEYS = CENSUS_KEYS + ("xla_cost_flops_per_device_loopbody_once",
                                "lower_s", "compile_s")
 _LOGITS_SPEC = (BATCH_AXES, None, "model")  # the reference's lm_logits pin
@@ -314,6 +340,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "flops_global": float(flops["flops"]),
         "transcendental_global": float(flops["transcendental"]),
         **{k: counted.get(k) for k in COMPILER_KEYS},
+        "bytes_by_op": counted.get("bytes_by_op"),
         "memory": {**memory, "temp_bytes": counted.get("temp_bytes"),
                    "peak_bytes": counted.get("peak_bytes")},
         "census": why or "ok",
@@ -342,6 +369,57 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     return res
 
 
+def record_of(cells: list) -> dict:
+    """The record of a dry run's ``ok`` 16 x 16 cells: ``{"arch x shape":
+    {census keys, memory byte counts}}``, with the PyTorch build that
+    made it."""
+    import torch
+
+    out = {}
+    for c in cells:
+        if c["status"] != "ok" or c["mesh"] != "16x16" or \
+                c["census"] != "ok":
+            continue
+        by_op = c.get("bytes_by_op") or {}
+        out[f"{c['arch']} x {c['shape']}"] = {
+            **{k: c[k] for k in CENSUS_KEYS},
+            **{k: c["memory"][k] for k in RECORD_MEMORY},
+            "decomposed_bytes": {op: by_op.get(op, 0.0)
+                                 for op in sorted(BUILD_DECOMPOSED)}}
+    return {"mesh": "16x16", "torch": torch.__version__, "cells": out}
+
+
+def _comparable(cell: dict) -> dict:
+    """A record cell with ``BUILD_DECOMPOSED``'s ops out of the op census
+    and their traffic out of the traffic totals."""
+    named = sum(cell["decomposed_bytes"].values())
+    out = {k: v for k, v in cell.items() if k != "decomposed_bytes"}
+    out["hlo_ops"] = {k: v for k, v in cell["hlo_ops"].items()
+                      if k not in BUILD_DECOMPOSED}
+    for k in ("device_hbm_bytes", "device_hbm_bytes_flash_adjusted"):
+        out[k] = cell[k] - named
+    return out
+
+
+def record_diff(cells: list, record: dict | None = None) -> list:
+    """Each difference between a dry run's ``ok`` 16 x 16 cells and the
+    record (``RECORD`` when None), as ``(cell, key, got, recorded)``: a
+    cell missing on either side, or any key that differs, the op census
+    and the traffic but for ``BUILD_DECOMPOSED``'s ops."""
+    if record is None:
+        with open(RECORD) as f:
+            record = json.load(f)
+    got, want = record_of(cells)["cells"], record["cells"]
+    diffs = [(c, "cell", c in got, c in want)
+             for c in sorted(set(got) ^ set(want))]
+    for c in sorted(set(got) & set(want)):
+        g, w = _comparable(got[c]), _comparable(want[c])
+        for k, v in w.items():
+            if g.get(k) != v:
+                diffs.append((c, k, g.get(k), v))
+    return diffs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -358,6 +436,9 @@ def main(argv=None) -> int:
                     help="the meshes whose cells the census counts "
                     "(the 2x16x16 mesh's take minutes each: DTensor plans "
                     "its three-dim redistributions by a graph search)")
+    ap.add_argument("--record", metavar="PATH", default=None,
+                    help="write the ok 16x16 cells' census keys there (the "
+                    "committed record is launch/census_16x16.json)")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -394,6 +475,13 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
         print(f"[dryrun] wrote {len(results)} cells to {args.out}")
+    if args.record:
+        rec = record_of(results)
+        with open(args.record, "w") as f:
+            json.dump(rec, f, indent=1, sort_keys=True)
+            f.write("\n")
+        print(f"[dryrun] wrote the census of {len(rec['cells'])} cells to "
+              f"{args.record}")
     return 1 if failed else 0
 
 

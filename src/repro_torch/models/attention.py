@@ -36,8 +36,10 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (apply_rope, dense_init, frozen,
                                        rms_norm, softcap)
 from repro_torch.sharding.activation import (BATCH_AXES, Out, constrain,
-                                            gathered, is_dtensor, on_blocks,
-                                            replicated_like)
+                                            gather_dims, gathered,
+                                            is_dtensor, mesh_size, on_blocks,
+                                            reduce_partial, replicated_like,
+                                            reshard)
 
 NEG_INF = -1e30
 
@@ -146,14 +148,34 @@ def attention_decode(p, x, cfg: ArchConfig, cache: dict, index: int,
     qh = _grouped(q, kv).reshape(B, kv, h // kv, hd)  # fold the group in
     logits = torch.einsum("bgrk,bsgk->bgrs", qh.float(),
                           cache["k"].float()) * (hd ** -0.5)
+    # a sharded program's scores are a partial sum over "model" where the
+    # cache's head_dim is split (the kv heads do not divide); the
+    # reference leaves them to XLA. Pinned: reduce-scattered onto the
+    # group's heads where they divide (the softmax then runs on each
+    # rank's heads), else onto the keys and gathered for the softmax
+    # (fewer bytes on the link than an all-reduce, which moves its buffer
+    # twice)
+    heads_split = (h // kv) % mesh_size("model") == 0
+    logits = reduce_partial(logits, 2 if heads_split else 3)
     logits = softcap(logits, cfg.attn_logit_softcap or None)
     kpos = torch.arange(S_max, device=x.device)
     mask = kpos <= index
     if window:
         mask &= kpos > index - window
     logits = torch.where(replicated_like(mask, logits), logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrs,bsgk->bgrk", probs, cache["v"].float())
+    probs = torch.softmax(gather_dims(logits, (3,)), dim=-1)
+    v = cache["v"]
+    if heads_split and is_dtensor(v) and any(
+            pl.is_shard(3) for pl in v.placements):
+        if any(pl.is_shard(1) for pl in v.placements):
+            # keys split over the data axes: head_dim gathered instead
+            v = gather_dims(v, (3,))
+        else:
+            # both onto the keys (two all-to-alls of a head's block, not
+            # a gather of the scores or the cache): the product is then
+            # a partial sum, reduce-scattered onto the heads below
+            probs, v = reshard(probs, 2, 3), reshard(v, 3, 1)
+    out = torch.einsum("bgrs,bsgk->bgrk", probs, v.float())
     # heads over "model" where they divide, as the full pass pins them (a
     # sharded program's head_dim, split with the cache's, comes back whole)
     out = constrain(out.reshape(B, 1, h, hd).to(x.dtype), _HEADS_TP)

@@ -201,6 +201,11 @@ def apply_block_decode(p, x, cfg: ArchConfig, kind: str, cache, index: int):
     else:
         a, cache = attn_m.attention_decode(p["attn"], h, cfg, cache, index,
                                            window=window, theta=theta)
+    # a sharded program's output projection is a partial sum over the
+    # heads; the reference leaves it to XLA. Pinned to the SP layout the
+    # MLP's output takes (``_ffn``), all-reduced in the activation dtype
+    # before the residual, not later in the norm's f32
+    a = constrain(a, SP_SPEC)
     if cfg.post_norms:
         a = apply_norm(p["post_attn"], a, cfg)
     return _ffn(p, x + a, cfg, decode=True)[0], cache

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.sharding.activation import replicated_like
+from repro_torch.sharding.activation import grad_like, replicated_like
 
 
 class ParamTree(nn.Module):
@@ -124,11 +124,13 @@ def embed_init(shape, dtype, generator: torch.Generator) -> torch.Tensor:
 
 
 def rms_norm(x, weight, eps: float = 1e-6, *, offset: float = 0.0):
-    """RMSNorm in f32; gemma-style ``(1 + w)`` via ``offset=1``."""
+    """RMSNorm in f32; gemma-style ``(1 + w)`` via ``offset=1``. A sharded
+    program's cotangent of the output is placed as the output is
+    (``grad_like``) before the norm's backward takes it."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (offset + weight.float())).to(x.dtype)
+    return grad_like((y * (offset + weight.float())).to(x.dtype))
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
@@ -136,7 +138,7 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+    return grad_like((y * weight.float() + bias.float()).to(x.dtype))
 
 
 _ACTS = {

@@ -39,7 +39,7 @@ from repro_torch.models.common import (META_DRAWS, dense_init, embed_init,
                                        frozen, sinusoidal_positions)
 from repro_torch.sharding.activation import (BATCH_AXES, constrain,
                                             gathered, is_dtensor,
-                                            replicated_like)
+                                            reduce_partial, replicated_like)
 
 POS_DEC = 32_768  # learned decoder positions: the largest assigned shape
 Z_LOSS_COEF = 1e-4
@@ -146,6 +146,10 @@ def embed_tokens(params, cfg: ArchConfig, tokens):
     table = constrain(params["embed"], ("model", None))
     x = F.embedding(tokens, table).to(dtype_of(cfg.dtype))
     if cfg.embed_scale:  # sqrt(d) rounded to the activation dtype first
+        # a vocab-sharded lookup is a partial sum (one rank's row, zeros
+        # elsewhere) that the scale cannot take: reduce-scattered onto the
+        # features first (an exact sum), then gathered below
+        x = reduce_partial(x, 2)
         x = x * x.new_full((), cfg.d_model ** 0.5)
     # batch over the data axes (sequence over data where batch cannot)
     return constrain(x, (BATCH_AXES, None, None))
@@ -160,6 +164,9 @@ def lm_logits(params, cfg: ArchConfig, x):
     if cfg.padded_vocab_size != cfg.vocab_size:
         # pad ids are never predicted
         if is_dtensor(logits):  # a vocab-sharded block: the same fill
+            # (a partial sum, where the head's features are split,
+            # reduce-scattered first to the layout pinned below)
+            logits = reduce_partial(logits, (BATCH_AXES, None, "model"))
             pad = torch.arange(cfg.padded_vocab_size,
                                device=logits.device) >= cfg.vocab_size
             logits = logits.masked_fill(replicated_like(pad, logits), -1e30)
@@ -205,8 +212,13 @@ def _lse(logits):
     partial max and a partial sum), so no rank gathers the logits."""
     if not _vocab_sharded(logits):
         return torch.logsumexp(logits, dim=-1)
-    m = logits.detach().amax(dim=-1, keepdim=True)
-    return torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    # the max and the sum all-reduced explicitly: a token's row whole on
+    # every vocab rank, so the gradient comes back vocab-sharded (left to
+    # DTensor, a build may scatter them over the sequence instead, and the
+    # head's backward then gathers the logits' gradient)
+    m = reduce_partial(logits.detach().amax(dim=-1, keepdim=True), None)
+    return torch.log(reduce_partial(torch.sum(torch.exp(logits - m), dim=-1),
+                                    None)) + m[..., 0]
 
 
 def _gold(logits, labels):
@@ -282,8 +294,11 @@ def chunked_cross_entropy(params, cfg: ArchConfig, h, labels, mask=None):
                                       device=h.device), h)
     for s0 in range(0, S, c):
         mx = mask[:, s0:s0 + c]
-        tot = tot + run(h[:, s0:s0 + c], labels[:, s0:s0 + c], mx)
-        cnt = cnt + torch.sum(mx)
+        # each chunk's partial sums (over the data axes' rows) all-reduced
+        # explicitly before they join the replicated totals
+        tot = tot + reduce_partial(run(h[:, s0:s0 + c], labels[:, s0:s0 + c],
+                                       mx), None)
+        cnt = cnt + reduce_partial(torch.sum(mx), None)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -417,7 +432,10 @@ def forward_encdec(params, cfg: ArchConfig, batch):
     enc_out = encode(params, cfg, batch["frames"])
     x = embed_tokens(params, cfg, batch["tokens"])
     B, S, _ = x.shape
-    x = x + params["pos_embed_dec"][:S].to(x.dtype)
+    # the used rows whole over the data axes first (the table's features
+    # are split there; left to DTensor, the add's layout depends on the
+    # build)
+    x = x + gathered(params["pos_embed_dec"][:S]).to(x.dtype)
     positions = _positions(B, S, x.device)
     if len(params["layers"]) != 1:
         raise ValueError("the encoder-decoder's decoder must be one run")

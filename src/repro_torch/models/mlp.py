@@ -50,7 +50,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import act_fn, dense_init, expert_init, frozen
 from repro_torch.sharding.activation import (BATCH_AXES, Out, constrain,
                                             dispatch_groups, gathered,
-                                            is_dtensor, on_blocks)
+                                            grad_like, is_dtensor, on_blocks,
+                                            reduce_partial)
 
 _HIDDEN_TP = (BATCH_AXES, None, "model")  # the MLP hidden over "model"
 
@@ -75,7 +76,10 @@ def mlp(p, x, act: str = "silu"):
         torch.einsum("bsd,df->bsf", x, gathered(p["w_gate"])), _HIDDEN_TP))
     u = constrain(torch.einsum("bsd,df->bsf", x, gathered(p["w_up"])),
                   _HIDDEN_TP)
-    return torch.einsum("bsf,fd->bsd", g * u, gathered(p["w_down"]))
+    # a sharded program's cotangent of the product placed as the product
+    # is (one redistribution of it, not of the saved g and u)
+    return torch.einsum("bsf,fd->bsd", grad_like(g * u),
+                        gathered(p["w_down"]))
 
 
 # ---------------------------------------------------------------------------
@@ -306,9 +310,12 @@ def _grouped(p, x, cfg: ArchConfig, part: str, G: int, cap: int):
         tuple(Out(0, (0,) + (None,) * n) for n in (3, 1, 2, 1, 1)))
     # density over every group's (token, k) pairs, mean probability over
     # every group's tokens
-    total = count.sum(0)
+    # (a sharded program's sums over the data axes' groups all-reduced
+    # explicitly, before anything else takes them)
+    total = reduce_partial(count.sum(0), None)
     density = total.float() / total.sum().float() * E
-    aux = torch.mean(density * mean_prob.mean(0) * E) * mo.router_aux_coef
+    aux = torch.mean(density * reduce_partial(mean_prob.mean(0), None)
+                     * E) * mo.router_aux_coef
     # the partition's layouts: "ep" the experts over "model" (the expert
     # inputs and slots too), "tp" the expert hidden dimension; the weights
     # whole over the data axes

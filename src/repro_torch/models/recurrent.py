@@ -47,8 +47,8 @@ from repro_torch.analysis.flops import loop_steps
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import act_fn, dense_init, frozen, uniform
 from repro_torch.sharding.activation import (BATCH_AXES, Out, constrain,
-                                            gathered, on_blocks,
-                                            unflatten_last)
+                                            gathered, is_dtensor, on_blocks,
+                                            reduce_partial, unflatten_last)
 
 _CHUNK = 256
 _NEG = -1e30
@@ -109,10 +109,20 @@ def _delayed(x, shift: int):
 def conv1d_step(p, x_t, state):
     """``x_t (B, 1, C)``; ``state (B, width - 1, C)``, the past inputs,
     shifted in place to take ``x_t``. Returns ``(y (B, 1, C), state)``."""
-    window = torch.cat([state, x_t], dim=1)  # (B, width, C)
+    # the past inputs' layout (a sharded program's token gathered over
+    # the channels if they are split)
+    window = torch.cat([state, _like(x_t, state)], dim=1)  # (B, width, C)
     y = torch.einsum("bwc,wc->bc", window, p["w"]) + p["b"]
     state.copy_(window[:, 1:])
     return y[:, None, :], state
+
+
+def _like(t, ref):
+    """``t`` placed as the DTensor ``ref`` is (an explicit
+    redistribution); ``t`` itself otherwise."""
+    if not is_dtensor(ref) or tuple(t.placements) == tuple(ref.placements):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
 
 
 def _conv_state(u_raw, width: int):
@@ -178,12 +188,19 @@ def _rglru_scan(log_a, gx, h0=None):
 
 
 def _rglru_gates(p, u):
-    """``(r, i)``, the recurrence and input gates of ``u``, in f32."""
-    r = torch.sigmoid((torch.einsum("bsw,wv->bsv", u, gathered(p["w_rg"]))
-                       + p["b_rg"]).float())
-    i = torch.sigmoid((torch.einsum("bsw,wv->bsv", u, gathered(p["w_ig"]))
-                       + p["b_ig"]).float())
-    return r, i
+    """``(r, i)``, the recurrence and input gates of ``u``, in f32. A
+    sharded program's gate products are partial sums over the channels'
+    split; the reference leaves them to XLA. Pinned: reduce-scattered onto
+    the channels, the layout the scan takes (an all-reduce would move the
+    whole products twice, a scatter onto the sequence would need an
+    all-to-all before the scan)."""
+
+    def gate(w, b):
+        return torch.sigmoid((reduce_partial(
+            torch.einsum("bsw,wv->bsv", u, gathered(w)), _CHANNELS)
+            + b).float())
+
+    return gate(p["w_rg"], p["b_rg"]), gate(p["w_ig"], p["b_ig"])
 
 
 def rglru_block_full(p, x, cfg: ArchConfig, state=None):
@@ -220,15 +237,20 @@ def init_rglru_state(cfg: ArchConfig, batch: int, dtype, device) -> dict:
 def rglru_block_step(p, x_t, cfg: ArchConfig, state: dict):
     """One decode step. ``x_t (B, 1, D)``; ``state`` ``{"h", "conv"}`` is
     written in place."""
-    gate = _gelu(torch.einsum("bsd,dw->bsw", x_t, p["w_gate_in"]))
-    u = torch.einsum("bsd,dw->bsw", x_t, p["w_in"])
+    # a sharded program's projections of the step's one token are partial
+    # sums over the data axes (DTensor splits the token's features to meet
+    # the weights' blocks rather than gather the weights); pinned to the
+    # channel layout: reduce-scattered onto the batch
+    gate = _gelu(constrain(torch.einsum("bsd,dw->bsw", x_t,
+                                        p["w_gate_in"]), _CHANNELS))
+    u = constrain(torch.einsum("bsd,dw->bsw", x_t, p["w_in"]), _CHANNELS)
     u, _ = conv1d_step(p["conv"], u, state["conv"])
     r, i = _rglru_gates(p, u)
     log_a = -8.0 * _softplus(p["lam"])[None, None, :] * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     h = a[:, 0] * state["h"] + (beta * (i * u.float()))[:, 0]
-    state["h"].copy_(h)
+    state["h"].copy_(_like(h, state["h"]))
     y = torch.einsum("bsw,wd->bsd", h[:, None].to(x_t.dtype) * gate,
                      p["w_out"])
     return y, state
@@ -315,8 +337,13 @@ def _mlstm_qkv_gates(p, xc, up, nh: int, dh: int):
         return unflatten_last(torch.einsum("bse,ef->bsf", t, gathered(w)),
                               (nh, dh)).float()
 
-    gif = torch.einsum("bse,eg->bsg", xc.float(),
-                       gathered(p["w_if"])) + p["b_if"]
+    # a sharded program's gate columns are a partial sum over the
+    # channels' split; pinned: all-reduced (a few columns a token: one
+    # collective, fewer bytes than a reduce-scatter and the gather the
+    # heads' blocks would then need)
+    gif = constrain(torch.einsum("bse,eg->bsg", xc.float(),
+                                 gathered(p["w_if"])),
+                    (BATCH_AXES, None, None)) + p["b_if"]
     return (heads(p["wq"], xc), heads(p["wk"], xc), heads(p["wv"], up),
             gif[..., :nh], _log_sigmoid(gif[..., nh:]))
 
@@ -397,14 +424,38 @@ def mlstm_block_step(p, x_t, cfg: ArchConfig, state: dict):
     written in place."""
     B = x_t.shape[0]
     di, nh, dh = _mlstm_dims(cfg)
-    up = torch.einsum("bsd,de->bse", x_t, p["w_up"])
-    z = torch.einsum("bsd,de->bse", x_t, p["w_gate"])
+    # a sharded program's projections of the step's one token are partial
+    # sums over the data axes (DTensor splits the token's features to meet
+    # the weights' blocks rather than gather the weights); pinned to the
+    # channel layout: reduce-scattered onto the batch
+    up = constrain(torch.einsum("bsd,de->bse", x_t, p["w_up"]), _CHANNELS)
+    z = constrain(torch.einsum("bsd,de->bse", x_t, p["w_gate"]), _CHANNELS)
     uc, _ = conv1d_step(p["conv"], up, state["conv"])
     xc = F.silu(uc)
     q, k, v, log_i, log_f = (
         t[:, 0] for t in _mlstm_qkv_gates(p, xc, up, nh, dh))
+    # the state update on each rank's (batch, heads) block, as the full
+    # form's chunk loop: its inputs pinned to the state's layout
+    one = (BATCH_AXES, "model", None)
+    h, C, n, m_new = on_blocks(
+        _mlstm_update, (q, k, v, log_i, log_f, state["C"], state["n"],
+                        state["m"]),
+        (one,) * 3 + ((BATCH_AXES, "model"),) * 2
+        + ((BATCH_AXES, "model", None, None), one, (BATCH_AXES, "model")),
+        (Out(0, (0, 1, 2)), Out(5, (0, 1, 2, 3)), Out(6, (0, 1, 2)),
+         Out(7, (0, 1))))
+    state["C"].copy_(C)
+    state["n"].copy_(n)
+    state["m"].copy_(m_new)
 
-    C_p, n_p, m_p = state["C"], state["n"], state["m"]
+    out = (h.reshape(B, 1, di).to(x_t.dtype) + p["skip"] * xc) * F.silu(z)
+    return torch.einsum("bse,ed->bsd", out, p["w_down"]), state
+
+
+def _mlstm_update(q, k, v, log_i, log_f, C_p, n_p, m_p):
+    """One mLSTM step from the carry ``(C_p, n_p, m_p)``: ``q, k, v (B,
+    H, Dh)``, gates ``(B, H)``; returns ``(h, C, n, m)``."""
+    dh = q.shape[-1]
     m_new = torch.maximum(log_f + m_p, log_i)
     fw = torch.exp(log_f + m_p - m_new)[..., None]
     iw = torch.exp(log_i - m_new)[..., None]
@@ -415,13 +466,7 @@ def mlstm_block_step(p, x_t, cfg: ArchConfig, state: dict):
     h_num = torch.einsum("bhde,bhe->bhd", C, q) * scale
     qn = torch.einsum("bhd,bhd->bh", q, n) * scale
     denom = torch.maximum(qn.abs(), torch.exp(-m_new))
-    h = (h_num / denom[..., None]).reshape(B, 1, di)
-    C_p.copy_(C)
-    n_p.copy_(n)
-    m_p.copy_(m_new)
-
-    out = (h.to(x_t.dtype) + p["skip"] * xc) * F.silu(z)
-    return torch.einsum("bse,ed->bsd", out, p["w_down"]), state
+    return h_num / denom[..., None], C, n, m_new
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,16 @@ recomputed forward must constrain as the first did.
 ``grad_compressed_boundary`` (the block boundary's bf16 cotangent, pinned
 to the boundary's layout) is ``models/boundary.py``'s, the port's
 trainer's context.
+
+Where the reference leaves a layout to XLA, DTensor's sharding
+propagation would choose one op by op, and two PyTorch builds choose
+differently (2.11 all-reduces a partial sum that 2.13 reduce-scatters,
+and the cotangents follow). The model code pins those sites explicitly:
+``reduce_partial`` (a partial sum reduce-scattered onto a dimension or
+all-reduced, its gradient passed through), ``gather_dims`` and
+``reshard`` (an all-gather, an all-to-all), and ``grad_like`` (a
+cotangent brought to its tensor's own placement before the backward
+takes it). ``launch/census_16x16.json`` records the program they give.
 """
 from __future__ import annotations
 
@@ -34,6 +44,8 @@ import contextlib
 import math
 import threading
 from typing import NamedTuple
+
+import torch
 
 BATCH_AXES = ("pod", "data")  # sentinel resolved against the active strategy
 
@@ -142,6 +154,109 @@ def constrain(x, spec: tuple):
     if want is None or tuple(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def _moved(x, want):
+    want = tuple(want)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+class _Settle(torch.autograd.Function):
+    """A partial sum made whole forward; the gradient passes through in
+    the placement it arrives in (the same global value), as it does where
+    DTensor resolves a partial operand inside an op. ``Redistribute``'s
+    own backward would gather it to a replicated one."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_partial(x, target):
+    """``x`` with each partial sum over a mesh dim made whole explicitly,
+    its other placements kept: reduce-scattered onto tensor dimension
+    ``target`` (an int), all-reduced where ``target`` is None, or placed on
+    that mesh dim as ``constrain(x, target)`` would place it (a spec).
+    The gradient passes through as it arrives (``_Settle``). ``x`` itself
+    when it is not a DTensor or holds no partial sum. The sites where the
+    reference leaves a partial sum to XLA call it before the first op
+    that cannot take one: left to DTensor, the choice between the two
+    collectives (and the dimension scattered onto) depends on the PyTorch
+    build."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    if isinstance(target, tuple):
+        to = target_placements(x, target)
+    else:
+        to = (Replicate() if target is None else Shard(target),) \
+            * x.device_mesh.ndim
+    want = tuple(t if p.is_partial() else p
+                 for p, t in zip(x.placements, to))
+    return _Settle.apply(x, want)
+
+
+class _GradLike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def grad_like(x):
+    """``x`` forward, its cotangent redistributed to ``x``'s own placement
+    on the way back (a reduce-scatter of a partial sum onto ``x``'s
+    shards, explicitly); ``x`` itself when it is not a DTensor or needs no
+    gradient. Where a cotangent would reach an op that cannot take its
+    placement, DTensor's choice of where and how to redistribute it
+    depends on the PyTorch build."""
+    if not is_dtensor(x) or not x.requires_grad:
+        return x
+    return _GradLike.apply(x)
+
+
+def gather_dims(x, dims: tuple):
+    """``x`` whole along tensor dimensions ``dims``: each mesh dim that
+    shards one of them gathered (an all-gather), the rest kept; ``x``
+    itself when it is not a DTensor."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return _moved(x, (Replicate() if any(p.is_shard(d) for d in dims)
+                      else p for p in x.placements))
+
+
+def reshard(x, src: int, dst: int):
+    """``x`` with each mesh dim that shards tensor dimension ``src``
+    sharding ``dst`` instead (an all-to-all); ``x`` itself when it is not
+    a DTensor."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+
+    return _moved(x, (Shard(dst) if p.is_shard(src) else p
+                      for p in x.placements))
+
+
+def mesh_size(axis: str) -> int:
+    """The size of mesh axis ``axis`` under the active ``activation_mesh``
+    (1 without one, or where the mesh has no such axis)."""
+    ctx = _active()
+    return 1 if ctx is None else ctx["sizes"].get(axis, 1)
 
 
 def gathered(w, dims: tuple = ()):
@@ -283,4 +398,5 @@ def on_blocks(fn, args: tuple, specs: tuple, outs: tuple):
 __all__ = ["constrain", "activation_mesh", "resolve_spec", "BATCH_AXES",
            "is_dtensor", "target_placements", "replicated_like",
            "gathered", "dispatch_groups", "on_blocks", "Out",
-           "unflatten_last"]
+           "unflatten_last", "reduce_partial", "gather_dims", "reshard",
+           "mesh_size", "grad_like"]

@@ -279,13 +279,14 @@ JAX_COLL = textwrap.dedent("""
 # port / reference collective bytes by kind, qwen2 reduced, (2, 2), one
 # train step, as measured: the port reduce-scatters each data-parallel
 # weight gradient to its parameter's placement (``shard_like_params``)
-# where XLA's partitioner all-reduces it (all-reduce 0.037x; the port's
+# where XLA's partitioner all-reduces it (all-reduce 0.037x, the
+# logsumexp's max and sum all-reduced explicitly (``lm._lse``); the port's
 # reduce-scatter has no reference term); the port gathers 0.67x the
 # reference's bytes; XLA moves 16,384 bytes by all-to-all and 128 by
 # collective-permute where DTensor uses none. These pins detect a change;
 # what the bytes should be is derived on a data-parallel mesh above
 _RATIOS = {"all-gather": 0.6662810873337189,
-           "all-reduce": 0.036629059307821316,
+           "all-reduce": 0.03702292016059359,
            "all-to-all": 0.0, "collective-permute": 0.0,
            "reduce-scatter": None}
 
