@@ -6101,10 +6101,6 @@ def main(argv=None) -> int:
     ap.add_argument("--remat-dots", metavar="DIR",
                     help="phase 16 (e)'s child process (started by the "
                     "phase itself)")
-    ap.add_argument("--sharded-train-only", action="store_true",
-                    help="build the kernels and run phase 18 (a) and (e) "
-                    "alone (the sharded trainer on the visible cards), then "
-                    "exit; for a four-card host")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -6114,20 +6110,6 @@ def main(argv=None) -> int:
     if args.remat_dots:
         return dots_child(args.remat_dots)
     t_start = time.perf_counter()
-    if args.sharded_train_only:
-        from repro_torch.kernels import _build
-
-        print(f"[device] {torch.cuda.device_count()} x "
-              f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi_line()} | "
-              f"torch {torch.__version__}")
-        _build.load()
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as r:
-            sharded_train_path(r)
-            torch.cuda.empty_cache()
-            family_shard_train(r)
-        print(f"[done] phase 18 (a) and (e) passed in "
-              f"{time.perf_counter() - t_start:.1f} s")
-        return 0
 
     from repro_torch.data.synthetic import make_classification
     from repro_torch.kernels import _build

@@ -152,9 +152,13 @@ def attention_decode(p, x, cfg: ArchConfig, cache: dict, index: int,
     # cache's head_dim is split (the kv heads do not divide); the
     # reference leaves them to XLA. Pinned: reduce-scattered onto the
     # group's heads where they divide (the softmax then runs on each
-    # rank's heads), else onto the keys and gathered for the softmax
-    # (fewer bytes on the link than an all-reduce, which moves its buffer
-    # twice)
+    # rank's heads; the census counts 1/m of the scores, m ranks on
+    # "model", an all-reduce the whole), else onto the keys and gathered
+    # for the softmax. That route counts (m + 1)/m of the scores in the
+    # census's result bytes, an all-reduce 1; on the link the two move
+    # the same bytes (a ring all-reduce is a reduce-scatter and an
+    # all-gather), and the decode step keeps no all-reduce of the scores
+    # (PERF.md §6 counts the cells where the census sees the 1/m more)
     heads_split = (h // kv) % mesh_size("model") == 0
     logits = reduce_partial(logits, 2 if heads_split else 3)
     logits = softcap(logits, cfg.attn_logit_softcap or None)

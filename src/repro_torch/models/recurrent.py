@@ -47,7 +47,7 @@ from repro_torch.analysis.flops import loop_steps
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import act_fn, dense_init, frozen, uniform
 from repro_torch.sharding.activation import (BATCH_AXES, Out, constrain,
-                                            gathered, is_dtensor, on_blocks,
+                                            gathered, on_blocks, placed_like,
                                             reduce_partial, unflatten_last)
 
 _CHUNK = 256
@@ -111,18 +111,10 @@ def conv1d_step(p, x_t, state):
     shifted in place to take ``x_t``. Returns ``(y (B, 1, C), state)``."""
     # the past inputs' layout (a sharded program's token gathered over
     # the channels if they are split)
-    window = torch.cat([state, _like(x_t, state)], dim=1)  # (B, width, C)
+    window = torch.cat([state, placed_like(x_t, state)], dim=1)  # (B, w, C)
     y = torch.einsum("bwc,wc->bc", window, p["w"]) + p["b"]
     state.copy_(window[:, 1:])
     return y[:, None, :], state
-
-
-def _like(t, ref):
-    """``t`` placed as the DTensor ``ref`` is (an explicit
-    redistribution); ``t`` itself otherwise."""
-    if not is_dtensor(ref) or tuple(t.placements) == tuple(ref.placements):
-        return t
-    return t.redistribute(ref.device_mesh, ref.placements)
 
 
 def _conv_state(u_raw, width: int):
@@ -250,7 +242,7 @@ def rglru_block_step(p, x_t, cfg: ArchConfig, state: dict):
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     h = a[:, 0] * state["h"] + (beta * (i * u.float()))[:, 0]
-    state["h"].copy_(_like(h, state["h"]))
+    state["h"].copy_(placed_like(h, state["h"]))
     y = torch.einsum("bsw,wd->bsd", h[:, None].to(x_t.dtype) * gate,
                      p["w_out"])
     return y, state

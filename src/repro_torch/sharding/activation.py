@@ -163,6 +163,12 @@ def _moved(x, want):
     return x.redistribute(x.device_mesh, want)
 
 
+def placed_like(t, ref):
+    """``t`` placed as the DTensor ``ref`` is (an explicit
+    redistribution); ``t`` itself when ``ref`` is not a DTensor."""
+    return _moved(t, ref.placements) if is_dtensor(ref) else t
+
+
 class _Settle(torch.autograd.Function):
     """A partial sum made whole forward; the gradient passes through in
     the placement it arrives in (the same global value), as it does where
@@ -399,4 +405,4 @@ __all__ = ["constrain", "activation_mesh", "resolve_spec", "BATCH_AXES",
            "is_dtensor", "target_placements", "replicated_like",
            "gathered", "dispatch_groups", "on_blocks", "Out",
            "unflatten_last", "reduce_partial", "gather_dims", "reshard",
-           "mesh_size", "grad_like"]
+           "mesh_size", "grad_like", "placed_like"]

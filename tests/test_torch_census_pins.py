@@ -16,6 +16,7 @@ equals the committed one, key by key.
 """
 import inspect
 import math
+import traceback
 from pathlib import Path
 
 import pytest
@@ -24,7 +25,6 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.configs as cfgs  # noqa: E402
 from repro_torch.analysis import census as census_m  # noqa: E402
-from repro_torch.analysis import sites as sites_m  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import fake_device_mesh  # noqa: E402
 from repro_torch.models import attention, common, lm, recurrent  # noqa: E402
@@ -58,23 +58,31 @@ def _placed(t, spec, mesh):
     return rules._place(t, spec, mesh)
 
 
-class SiteCensus(sites_m.SiteCensus):
-    """``analysis.sites.SiteCensus`` with ``by_line``: each collective's
-    bytes by ``(file name, line)`` of the innermost model-code frame that
-    issued it, by kind."""
+class SiteCensus(census_m.Census):
+    """``Census`` with ``by_line``: each collective's bytes by kind, filed
+    under ``(file name, line)`` of the innermost frame of the port's model
+    code that issued it (``"?"`` outside it, as in a backward)."""
 
-    @property
-    def by_line(self) -> dict:
-        out = {}
-        for key, (_, nbytes) in self.sites.items():
-            where, what = key.split(" | ")
-            site = where.split()[1]
-            if ":" in site:
-                path, line = site.split(":")
-                site = (Path(path).name, int(line))
-            by = out.setdefault(site, {})
-            kind = what.split()[0]
-            by[kind] = by.get(kind, 0) + nbytes
+    def __init__(self):
+        super().__init__()
+        self.by_line: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        table = {"_c10d_functional": census_m._COLLECTIVES,
+                 "_dtensor": census_m._DTENSOR_COLLECTIVES}.get(
+                     func.namespace, {})
+        kind = table.get(func.overloadpacket.__name__)
+        outs = census_m._tensors(out)
+        if out is NotImplemented or kind is None or census_m._is_fake(outs):
+            return out
+        ours = [f for f in traceback.extract_stack()
+                if "repro_torch/models/" in f.filename]
+        site = (Path(ours[-1].filename).name, ours[-1].lineno) if ours \
+            else "?"
+        by = self.by_line.setdefault(site, {})
+        by[kind] = by.get(kind, 0) + self._mult * sum(
+            map(census_m._bytes, outs))
         return out
 
 
